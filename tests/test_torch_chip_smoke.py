@@ -1,0 +1,52 @@
+"""chip_smoke.py's CPU-checkable parts: its scene copy, its launch plan,
+and its in-memory samples through the port's eval core loop.
+
+The scene copy must equal tests/synthetic_scene.py exactly (same numpy
+arithmetic); the depth check uses the same 0.05 bar as the JAX
+package's verify recipe.
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from tests import synthetic_scene
+from itermvs_tpu_torch.eval import run_depth
+from itermvs_tpu_torch.io import read_pfm
+from itermvs_tpu_torch.models import Pipeline
+from itermvs_tpu_torch.weights import load_npz_weights, pretrained_path
+
+
+def test_scene_copy_equals_the_test_scene():
+    cams = chip_smoke.make_cameras(3, 64, 48, np.random.RandomState(0))
+    want = synthetic_scene.make_cameras(3, 64, 48, np.random.RandomState(0))
+    for (k, e), (kw, ew) in zip(cams, want):
+        assert np.array_equal(k, kw) and np.array_equal(e, ew)
+        rgb, depth = chip_smoke.render_view(k, e, 64, 48)
+        rgb_w, depth_w = synthetic_scene.render_view(kw, ew, 64, 48)
+        assert np.array_equal(rgb, rgb_w) and np.array_equal(depth, depth_w)
+
+
+def test_launch_plan_is_52_per_map_at_1600x1152():
+    shapes = chip_smoke.sweep_shapes(1600, 1152, 5, 4)
+    assert [s[-1] for s in shapes] == [4, 16, 16, 16]
+    assert [s[:8] for s in shapes] == [
+        ("init", 1, 32, 144, 200, 144, 200, 48),
+        ("iter_level1", 1, 4, 288, 400, 576, 800, 16),
+        ("iter_level2", 1, 4, 288, 400, 288, 400, 32),
+        ("iter_level3", 1, 2, 288, 400, 144, 200, 48)]
+
+
+@pytest.mark.parametrize("cache", [True, False])
+def test_in_memory_samples_through_run_depth(tmp_path, cache):
+    samples, gts = chip_smoke.make_samples(512, 384, 3, 0)
+    assert samples[0]["imgs"]["level_0"].shape == (1, 3, 384, 512, 3)
+    model = load_npz_weights(Pipeline(iteration=4), pretrained_path("dtu"))
+    secs = run_depth(model, samples, str(tmp_path), torch.device("cpu"),
+                     feature_cache=cache, log=lambda *_: None)
+    assert len(secs) == 3
+    depth, _ = read_pfm(os.path.join(tmp_path, "depth_est", "00000000.pfm"))
+    assert depth.shape == (384, 512, 1) and np.isfinite(depth).all()
+    assert np.median(np.abs(depth[..., 0] - gts[0])) < 0.05
