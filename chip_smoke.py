@@ -6,17 +6,25 @@
 1. Checks for a CUDA device and prints its name and power limit.
 2. Builds the port's CUDA kernels from itermvs_tpu_torch/csrc with nvcc.
 3. Holds each kernel against its plain PyTorch version on the card at
-   the 1600x1152 shapes of the depth path, and times kernel, plain
-   version and (for corr_epilogue) one PyTorch call of the same function.
+   the 1600x1152 shapes of the depth path (sweep_premul, corr_epilogue)
+   and of fusion (fusion_consistency, with 10 sources as DTU's pair
+   lists give and with the 4 of the fusion run below, which the report
+   line carries), and times kernel, plain version and (for corr_epilogue)
+   one PyTorch call of the same function.
 4. Runs the port's eval core loop (`itermvs_tpu_torch.eval.run_depth`)
    with the vendored DTU weights and the feature cache on a 5-view
    textured-plane scene made in memory at 1600x1152, one depth map per
    reference view, float32, 4 GRU iterations; reads the PFMs back and
    checks them against the scene's analytic depth; checks that each
-   kernel launched as often as the chunk plan predicts; prints maps/s,
-   and again for two more passes over the same maps.
-5. Profiles the same maps once more with torch.profiler: device time
-   by kernel and by kind, and the device's idle share.
+   kernel launched as often as the chunk plan predicts.
+5. Fuses those 5 depth maps (`itermvs_tpu_torch.fusion.fuse_views`,
+   each view against the other 4) into a PLY, reads it back and checks
+   it against the plane, checks the mask PNGs and that
+   fusion_consistency launched once per reference view; then fuses the
+   scene's analytic depth maps, where most pixels must survive.
+6. Two more timed depth passes over the same maps (maps/s), then
+   profiles them once more with torch.profiler: device time by kernel
+   and by kind, and the device's idle share.
 
 The last line is `{"ok": true, "device": {...}}`; any failed phase
 exits non-zero before it. Without a CUDA device, or outside the repo,
@@ -36,10 +44,12 @@ import torch
 
 from itermvs_tpu_torch import kernels
 from itermvs_tpu_torch.eval import run_depth
-from itermvs_tpu_torch.io import read_pfm
+from itermvs_tpu_torch.fusion import MemoryViews, consistency_matrices, fuse_views
+from itermvs_tpu_torch.io import read_pfm, read_ply
 from itermvs_tpu_torch.models import Pipeline
 from itermvs_tpu_torch.models.itermvs import (
     CORR_INTERVALS, GROUPS, LEVELS, NUM_INIT_SAMPLES)
+from itermvs_tpu_torch.ops.consistency import consistency, consistency_plain
 from itermvs_tpu_torch.ops.sweep import sample_chunks, sweep_premul, sweep_premul_plain
 from itermvs_tpu_torch.ops.sweep_epilogue import corr_epilogue, corr_epilogue_plain
 from itermvs_tpu_torch.weights import load_npz_weights, pretrained_path
@@ -47,6 +57,7 @@ from itermvs_tpu_torch.weights import load_npz_weights, pretrained_path
 WIDTH, HEIGHT = 1600, 1152
 VIEWS = 5
 ITERATION = 4
+DTU_SOURCES = 10        # sources per reference view in DTU's pair lists
 SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and
 # float32 rate outside the tensor cores.
@@ -109,8 +120,8 @@ def make_cameras(num_views, width, height, rng):
     return cams
 
 
-def render_view(K, E, width, height):
-    """(rgb [H,W,3] in [0,1], depth [H,W]) of the plane z = Z0."""
+def _plane_hit(K, E, width, height):
+    """(world hit points [H,W,3], depth [H,W]) of the plane z = Z0."""
     xs, ys = np.meshgrid(np.arange(width, dtype=np.float64),
                          np.arange(height, dtype=np.float64))
     pix = np.stack([xs, ys, np.ones_like(xs)], axis=-1)
@@ -121,22 +132,35 @@ def render_view(K, E, width, height):
     dirs_world = dirs @ R
     s_hit = (Z0 - cam_center[2]) / dirs_world[..., 2]
     pw = cam_center + s_hit[..., None] * dirs_world
-    depth = (s_hit * dirs[..., 2]).astype(np.float32)
+    return pw, (s_hit * dirs[..., 2]).astype(np.float32)
+
+
+def render_view(K, E, width, height):
+    """(rgb [H,W,3] in [0,1], depth [H,W]) of the plane z = Z0."""
+    pw, depth = _plane_hit(K, E, width, height)
     return _texture(pw[..., 0], pw[..., 1]).astype(np.float32), depth
 
 
-def make_samples(width, height, views, seed):
-    """One batch-1 sample per reference view, in the loader's layout
-    (images quantized to uint8 and scaled to [-1, 1] as the loader does;
-    only level_0 images, which is all the model reads), plus each view's
-    analytic depth."""
+def render_scene(width, height, views, seed):
+    """(cameras [(K, E)], images uint8 [H,W,3], analytic depths [H,W]) of
+    the plane scene."""
     cams = make_cameras(views, width, height, np.random.RandomState(seed))
-    imgs, depths, projs = [], [], []
+    images, depths = [], []
     for K, E in cams:
         rgb, depth = render_view(K, E, width, height)
-        u8 = (rgb * 255).astype(np.uint8)
-        imgs.append(2.0 * u8.astype(np.float32) / 255.0 - 1.0)
+        images.append((rgb * 255).astype(np.uint8))
         depths.append(depth)
+    return cams, images, depths
+
+
+def samples_of(cams, images):
+    """One batch-1 sample per reference view of a rendered scene, in the
+    loader's layout (uint8 images scaled to [-1, 1] as the loader does;
+    only level_0 images, which is all the model reads)."""
+    views = len(cams)
+    imgs, projs = [], []
+    for (K, E), u8 in zip(cams, images):
+        imgs.append(2.0 * u8.astype(np.float32) / 255.0 - 1.0)
         pyr = {}
         for level in range(4):
             k = K.copy()
@@ -158,7 +182,7 @@ def make_samples(width, height, views, seed):
             "scan": ["synthetic"],
             "view_ids": np.array([vids], np.int32),
         })
-    return samples, depths
+    return samples
 
 
 # --------------------------------------------------------------- kernels
@@ -208,8 +232,8 @@ def time_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes, ops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
+def bound_ms(nbytes, ops, ops_per_s=PEAK_F32_PER_S):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -287,15 +311,135 @@ def check_kernels(shapes):
     return per_map
 
 
+# ---------------------------------------------------------------- fusion
+# The settings eval.py fuses a custom scene with.
+FUSION = dict(geo_pixel_thres=1.0, geo_depth_thres=0.01, photo_thres=0.3,
+              geo_mask_thres=3)
+# f32 instructions the function of K3 needs, counted from
+# csrc/fusion_consistency.cu with each a*b+c as one FMA (the kernel itself
+# keeps them apart to match its plain version's rounding; a divide or a
+# sqrt counts as one). Per (pixel, source): ref->src 9, K_src 9, 2
+# divides, axis taps 12 + corner weights 4 + corner sum 4, K_src^-1 times
+# the sample 9, src->ref 9, K_ref + 1e-6 10, 2 divides, dist 5, relative
+# 3, tests and sums 4. Per pixel: the back-projection 9, the average 3,
+# the bits 2. They issue at the FMA rate, half the FLOP rate.
+K3_INSTR_PER_PIXEL_SOURCE = 82
+K3_INSTR_PER_PIXEL = 14
+PEAK_F32_INSTR_PER_S = PEAK_F32_PER_S / 2
+
+
+def consistency_inputs(width, height, sources, seed, device):
+    """K3's arguments for reference view 0 of the plane scene
+    (`make_cameras(sources + 1, ...)`, analytic depths) with planted cases:
+    reference pixels of depth 0, -1 and 1e-6 (a reprojected z near the
+    1e-6 of the second divide); the last source moved 50 units sideways,
+    so that every projection into it leaves the image; a seeded
+    confidence in [0, 0.6) with some pixels exactly at the 0.3 threshold."""
+    rng = np.random.RandomState(seed)
+    cams = make_cameras(sources + 1, width, height, rng)
+    depths = [_plane_hit(K, E, width, height)[1] for K, E in cams]
+    ref = depths[0].copy()
+    ref[:8, :8] = 0.0
+    ref[height // 2, width // 4:width // 4 + 16] = -1.0
+    ref[height // 3, width // 3:width // 3 + 16] = 1e-6
+    conf = rng.uniform(0.0, 0.6, (height, width)).astype(np.float32)
+    conf[::97, ::89] = np.float32(FUSION["photo_thres"])
+    src_cams = [(K, E.copy()) for K, E in cams[1:]]
+    if sources:
+        src_cams[-1][1][0, 3] += 50.0
+    mats = consistency_matrices(cams[0][0], cams[0][1], [K for K, _ in src_cams],
+                                [E for _, E in src_cams])
+    maps = (torch.from_numpy(ref), torch.from_numpy(conf),
+            torch.from_numpy(np.array(depths[1:], np.float32).reshape(sources, height, width)))
+    return tuple(t.to(device) for t in maps + mats)
+
+
+def compare_consistency(got, want):
+    """(share of pixels with equal bits, max |depth_avg diff| over them,
+    tolerance 1e-5 x max |depth_avg|)."""
+    equal = got[1] == want[1]
+    share = equal.float().mean().item()
+    err = (got[0] - want[0]).abs()[equal].max().item() if share else float("inf")
+    return share, err, 1e-5 * want[0].abs().max().item()
+
+
+def check_consistency(width, height, sources_list, rounds=7, reps=100):
+    """K3 against its plain version on the card for each source count; one
+    JSON line each. K3's time is the median of `rounds` rounds of `reps`
+    launches (their spread is in the line). Returns {sources: record}."""
+    records = {}
+    for sources in sources_list:
+        inputs = consistency_inputs(width, height, sources, SEED, "cuda")
+        got = consistency(*inputs, **FUSION)
+        want = consistency_plain(*inputs, **FUSION)
+        share, err, tol = compare_consistency(got, want)
+        p = width * height
+        nbytes = 4 * (2 * p + sources * p + p) + p
+        instr = p * (sources * K3_INSTR_PER_PIXEL_SOURCE + K3_INSTR_PER_PIXEL)
+        rounds_ms = sorted(time_ms(lambda: consistency(*inputs, **FUSION), reps=reps)
+                           for _ in range(rounds))
+        rec = {"kernel": "fusion_consistency", "size": [width, height],
+               "sources": sources, "bits_equal_share": share,
+               "max_abs_err": err, "tol": tol,
+               "geo_share": ((got[1] & 2) > 0).float().mean().item(),
+               "ms": rounds_ms[rounds // 2], "ms_min": rounds_ms[0],
+               "ms_max": rounds_ms[-1], "rounds": rounds, "reps": reps,
+               "plain_ms": time_ms(lambda: consistency_plain(*inputs, **FUSION), reps=5),
+               "library_ms": None, "bytes": nbytes, "f32_instructions": instr}
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, instr, PEAK_F32_INSTR_PER_S)
+        print(json.dumps(rec))
+        if not (share >= 0.9999 and err <= tol):
+            raise SystemExit(f"fusion_consistency with {sources} sources: bits equal "
+                             f"on {share:.6f} (< 0.9999) or max |err| {err} > {tol}")
+        records[sources] = rec
+        del inputs, got, want
+        torch.cuda.empty_cache()
+    return records
+
+
+def fusion_views(cams, depths, confidences, images):
+    """`MemoryViews` of a rendered scene: uint8 images become [0,1] RGB."""
+    return MemoryViews({v: dict(K=K, E=E, depth=d, confidence=c,
+                                image=img.astype(np.float32) / np.float32(255.0))
+                        for v, ((K, E), d, c, img)
+                        in enumerate(zip(cams, depths, confidences, images))})
+
+
+def fuse_scene(views, outdir, device):
+    """Fuse every view of `views` against all the others with `FUSION`;
+    reads the PLY back and checks the mask files. Returns a record with
+    the points, the wall and per-phase seconds and |z - Z0| of the cloud."""
+    vids = sorted(views.views)
+    pairs = [(v, [s for s in vids if s != v]) for v in vids]
+    ply = os.path.join(outdir, "fused.ply")
+    n, secs, phases = fuse_views(views, pairs, outdir, ply, **FUSION,
+                                 verbose=False, device=device)
+    xyz, rgb = read_ply(ply)
+    if xyz.shape[0] != n or rgb is None:
+        raise SystemExit(f"{ply}: {xyz.shape[0]} vertices read, {n} written")
+    missing = [f"{v:0>8}_{k}.png" for v in vids for k in ("photo", "geo", "final")
+               if not os.path.exists(os.path.join(outdir, "mask", f"{v:0>8}_{k}.png"))]
+    if missing:
+        raise SystemExit(f"fusion wrote no mask files {missing}")
+    h, w = views.views[vids[0]]["depth"].shape
+    dz = np.abs(xyz[:, 2] - Z0)
+    return {"views": len(vids), "points": n, "pixel_share": n / (len(vids) * h * w),
+            "median_abs_z_minus_z0": float(np.median(dz)) if n else None,
+            "max_abs_z_minus_z0": float(dz.max()) if n else None,
+            "seconds": secs, "phases_thread_s": phases}
+
+
 # ------------------------------------------------------------ end to end
 def launch_counts():
     return {"sweep_premul": sweep_premul.launches,
-            "corr_epilogue": corr_epilogue.launches}
+            "corr_epilogue": corr_epilogue.launches,
+            "fusion_consistency": consistency.launches}
 
 
 def reset_launch_counts():
     sweep_premul.launches = 0
     corr_epilogue.launches = 0
+    consistency.launches = 0
 
 
 def _category(name):
@@ -369,9 +513,13 @@ def main():
     model = load_npz_weights(Pipeline(iteration=ITERATION), pretrained_path("dtu")).cuda()
     shapes = sweep_shapes(WIDTH, HEIGHT, VIEWS, ITERATION)
     per_map = check_kernels(shapes)
+    # K3 at DTU's 10 sources, and at the 4 of the main path's fusion (the
+    # shape its reported time and bound are taken at).
+    k3 = check_consistency(WIDTH, HEIGHT, (DTU_SOURCES, VIEWS - 1))[VIEWS - 1]
 
     t0 = time.perf_counter()
-    samples, gt_depths = make_samples(WIDTH, HEIGHT, VIEWS, SEED)
+    cams, images, gt_depths = render_scene(WIDTH, HEIGHT, VIEWS, SEED)
+    samples = samples_of(cams, images)
     print(json.dumps({"scene_seconds": time.perf_counter() - t0,
                       "size": [WIDTH, HEIGHT], "views": VIEWS}))
 
@@ -409,8 +557,37 @@ def main():
         bad = [e for e in errs if not e["median_abs_err_vs_gt"] < 0.05]
         if bad:
             raise SystemExit(f"depth check failed: {bad}")
-        if any(c != expected for c in counts.values()):
-            raise SystemExit(f"launch counts {counts} != planned {expected}")
+        planned = {"sweep_premul": expected, "corr_epilogue": expected,
+                   "fusion_consistency": 0}
+        if counts != planned:
+            raise SystemExit(f"launch counts {counts} != planned {planned}")
+
+        # Fusion of this pass's depth maps, then of the analytic ones.
+        learned = []
+        for v in range(VIEWS):
+            depth, _ = read_pfm(os.path.join(outdir, "depth_est", f"{v:08d}.pfm"))
+            conf, _ = read_pfm(os.path.join(outdir, "confidence", f"{v:08d}.pfm"))
+            learned.append((depth[..., 0], conf[..., 0]))
+        reset_launch_counts()
+        fused = fuse_scene(fusion_views(cams, *zip(*learned), images),
+                           os.path.join(tmp, "fused"), "cuda")
+        torch.cuda.synchronize()
+        fusion_counts = launch_counts()
+        fused.update(scene="learned depth", launches=fusion_counts)
+        print(json.dumps({"fusion": fused}))
+        if fusion_counts != {"sweep_premul": 0, "corr_epilogue": 0,
+                             "fusion_consistency": VIEWS}:
+            raise SystemExit(f"fusion launch counts {fusion_counts}: "
+                             f"want {VIEWS} of fusion_consistency only")
+        if not (fused["pixel_share"] >= 0.05 and fused["median_abs_z_minus_z0"] < 0.05):
+            raise SystemExit(f"fused cloud of the learned depth failed: {fused}")
+        exact = fuse_scene(
+            fusion_views(cams, gt_depths, [np.ones_like(d) for d in gt_depths], images),
+            os.path.join(tmp, "fused_exact"), "cuda")
+        exact["scene"] = "analytic depth, unit confidence"
+        print(json.dumps({"fusion": exact}))
+        if not (exact["pixel_share"] > 0.5 and exact["max_abs_z_minus_z0"] < 0.02):
+            raise SystemExit(f"fused cloud of the analytic depth failed: {exact}")
 
         # Two more timed passes over the same maps: the run-to-run spread.
         repeats = []
@@ -427,7 +604,9 @@ def main():
     sources = {"corr_epilogue": ("itermvs_tpu_torch/csrc/corr_epilogue.cu",
                                  "itermvs_tpu/ops/sweep_epilogue.py:61"),
                "sweep_premul": ("itermvs_tpu_torch/csrc/sweep_premul.cu",
-                                "itermvs_tpu/ops/grid_sample.py:472")}
+                                "itermvs_tpu/ops/grid_sample.py:472"),
+               "fusion_consistency": ("itermvs_tpu_torch/csrc/fusion_consistency.cu",
+                                      "itermvs_tpu/fusion.py:57")}
     report = []
     for name in ("corr_epilogue", "sweep_premul"):
         tot = per_map[name]
@@ -439,6 +618,14 @@ def main():
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": tot["library_ms"], "per": "one depth map"})
+    report.append({
+        "name": "fusion_consistency", "route": "cuda",
+        "source": sources["fusion_consistency"][0],
+        "replaces": sources["fusion_consistency"][1],
+        "launches": fusion_counts["fusion_consistency"],
+        "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
+        "per": f"one {WIDTH}x{HEIGHT} reference view, {VIEWS - 1} sources"})
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Dataset registry: the eval loaders ported so far (tanks, eth3d and the
-training loaders are not ported yet)."""
+"""Dataset registry: the eval loaders (the training loaders are not
+ported yet)."""
 from __future__ import annotations
 
 import importlib
@@ -7,6 +7,8 @@ import importlib
 _ALIASES = {
     "dtu_yao_eval": "itermvs_tpu_torch.data.dtu_eval",
     "custom": "itermvs_tpu_torch.data.custom",
+    "tanks": "itermvs_tpu_torch.data.tanks",
+    "eth3d": "itermvs_tpu_torch.data.eth3d",
 }
 
 

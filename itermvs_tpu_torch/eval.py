@@ -1,13 +1,14 @@
-"""Predict depth maps with the PyTorch port (the port of eval.py::save_depth).
+"""Predict depth, filter and fuse with the PyTorch port (the port of eval.py).
 
     python -m itermvs_tpu_torch.eval --dataset=custom --testpath=SCENE \\
         --n_views 5 --img_wh 640 480 --outdir=OUT [--device cpu]
 
-Writes `OUT/{depth_est,confidence}/<view:08d>.pfm` per reference view.
-Flags keep the names and defaults of the JAX eval.py for everything
-`save_depth` reads; `--device` (default `cuda`) is the port's own, and a
-missing card is an error, not a silent run on the CPU. Fusion
-(`run_fusion`) is not ported yet.
+Writes `OUT/{depth_est,confidence}/<view:08d>.pfm` per reference view
+(`save_depth`), then fuses each scan (`run_fusion`, fusion.py) into
+`OUT/mask/*.png` and a PLY named per dataset as eval.py names it. Flags
+keep the names and defaults of the JAX eval.py (float32 only);
+`--device` (default `cuda`) is the port's own, both steps run on it, and
+a missing card is an error, not a silent run on the CPU.
 
 The core loop, `run_depth`, takes any iterable of samples in the
 loader's batched layout, so callers without image files (e.g.
@@ -28,15 +29,21 @@ import torch
 
 from itermvs_tpu_torch.data import find_dataset_def
 from itermvs_tpu_torch.data.base import split_decode_cache_cap
+from itermvs_tpu_torch.fusion import filter_depth
 from itermvs_tpu_torch.io import save_pfm
 from itermvs_tpu_torch.models import Pipeline
+from itermvs_tpu_torch.ops.consistency import quantize_depth
 from itermvs_tpu_torch.weights import load_npz_weights, pretrained_path
 
-parser = argparse.ArgumentParser(description="Predict depth (PyTorch port)")
+parser = argparse.ArgumentParser(description="Predict depth, filter, and fuse "
+                                             "(PyTorch port)")
 parser.add_argument("--dataset", default="dtu_yao_eval",
-                    choices=["dtu_yao_eval", "custom"], help="select dataset")
+                    choices=["dtu_yao_eval", "custom", "tanks", "eth3d"],
+                    help="select dataset")
 parser.add_argument("--testpath", help="testing data path")
 parser.add_argument("--testlist", help="testing scan list")
+parser.add_argument("--split", default="intermediate",
+                    help="tanks: intermediate or advanced; eth3d: test or train")
 parser.add_argument("--batch_size", type=int, default=1, help="testing batch size")
 parser.add_argument("--n_views", type=int, default=5, help="num of view")
 parser.add_argument("--img_wh", nargs="+", type=int, default=None,
@@ -44,6 +51,8 @@ parser.add_argument("--img_wh", nargs="+", type=int, default=None,
 parser.add_argument("--loadckpt", default=None,
                     help="vendored .npz weights (default: checkpoints/dtu)")
 parser.add_argument("--outdir", default="./outputs", help="output dir")
+parser.add_argument("--display", action="store_true",
+                    help="write the depth and mask images under OUT/display")
 parser.add_argument("--iteration", type=int, default=4, help="num of iteration of GRU")
 parser.add_argument("--precision", default="float32", choices=["float32"],
                     help="compute precision (bfloat16 is not ported yet)")
@@ -59,8 +68,31 @@ parser.add_argument("--result_wire", default="uint16", choices=["uint16", "float
                     help="device->host transport for depth/confidence maps: "
                          "uint16 quantizes each map against its own range "
                          "on the device, float32 copies raw outputs")
+parser.add_argument("--scan_shard", default=None, metavar="I/N",
+                    help="process only every N-th scan starting at I "
+                         "(0-based), e.g. 0/4 .. 3/4, one process per card")
+parser.add_argument("--geo_pixel_thres", type=float, default=1,
+                    help="pixel threshold for geometric consistency filtering")
+parser.add_argument("--geo_depth_thres", type=float, default=0.01,
+                    help="depth threshold for geometric consistency filtering")
+parser.add_argument("--photo_thres", type=float, default=0.3,
+                    help="threshold for photometric consistency filtering")
 parser.add_argument("--device", default="cuda",
                     help="torch device; cuda (default) or cpu")
+
+# geo_mask_thres per scan (the reference's tables).
+TANKS_INTERMEDIATE_THRES = {"Family": 5, "Francis": 6, "Horse": 5, "Lighthouse": 6,
+                            "M60": 5, "Panther": 5, "Playground": 5, "Train": 5}
+TANKS_ADVANCED_THRES = {"Auditorium": 3, "Ballroom": 4, "Courtroom": 4,
+                        "Museum": 4, "Palace": 5, "Temple": 4}
+ETH3D_TEST_THRES = {"botanical_garden": 1, "boulders": 1, "bridge": 2, "door": 2,
+                    "exhibition_hall": 2, "lecture_room": 2, "living_room": 2,
+                    "lounge": 1, "observatory": 2, "old_computer": 2, "statue": 2,
+                    "terrace_2": 2}
+ETH3D_TRAIN_THRES = {"courtyard": 1, "delivery_area": 2, "electro": 1, "facade": 2,
+                     "kicker": 1, "meadow": 1, "office": 1, "pipes": 1,
+                     "playground": 1, "relief": 1, "relief_2": 1, "terrace": 1,
+                     "terrains": 2}
 
 
 def resolve_img_wh(args):
@@ -80,7 +112,51 @@ def resolve_img_wh(args):
         return (w, h)
     if args.dataset == "dtu_yao_eval":
         return (1600, 1152)
+    if args.dataset == "tanks":
+        return (1920, 1024)
+    if args.dataset == "eth3d":
+        return (1920, 1280)
     return (args.img_wh[0], args.img_wh[1])
+
+
+def parse_scan_shard(spec):
+    """'I/N' -> (I, N), validated; None -> None."""
+    if spec is None:
+        return None
+    try:
+        idx, count = (int(p) for p in spec.split("/"))
+    except ValueError:
+        raise SystemExit(f"--scan_shard must be I/N, got {spec!r}")
+    if count < 1 or not 0 <= idx < count:
+        raise SystemExit(f"--scan_shard needs 0 <= I < N, got {spec!r}")
+    return idx, count
+
+
+def shard_scans(scans, shard):
+    """Round-robin slice `[I::N]` of an ordered scan list."""
+    if shard is None:
+        return list(scans)
+    idx, count = shard
+    return list(scans)[idx::count]
+
+
+def apply_scan_shard(dataset, shard):
+    """Keep only this shard's scans in `dataset.metas`, in place.
+
+    Scan-keyed datasets (dtu_yao_eval, tanks, eth3d) carry the scan as
+    metas[i][0] and are sharded round-robin over the scans in order of
+    first appearance; a single-scan dataset (custom) runs wholly on
+    shard 0."""
+    if shard is None:
+        return dataset
+    metas = dataset.metas
+    if not (metas and isinstance(metas[0][0], str)):
+        if shard[0] != 0:
+            dataset.metas = []
+        return dataset
+    keep = set(shard_scans(dict.fromkeys(m[0] for m in metas), shard))
+    dataset.metas = [m for m in metas if m[0] in keep]
+    return dataset
 
 
 def resolve_device(name: str) -> torch.device:
@@ -97,6 +173,12 @@ def build_dataset(args, img_wh):
     if args.dataset == "dtu_yao_eval":
         return dataset_cls(args.testpath, args.testlist, args.n_views, img_wh,
                            uint8_level0=args.input_uint8)
+    if args.dataset == "tanks":
+        return dataset_cls(args.testpath, args.n_views, img_wh, args.split,
+                           uint8_level0=args.input_uint8)
+    if args.dataset == "eth3d":
+        return dataset_cls(args.testpath, args.split, args.n_views, img_wh,
+                           uint8_level0=args.input_uint8)
     return dataset_cls(args.testpath, args.n_views, img_wh,
                        uint8_level0=args.input_uint8)
 
@@ -105,17 +187,12 @@ def quantize_results(depths: torch.Tensor, confs: torch.Tensor):
     """uint16 result wire, device side: [B,H,W,1] f32 depth + confidence →
     (depth_q uint16, lo [B], hi [B], conf_q uint16).
 
-    Each depth map is quantized against its own [min, max]; confidence
-    (a sigmoid in [0, 1]) uses the fixed 1/65535 grid. Round-to-nearest
-    error is at most span/131070 in depth and 7.7e-6 in confidence."""
-    d = depths[..., 0]
-    c = confs[..., 0]
-    lo = d.amin(dim=(1, 2))
-    hi = d.amax(dim=(1, 2))
-    span = torch.clamp(hi - lo, min=1e-6)[:, None, None]
-    depth_q = torch.clamp(torch.round((d - lo[:, None, None]) * (65535.0 / span)),
-                          0, 65535).to(torch.uint16)
-    conf_q = torch.clamp(torch.round(c * 65535.0), 0, 65535).to(torch.uint16)
+    Each depth map is quantized against its own [min, max]
+    (`quantize_depth`); confidence (a sigmoid in [0, 1]) uses the fixed
+    1/65535 grid. Round-to-nearest error is at most span/131070 in depth
+    and 7.7e-6 in confidence."""
+    depth_q, lo, hi = quantize_depth(depths[..., 0])
+    conf_q = torch.clamp(torch.round(confs[..., 0] * 65535.0), 0, 65535).to(torch.uint16)
     return depth_q, lo, hi, conf_q
 
 
@@ -211,7 +288,8 @@ def save_depth(args, img_wh) -> list[float]:
     if not path.endswith(".npz"):
         raise SystemExit(f"--loadckpt {path}: the port reads the vendored "
                          ".npz weights (checkpoints/*/model_000015.npz)")
-    dataset = build_dataset(args, img_wh)
+    dataset = apply_scan_shard(build_dataset(args, img_wh),
+                               parse_scan_shard(args.scan_shard))
     ncpu = os.cpu_count() or 1
     workers = min(4, ncpu - 1) if ncpu > 1 else 0
     loader = torch.utils.data.DataLoader(
@@ -230,12 +308,62 @@ def save_depth(args, img_wh) -> list[float]:
                      result_wire=args.result_wire)
 
 
+def run_fusion(args, img_wh) -> list[tuple[str, float]]:
+    """`filter_depth` on every scan of this shard, on `args.device`, with
+    eval.py's paths and per-scan geo_mask_thres. Returns (scan, seconds)."""
+    device = resolve_device(args.device)
+    shard = parse_scan_shard(args.scan_shard)
+
+    def fuse(scan_folder, out_folder, ply, geo_mask_thres):
+        _, secs = filter_depth(scan_folder, out_folder, ply, args.geo_pixel_thres,
+                               args.geo_depth_thres, args.photo_thres, img_wh,
+                               geo_mask_thres, display=args.display, device=device)
+        return secs
+
+    timings = []
+    if args.dataset == "dtu_yao_eval":
+        with open(args.testlist) as f:
+            scans = [line.rstrip() for line in f if line.strip()]
+        for scan in shard_scans(scans, shard):
+            secs = fuse(os.path.join(args.testpath, scan),
+                        os.path.join(args.outdir, scan),
+                        os.path.join(args.outdir, f"itermvs{int(scan[4:]):0>3}_l3.ply"), 4)
+            timings.append((scan, secs))
+    elif args.dataset == "tanks":
+        table = (TANKS_INTERMEDIATE_THRES if args.split == "intermediate"
+                 else TANKS_ADVANCED_THRES)
+        for scan, gm in shard_scans(table.items(), shard):
+            secs = fuse(os.path.join(args.testpath, args.split, scan),
+                        os.path.join(args.outdir, scan),
+                        os.path.join(args.outdir, scan + ".ply"), gm)
+            timings.append((scan, secs))
+    elif args.dataset == "eth3d":
+        table = ETH3D_TEST_THRES if args.split == "test" else ETH3D_TRAIN_THRES
+        for scan, gm in shard_scans(table.items(), shard):
+            secs = fuse(os.path.join(args.testpath, scan),
+                        os.path.join(args.outdir, scan),
+                        os.path.join(args.outdir, scan + ".ply"), gm)
+            print(f"scan: {scan} time = {secs:3f}")
+            timings.append((scan, secs))
+    elif shard is None or shard[0] == 0:
+        # The single-scan custom dataset belongs to shard 0.
+        secs = fuse(args.testpath, args.outdir,
+                    os.path.join(args.outdir, "custom.ply"), 3)
+        timings.append(("custom", secs))
+    if timings:
+        mean = sum(s for _, s in timings) / len(timings)
+        print(f"fusion: {len(timings)} scan(s), mean {mean:.2f} sec/scene")
+    return timings
+
+
 def main(argv=None):
     args = parser.parse_args(argv)
     print("argv:", sys.argv[1:] if argv is None else argv)
     for k, v in sorted(vars(args).items()):
         print(f"{k}: {v}")
-    return save_depth(args, resolve_img_wh(args))
+    img_wh = resolve_img_wh(args)
+    save_depth(args, img_wh)
+    run_fusion(args, img_wh)
 
 
 if __name__ == "__main__":

@@ -24,16 +24,19 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("corr_epilogue", "sweep_premul")
+SOURCES = ("corr_epilogue", "sweep_premul", "fusion_consistency")
+# No --use_fast_math: fusion_consistency needs IEEE divides and sqrt.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C signatures of the exported launchers (symbol -> (argtypes, restype)).
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "corr_epilogue": ("itermvs_corr_epilogue", (_P, _P, _L, _I, _I, _P)),
     "sweep_premul": ("itermvs_sweep_premul",
                      (_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P)),
+    "fusion_consistency": ("itermvs_fusion_consistency",
+                           (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P)),
 }
 
 _lock = threading.Lock()

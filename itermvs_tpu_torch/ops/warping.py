@@ -73,9 +73,13 @@ def axis_taps(p: torch.Tensor, size: torch.Tensor):
       floor(p) in range  -> (1−frac, frac)
       floor(p) == −1     -> (frac, 0)   [only corner 0 is inside]
       both outside       -> (0, 0)
+    A NaN or infinite coordinate (fusion projects depths of 0) gets zero
+    weights and a valid base (`fmax` drops a NaN: NaN -> 0), so a gather
+    at the base reads a real cell. `size` is a tensor broadcasting
+    against `p`.
     """
     p0 = torch.floor(p)
-    base = torch.minimum(torch.clamp(p0, min=0.0), size - 1.0)
+    base = torch.minimum(torch.fmax(p0, p0.new_zeros(())), size - 1.0)
     frac = p - p0
     at_base = p0 == base
     zero = torch.zeros_like(p)

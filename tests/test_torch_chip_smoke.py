@@ -41,7 +41,8 @@ def test_launch_plan_is_52_per_map_at_1600x1152():
 
 @pytest.mark.parametrize("cache", [True, False])
 def test_in_memory_samples_through_run_depth(tmp_path, cache):
-    samples, gts = chip_smoke.make_samples(512, 384, 3, 0)
+    cams, images, gts = chip_smoke.render_scene(512, 384, 3, 0)
+    samples = chip_smoke.samples_of(cams, images)
     assert samples[0]["imgs"]["level_0"].shape == (1, 3, 384, 512, 3)
     model = load_npz_weights(Pipeline(iteration=4), pretrained_path("dtu"))
     secs = run_depth(model, samples, str(tmp_path), torch.device("cpu"),
@@ -50,3 +51,37 @@ def test_in_memory_samples_through_run_depth(tmp_path, cache):
     depth, _ = read_pfm(os.path.join(tmp_path, "depth_est", "00000000.pfm"))
     assert depth.shape == (384, 512, 1) and np.isfinite(depth).all()
     assert np.median(np.abs(depth[..., 0] - gts[0])) < 0.05
+
+
+def test_fusion_core_on_the_analytic_plane(tmp_path):
+    """chip_smoke's in-memory fusion of exact depths with unit confidence:
+    most pixels survive and the cloud lies on the plane (the bar of
+    tests/test_data_fusion.py::test_fusion_on_exact_depth)."""
+    cams, images, depths = chip_smoke.render_scene(128, 96, 5, 0)
+    before = chip_smoke.consistency.launches
+    rec = chip_smoke.fuse_scene(
+        chip_smoke.fusion_views(cams, depths, [np.ones_like(d) for d in depths], images),
+        str(tmp_path), torch.device("cpu"))
+    assert chip_smoke.consistency.launches == before      # CPU: the plain version
+    assert rec["views"] == 5 and rec["pixel_share"] > 0.5
+    assert rec["max_abs_z_minus_z0"] < 0.02
+    assert set(rec["phases_thread_s"]) >= {"dispatch", "mask_png", "backproject",
+                                           "ply_write"}
+
+
+def test_consistency_inputs_plant_their_cases():
+    ref, conf, src, r2s, s2r, k_ref, k_ref_inv, k_srcs, k_srcs_inv = \
+        chip_smoke.consistency_inputs(160, 120, 3, 0, "cpu")
+    assert src.shape == (3, 120, 160) and r2s.shape == (3, 4, 4)
+    assert (ref == 0).any() and (ref < 0).any() and (ref == 1e-6).any()
+    assert (conf == 0.3).any() and (conf < 0.3).any() and (conf > 0.3).any()
+    fusion = dict(chip_smoke.FUSION, geo_mask_thres=1)
+    # The moved source: no reference pixel projects into it.
+    avg, bits = chip_smoke.consistency_plain(
+        ref, conf, src[-1:], r2s[-1:], s2r[-1:], k_ref, k_ref_inv, k_srcs[-1:],
+        k_srcs_inv[-1:], **fusion)
+    assert not (bits & 2).any() and torch.equal(avg, ref)
+    got = chip_smoke.consistency_plain(ref, conf, src, r2s, s2r, k_ref, k_ref_inv,
+                                       k_srcs, k_srcs_inv, **fusion)
+    assert ((got[1] & 2) > 0).float().mean() > 0.9
+    assert chip_smoke.compare_consistency(got, got)[:2] == (1.0, 0.0)

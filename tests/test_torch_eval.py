@@ -103,6 +103,11 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch, tmp_path):
         port_eval.main(["--dataset", "custom", "--testpath", str(tmp_path),
                         "--outdir", str(tmp_path / "out")])
     assert not (tmp_path / "out").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_eval.run_fusion(port_eval.parser.parse_args(
+            ["--dataset", "custom", "--testpath", str(tmp_path),
+             "--outdir", str(tmp_path / "out")]), (64, 48))
+    assert not (tmp_path / "out").exists()
 
 
 def test_eval_rejects_weights_it_cannot_read(tmp_path):
@@ -142,6 +147,10 @@ def test_result_wire_matches_jax(jax_eval, rng):
     (["--dataset", "custom", "--img_wh", "320", "240"], "64x48", (320, 240)),
     (["--dataset", "dtu_yao_eval"], None, (1600, 1152)),
     (["--dataset", "dtu_yao_eval"], "160 128", (160, 128)),
+    (["--dataset", "tanks"], None, (1920, 1024)),
+    (["--dataset", "tanks", "--img_wh", "320", "240"], None, (1920, 1024)),
+    (["--dataset", "eth3d"], None, (1920, 1280)),
+    (["--dataset", "eth3d"], "96x64", (96, 64)),
 ])
 def test_resolve_img_wh_matches_jax(jax_eval, monkeypatch, argv, env, want):
     if env is None:
