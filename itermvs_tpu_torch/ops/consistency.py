@@ -9,11 +9,13 @@ averaged depth [H, W] f32 and the mask bits [H, W] u8 (bit0 photo, bit1
 geo, bit2 final); `quantize_depth` then rounds the map to uint16 against
 its own [lo, hi] with torch ops (eval.py's result wire rounds with it too).
 
-On a CUDA tensor the wrapper launches the hand-written kernel
-(csrc/fusion_consistency.cu) or raises; only CPU tensors take the plain
-PyTorch version beside it. The plain version is written elementwise, as
-`ops/warping.py::fused_sweep_taps` is, so no matmul (and no TF32) touches
-the projective geometry; it sums the sources in order, as the kernel does.
+On a CUDA tensor the wrapper packs the matrices into the kernel's record
+(`record`), uploads it without waiting for the stream, and launches the
+hand-written kernel (csrc/fusion_consistency.cu, `launch_consistency`)
+or raises; only CPU tensors take the plain PyTorch version beside it.
+The plain version is written elementwise, as `ops/warping.py::
+fused_sweep_taps` is, so no matmul (and no TF32) touches the projective
+geometry; it sums the sources in order, as the kernel does.
 """
 from __future__ import annotations
 
@@ -22,7 +24,11 @@ import torch
 from itermvs_tpu_torch import kernels
 from itermvs_tpu_torch.ops.warping import axis_taps
 
-# Shared memory holds 18 + 42*S floats of matrices per block (48 KB at most).
+# The kernel's record of matrices (see `record`), staged in shared memory
+# by each block: a head of K_ref and K_ref^-1, then one padded block per
+# source.
+HEAD_FLOATS = 24
+SOURCE_FLOATS = 48
 MAX_SOURCES = 256
 
 
@@ -108,16 +114,30 @@ def consistency_plain(ref_depth, confidence, src_depths, rel_ref_to_src,
     return depth_avg, bits
 
 
-def _params(k_ref, k_ref_inv, rel_ref_to_src, k_srcs, k_srcs_inv,
-            rel_src_to_ref) -> torch.Tensor:
-    """The kernel's flat f32 matrix block: K_ref, K_ref^-1, then per source
-    R|t ref->src (3x4), K_src, K_src^-1, R|t src->ref (3x4)."""
+def shared_bytes(sources: int) -> int:
+    """Bytes of the record (`record`) for `sources` sources, which each
+    block of the kernel stages in shared memory: 4 * (24 + 48 S), above
+    48 KB (S >= 256) by the kernel's opt-in. Raises past MAX_SOURCES."""
+    if not 0 <= sources <= MAX_SOURCES:
+        raise ValueError(f"consistency: {sources} sources, at most {MAX_SOURCES}")
+    return 4 * (HEAD_FLOATS + SOURCE_FLOATS * sources)
+
+
+def record(k_ref, k_ref_inv, rel_ref_to_src, k_srcs, k_srcs_inv,
+           rel_src_to_ref) -> torch.Tensor:
+    """The kernel's matrices as one flat f32 tensor of 24 + 48 S floats on
+    the matrices' device, every part 16-byte aligned so that the kernel
+    reads it in float4s: K_ref and K_ref^-1 row-major, 6 zeros; then per
+    source R|t ref->src (3x4), R|t src->ref (3x4), K_src, K_src^-1, 6
+    zeros."""
     s = k_srcs.shape[0]
+    shared_bytes(s)                         # raises past MAX_SOURCES
+    pad = torch.zeros((s + 1, 6), dtype=torch.float32, device=k_ref.device)
+    head = torch.cat([k_ref.reshape(9), k_ref_inv.reshape(9), pad[s]])
     per_src = torch.cat([rel_ref_to_src[:, :3, :4].reshape(s, 12),
-                         k_srcs.reshape(s, 9), k_srcs_inv.reshape(s, 9),
-                         rel_src_to_ref[:, :3, :4].reshape(s, 12)], dim=1)
-    return torch.cat([k_ref.reshape(9), k_ref_inv.reshape(9), per_src.reshape(-1)]
-                     ).to(torch.float32).contiguous()
+                         rel_src_to_ref[:, :3, :4].reshape(s, 12),
+                         k_srcs.reshape(s, 9), k_srcs_inv.reshape(s, 9), pad[:s]], dim=1)
+    return torch.cat([head, per_src.reshape(-1)]).to(torch.float32)
 
 
 def consistency(ref_depth, confidence, src_depths, rel_ref_to_src,
@@ -149,9 +169,8 @@ def consistency(ref_depth, confidence, src_depths, rel_ref_to_src,
             f"consistency: shapes ref {tuple(ref_depth.shape)}, confidence "
             f"{tuple(confidence.shape)}, sources {tuple(src_depths.shape)} and "
             "the matrices do not agree")
-    if s > MAX_SOURCES:
-        raise ValueError(f"consistency: {s} sources, at most {MAX_SOURCES}")
-    if s * h * w >= 2 ** 31:
+    shared_bytes(s)                         # raises past MAX_SOURCES
+    if max(s, 1) * h * w >= 2 ** 31:
         raise ValueError(f"consistency: S*H*W = {s * h * w} needs 64-bit offsets "
                          "(the kernel takes < 2^31)")
     args = (ref_depth, confidence, src_depths, rel_ref_to_src, rel_src_to_ref,
@@ -162,13 +181,32 @@ def consistency(ref_depth, confidence, src_depths, rel_ref_to_src,
                                  geo_depth_thres, photo_thres, geo_mask_thres)
     if ref_depth.device.type != "cuda":
         raise ValueError(f"consistency: unsupported device {ref_depth.device}")
-    maps = (ref_depth, confidence, src_depths)
-    if any(t.device != ref_depth.device for t in maps):
-        raise ValueError("consistency: depth maps on different devices")
+    # Matrices on the host (as fusion passes them) give a record in pageable
+    # memory, uploaded without waiting for the stream: the driver stages its
+    # few KB before the call returns. On an H100 this ran faster than a
+    # blocking upload and than a pinned one (tools/time_consistency.py).
+    params = record(k_ref, k_ref_inv, rel_ref_to_src, k_srcs, k_srcs_inv,
+                    rel_src_to_ref).to(ref_depth.device, non_blocking=True)
+    return launch_consistency(ref_depth, confidence, src_depths, params, geo_pixel_thres,
+                              geo_depth_thres, photo_thres, geo_mask_thres)
+
+
+def launch_consistency(ref_depth, confidence, src_depths, params,
+                       geo_pixel_thres: float, geo_depth_thres: float,
+                       photo_thres: float, geo_mask_thres: int):
+    """Launch K3 on CUDA maps (shapes as `consistency`) and the `record`
+    `params` already on their device. Counts one launch in
+    `consistency.launches`. Returns (depth_avg, bits)."""
+    h, w = ref_depth.shape
+    s = src_depths.shape[0]
+    maps = (ref_depth, confidence, src_depths, params)
+    if any(t.device != ref_depth.device or t.device.type != "cuda" for t in maps):
+        raise ValueError("consistency: maps and record must be on one CUDA device")
     if any(t.dtype != torch.float32 or not t.is_contiguous() for t in maps):
-        raise ValueError("consistency: depth maps must be contiguous float32")
-    params = _params(k_ref, k_ref_inv, rel_ref_to_src, k_srcs, k_srcs_inv,
-                     rel_src_to_ref).to(ref_depth.device)
+        raise ValueError("consistency: maps and record must be contiguous float32")
+    if 4 * params.numel() != shared_bytes(s) or params.data_ptr() % 16:
+        raise ValueError(f"consistency: the record of {s} sources is "
+                         f"{shared_bytes(s) // 4} floats, 16-byte aligned")
     depth_avg = torch.empty((h, w), dtype=torch.float32, device=ref_depth.device)
     bits = torch.empty((h, w), dtype=torch.uint8, device=ref_depth.device)
     fn = kernels.function("fusion_consistency")

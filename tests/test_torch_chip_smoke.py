@@ -6,6 +6,8 @@ arithmetic); the depth check uses the same 0.05 bar as the JAX
 package's verify recipe.
 """
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -85,3 +87,23 @@ def test_consistency_inputs_plant_their_cases():
                                        k_srcs, k_srcs_inv, **fusion)
     assert ((got[1] & 2) > 0).float().mean() > 0.9
     assert chip_smoke.compare_consistency(got, got)[:2] == (1.0, 0.0)
+
+
+def test_k3_instruction_count():
+    """116 FMA-fused f32 instructions per (pixel, source) and 20 per pixel
+    with each divide at 7 and the sqrt at 5; 136 and 23 as issued (10 each)."""
+    assert chip_smoke.k3_instructions(1, 1, 0) == 20
+    assert chip_smoke.k3_instructions(1, 1, 1) - 20 == 116
+    assert chip_smoke.k3_instructions(
+        2, 3, 4, chip_smoke.K3_DIV_INSTR_ISSUED, chip_smoke.K3_SQRT_INSTR_ISSUED) == 6 * (
+        4 * 136 + 23)
+
+
+def test_k3_timing_script_needs_a_card():
+    """Without a CUDA device the A/B timing script exits non-zero and
+    prints no timing line."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "itermvs_tpu_torch", "tools", "time_consistency.py")
+    out = subprocess.run([sys.executable, script, "--tree", root], capture_output=True,
+                         text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0 and "kernel_ms" not in out.stdout

@@ -217,6 +217,70 @@ def test_wrapper_checks_shapes_index_width_and_device():
                               *small[3:], 1.0, 0.01, 0.3, 3)
 
 
+def test_record_round_trips_to_the_matrices(sphere_scene):
+    """The kernel's record: a 24-float head (K_ref, K_ref^-1, zeros), then
+    one 48-float block per source at a 16-byte stride (R|t ref->src, R|t
+    src->ref, K_src, K_src^-1, zeros), as the kernel's float4 loads read it."""
+    cams, depths = sphere_scene
+    _, _, _, mats = _inputs(cams, depths, [1, 2, 3])
+    r2s, s2r, k_ref, k_ref_inv, k_srcs, k_srcs_inv = map(torch.from_numpy, mats)
+    rec = port_cons.record(k_ref, k_ref_inv, r2s, k_srcs, k_srcs_inv, s2r)
+    assert rec.dtype == torch.float32 and rec.device.type == "cpu" and rec.is_contiguous()
+    assert port_cons.HEAD_FLOATS % 4 == 0 and port_cons.SOURCE_FLOATS == 48
+    assert rec.numel() == 24 + 48 * 3 and rec.data_ptr() % 16 == 0
+    assert torch.equal(rec[:9].view(3, 3), k_ref)
+    assert torch.equal(rec[9:18].view(3, 3), k_ref_inv)
+    assert not rec[18:24].any()
+    per = rec[24:].view(3, 48)
+    assert torch.equal(per[:, :12].view(3, 3, 4), r2s[:, :3])
+    assert torch.equal(per[:, 12:24].view(3, 3, 4), s2r[:, :3])
+    assert torch.equal(per[:, 24:33].view(3, 3, 3), k_srcs)
+    assert torch.equal(per[:, 33:42].view(3, 3, 3), k_srcs_inv)
+    assert not per[:, 42:].any()
+    empty = port_cons.record(k_ref, k_ref_inv, r2s[:0], k_srcs[:0], k_srcs_inv[:0], s2r[:0])
+    assert torch.equal(empty, rec[:24])
+
+
+def test_record_stays_on_the_matrices_device():
+    """Matrices already on a device give a record there, with no copy to
+    the host and back (meta tensors stand in for the card's)."""
+    meta = dict(device="meta", dtype=torch.float64)
+    s = 3
+    rec = port_cons.record(torch.empty(3, 3, **meta), torch.empty(3, 3, **meta),
+                           torch.empty(s, 4, 4, **meta), torch.empty(s, 3, 3, **meta),
+                           torch.empty(s, 3, 3, **meta), torch.empty(s, 4, 4, **meta))
+    assert rec.device.type == "meta" and rec.dtype == torch.float32
+    assert rec.shape == (port_cons.shared_bytes(s) // 4,)
+
+
+@pytest.mark.parametrize("sources,nbytes", [(1, 288), (10, 2016), (64, 12384), (256, 49248)])
+def test_shared_memory_of_the_record(sources, nbytes):
+    """4 * (24 + 48 S) bytes; past 48 KB only at 256 sources, where the
+    kernel opts in to more dynamic shared memory."""
+    assert port_cons.shared_bytes(sources) == nbytes
+    assert (nbytes > 48 * 1024) == (sources == 256)
+
+
+def test_more_sources_than_the_kernel_takes_raise():
+    with pytest.raises(ValueError, match="at most 256"):
+        port_cons.shared_bytes(257)
+    meta = dict(device="meta")
+    s, h, w = 257, 4, 5
+    with pytest.raises(ValueError, match="at most 256"):
+        port_cons.consistency(torch.empty(h, w, **meta), torch.empty(h, w, **meta),
+                              torch.empty(s, h, w, **meta), torch.empty(s, 4, 4),
+                              torch.empty(s, 4, 4), torch.empty(3, 3), torch.empty(3, 3),
+                              torch.empty(s, 3, 3), torch.empty(s, 3, 3), 1.0, 0.01, 0.3, 3)
+
+
+def test_launcher_takes_cuda_tensors_only():
+    """The launcher has no plain fallback: CPU maps raise before any build."""
+    maps = (torch.zeros(4, 5), torch.zeros(4, 5), torch.zeros(1, 4, 5),
+            torch.zeros(port_cons.shared_bytes(1) // 4))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        port_cons.launch_consistency(*maps, 1.0, 0.01, 0.3, 3)
+
+
 # ---------------------------------------------------------- filter_depth
 @pytest.fixture(scope="module", params=["plane", "sphere_step"])
 def fused(request, tmp_path_factory):
