@@ -26,6 +26,21 @@
 6. Two more timed depth passes over the same maps (maps/s), then
    profiles them once more with torch.profiler: device time by kernel
    and by kind, and the device's idle share.
+7. Holds the sweep kernels, forward (sweep_premul, corr_epilogue) and
+   backward (sweep_grad_ref, sweep_grad_src), against their plain
+   versions on the card at the four sweep shapes of a training step at
+   640x512, batch 4, 5 views, and times them; checks that a base index
+   outside the source map shows as NaN in both backward kernels.
+8. One train step of the port (`engine.train_loop`) on the card against
+   the same step on the CPU (plain versions) at 160x128, batch 2, 3
+   views, 2 iterations, the DTU weights: loss and gradients.
+9. The training path at full width: 10 steps at 640x512, batch 4, 5
+   views, 4 GRU iterations, stage 2 (regress), from a fresh seeded init,
+   on one in-memory DTU-layout batch of the plane scene: the loss must
+   fall, and each of the four sweep kernels must launch 52 times per
+   step; ms per step, steps/s, peak memory and one profiled step's
+   device time by kind and idle share; then a validation step and a
+   checkpoint saved and restored on the card.
 
 The last line is `{"ok": true, "device": {...}}`; any failed phase
 exits non-zero before it. Without a CUDA device, or outside the repo,
@@ -44,6 +59,9 @@ import numpy as np
 import torch
 
 from itermvs_tpu_torch import kernels
+from itermvs_tpu_torch.engine.checkpoint import restore_checkpoint, save_checkpoint
+from itermvs_tpu_torch.engine.train_loop import (
+    forward_loss, init_weights, make_optimizer, to_device_batch, train_step, val_step)
 from itermvs_tpu_torch.eval import run_depth
 from itermvs_tpu_torch.fusion import MemoryViews, consistency_matrices, fuse_views
 from itermvs_tpu_torch.io import read_pfm, read_ply
@@ -54,6 +72,8 @@ from itermvs_tpu_torch.ops.consistency import (
     MAX_SOURCES, consistency, consistency_plain, launch_consistency, record)
 from itermvs_tpu_torch.ops.sweep import sample_chunks, sweep_premul, sweep_premul_plain
 from itermvs_tpu_torch.ops.sweep_epilogue import corr_epilogue, corr_epilogue_plain
+from itermvs_tpu_torch.ops.sweep_grad import (
+    sweep_grad_ref, sweep_grad_ref_plain, sweep_grad_src, sweep_grad_src_plain)
 from itermvs_tpu_torch.weights import load_npz_weights, pretrained_path
 
 WIDTH, HEIGHT = 1600, 1152
@@ -66,6 +86,14 @@ SEED = 0
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 FEATURE_CHANNELS = {"level1": 16, "level2": 32, "level3": 48}
+# The training step of train_dtu.sh's recipe: 640x512 crops, batch 4,
+# 5 views, 4 GRU iterations, float32, stage 2 (--regress).
+TRAIN_WIDTH, TRAIN_HEIGHT = 640, 512
+TRAIN_BATCH, TRAIN_VIEWS, TRAIN_ITERATION = 4, 5, 4
+TRAIN_STEPS = 10
+TRAIN_LR = 1e-3
+# The train step held on the card against the CPU.
+SMALL_TRAIN = dict(width=160, height=128, batch=2, views=3, iteration=2)
 
 # ---------------------------------------------------------------- scene
 # The port's own copy of the textured-plane scene of
@@ -188,18 +216,19 @@ def samples_of(cams, images):
 
 
 # --------------------------------------------------------------- kernels
-def sweep_shapes(width, height, views, iteration):
-    """Per sweep shape of one depth map: (name, batch, n, H, W, H1, W1, C,
-    launches per map of each kernel, from the chunk plan)."""
+def sweep_shapes(width, height, views, iteration, batch=1):
+    """Per sweep shape of one forward pass: (name, batch, n, H, W, H1, W1,
+    C, launches of each forward kernel, from the chunk plan). The backward
+    kernels launch once per (view, level) sweep, whatever the chunks."""
     h4, w4 = height // 4, width // 4
     src = {"level1": (height // 2, width // 2), "level2": (h4, w4),
            "level3": (height // 8, width // 8)}
-    out = [("init", 1, NUM_INIT_SAMPLES, h4 // 2, w4 // 2, *src["level3"], 48,
-            (views - 1) * len(sample_chunks(1, NUM_INIT_SAMPLES, h4 * w4 // 4, 48)))]
+    out = [("init", batch, NUM_INIT_SAMPLES, h4 // 2, w4 // 2, *src["level3"], 48,
+            (views - 1) * len(sample_chunks(batch, NUM_INIT_SAMPLES, h4 * w4 // 4, 48)))]
     for key in LEVELS:
         n, c = len(CORR_INTERVALS[key]), FEATURE_CHANNELS[key]
-        out.append((f"iter_{key}", 1, n, h4, w4, *src[key], c,
-                    iteration * (views - 1) * len(sample_chunks(1, n, h4 * w4, c))))
+        out.append((f"iter_{key}", batch, n, h4, w4, *src[key], c,
+                    iteration * (views - 1) * len(sample_chunks(batch, n, h4 * w4, c))))
     return out
 
 
@@ -239,9 +268,10 @@ def bound_ms(nbytes, ops, ops_per_s=PEAK_F32_PER_S):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_kernels(shapes):
+def check_kernels(shapes, per="map"):
     """Each kernel against its plain version at every sweep shape; per
-    shape one JSON line, and per kernel the totals of one depth map."""
+    shape one JSON line, and per kernel the totals of one depth map (or
+    training step, `per`)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     per_map = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
@@ -291,7 +321,7 @@ def check_kernels(shapes):
                 ("sweep_premul", k2, err2, tol2, nbytes2, ops2),
                 ("corr_epilogue", k1, err1, tol1, nbytes1, ops1)):
             line = {"kernel": kname, "shape": name, "batch": b, "n": n, "hw": hw,
-                    "src_hw": [h1, w1], "c": c, "launches_per_map": launches,
+                    "src_hw": [h1, w1], "c": c, f"launches_per_{per}": launches,
                     "max_abs_err": err, "tol": tol, **rec}
             if kname == "corr_epilogue":
                 line["library_max_abs_err"] = err_lib
@@ -311,6 +341,83 @@ def check_kernels(shapes):
         del src, base, taps, ref, got, premul, got1, want1, lib
         torch.cuda.empty_cache()
     return per_map
+
+
+def valid_corners(base, h1, w1):
+    """Per row, the count of its 4 corners that lie on the source map."""
+    y, x = base // w1, base % w1
+    return 1 + (x + 1 < w1).int() + (y + 1 < h1).int() + ((x + 1 < w1) & (y + 1 < h1)).int()
+
+
+def check_grad_kernels(shapes, rounds=5, reps=20):
+    """K4 sweep_grad_ref and K5 sweep_grad_src against their plain versions
+    at every sweep shape, with seeded taps and indices (edge corners
+    included) and a seeded grad_corr; one JSON line per (kernel, shape),
+    and per kernel the totals of one step (each shape's line times its
+    launches). Tolerance 1e-5 of max|plain|: both sum the same products
+    in another order (K5 with f32 atomics, whose order changes from run
+    to run). Then a base index outside the source map must give NaN in
+    d_ref (K4) and in d_src (K5)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    per_step = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_rel_err": 0.0,
+                    "max_abs_err": 0.0, "bytes": 0.0, "ops": 0.0, "launches": 0}
+                for k in ("sweep_grad_ref", "sweep_grad_src")}
+    for name, b, n, h, w, h1, w1, c, launches in shapes:
+        launches = launches // len(sample_chunks(b, n, h * w, c))   # one per sweep
+        src, base, taps, ref = sweep_inputs(b, n, h, w, h1, w1, c, gen)
+        grad = torch.randn(b, n, GROUPS, h * w, device="cuda", generator=gen)
+        # 1 + 2 flops per valid corner and channel (the tap products and
+        # their sum, the g' product and the accumulation), per row.
+        ops = float(c * (1 + 2 * valid_corners(base, h1, w1).sum().item()))
+        streams = 4 * (base.numel() + taps.numel() + grad.numel())
+        for kname, run, plain, nbytes in (
+                ("sweep_grad_ref", lambda: sweep_grad_ref(src, base, taps, grad),
+                 lambda: sweep_grad_ref_plain(src, base, taps, grad),
+                 streams + 4 * (src.numel() + ref.numel())),
+                ("sweep_grad_src", lambda: sweep_grad_src(ref, base, taps, grad, h1, w1),
+                 lambda: sweep_grad_src_plain(ref, base, taps, grad, h1, w1),
+                 streams + 4 * (ref.numel() + src.numel()))):
+            got = run()
+            torch.cuda.synchronize()
+            want = plain()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            del got, want
+            rec = {"ms": median_ms(run, rounds, reps)[0], "plain_ms": time_ms(plain, reps=3),
+                   "library_ms": None}
+            rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops)
+            line = {"kernel": kname, "shape": name, "batch": b, "n": n, "hw": h * w,
+                    "src_hw": [h1, w1], "c": c, "launches_per_step": launches,
+                    "max_abs_err": err, "max_rel_err": err / scale, "tol_rel": 1e-5,
+                    "share_of_bound": rec["bound_ms"] / rec["ms"], **rec}
+            print(json.dumps(line))
+            if not err <= 1e-5 * scale:
+                raise SystemExit(f"{kname} at {name}: max |kernel - plain| {err} > "
+                                 f"1e-5 * {scale}")
+            tot = per_step[kname]
+            for key in ("ms", "plain_ms", "bound_ms"):
+                tot[key] += launches * rec[key]
+            tot["max_rel_err"] = max(tot["max_rel_err"], err / scale)
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["bytes"] += launches * nbytes
+            tot["ops"] += launches * ops
+            tot["launches"] += launches
+        del src, base, taps, ref, grad
+        torch.cuda.empty_cache()
+
+    # An upstream fault must show, not be skipped.
+    src, base, taps, ref = sweep_inputs(1, 2, 8, 8, 8, 8, 16, gen)
+    grad = torch.randn(1, 2, GROUPS, 64, device="cuda", generator=gen)
+    base[0, 5] = 64
+    d_ref = sweep_grad_ref(src, base, taps, grad)
+    d_src = sweep_grad_src(ref, base, taps, grad, 8, 8)
+    torch.cuda.synchronize()
+    faults = {"d_ref_nan": bool(d_ref.isnan().any()), "d_src_nan": bool(d_src.isnan().any())}
+    print(json.dumps({"sweep_grad_fault_check": faults}))
+    if not all(faults.values()):
+        raise SystemExit(f"a base index outside the source map did not show: {faults}")
+    return per_step
 
 
 # ---------------------------------------------------------------- fusion
@@ -495,41 +602,46 @@ def fuse_scene(views, outdir, device):
 
 
 # ------------------------------------------------------------ end to end
+KERNELS = (sweep_premul, corr_epilogue, consistency, sweep_grad_ref, sweep_grad_src)
+
+
 def launch_counts():
     return {"sweep_premul": sweep_premul.launches,
             "corr_epilogue": corr_epilogue.launches,
-            "fusion_consistency": consistency.launches}
+            "fusion_consistency": consistency.launches,
+            "sweep_grad_ref": sweep_grad_ref.launches,
+            "sweep_grad_src": sweep_grad_src.launches}
 
 
 def reset_launch_counts():
-    sweep_premul.launches = 0
-    corr_epilogue.launches = 0
-    consistency.launches = 0
+    for fn in KERNELS:
+        fn.launches = 0
 
 
 def _category(name):
-    if "sweep_premul" in name or "corr_epilogue" in name:
-        return name.split("::")[-1].split("_kernel")[0]
+    for kernel in ("sweep_premul", "corr_epilogue", "sweep_grad_ref", "sweep_grad_src"):
+        if kernel in name:
+            return kernel
     if "Memcpy" in name or "Memset" in name:
         return "memcpy"
     if "bn_" in name or "batch_norm" in name:
         return "batch_norm"
     if any(s in name for s in ("conv", "xmma", "gemm", "wgrad", "dgrad")):
         return "convolution"
+    if any(s in name for s in ("multi_tensor", "foreach", "adam", "Adam")):
+        return "optimizer"
     return "other"
 
 
-def profile_maps(model, samples, outdir, unprofiled_wall):
-    """Device time by kernel over the same maps as the timed run
-    (torch.profiler, kernel and copy events only). The idle share is
-    taken against the timed run's own wall time, since tracing slows the
-    host."""
+def device_time(fn):
+    """Run `fn` under torch.profiler: ({kernel name: (calls, us)},
+    {category: us}, busy ms) of the device events (kernels and copies)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_depth(model, samples, outdir, "cuda", log=lambda *_: None)
+        fn()
         torch.cuda.synchronize()
     by_name, by_cat = {}, {}
     for e in prof.events():
@@ -540,7 +652,16 @@ def profile_maps(model, samples, outdir, unprofiled_wall):
         by_name[e.name] = (calls + 1, total + us)
         cat = _category(e.name)
         by_cat[cat] = by_cat.get(cat, 0.0) + us
-    busy_ms = sum(by_cat.values()) / 1e3
+    return by_name, by_cat, sum(by_cat.values()) / 1e3
+
+
+def profile_maps(model, samples, outdir, unprofiled_wall):
+    """Device time by kernel over the same maps as the timed run
+    (torch.profiler, kernel and copy events only). The idle share is
+    taken against the timed run's own wall time, since tracing slows the
+    host."""
+    by_name, by_cat, busy_ms = device_time(
+        lambda: run_depth(model, samples, outdir, "cuda", log=lambda *_: None))
     if not busy_ms:
         print(json.dumps({"profile": "device time not measured"}))
         return
@@ -554,6 +675,146 @@ def profile_maps(model, samples, outdir, unprofiled_wall):
                                    sorted(by_cat.items(), key=lambda kv: -kv[1])},
         "top_ms_per_map": [{"name": k[:90], "calls_per_map": c / maps,
                             "device_ms": t / 1e3 / maps} for k, (c, t) in top]}))
+
+
+# -------------------------------------------------------------- training
+def train_sample(width, height, views, batch, seed):
+    """One collated batch of the training loader's layout, made in memory
+    from the plane scene: reference views 0..batch-1, each with all other
+    views as sources; GT depth the analytic depth (every 2^l-th pixel at
+    level l, the loader's INTER_NEAREST pyramid), masks all valid, depth
+    range [DEPTH_MIN, DEPTH_MAX]."""
+    cams, images, depths = render_scene(width, height, views, seed)
+    refs = samples_of(cams, images)[:batch]
+    gt = np.stack(depths[:batch])
+    return {
+        "imgs": {"level_0": np.concatenate([r["imgs"]["level_0"] for r in refs])},
+        "proj_matrices": {k: np.concatenate([r["proj_matrices"][k] for r in refs])
+                          for k in refs[0]["proj_matrices"]},
+        "depth": {f"level_{l}": gt[:, ::2 ** l, ::2 ** l, None] for l in range(4)},
+        "mask": {f"level_{l}": np.ones_like(gt[:, ::2 ** l, ::2 ** l, None])
+                 for l in range(4)},
+        "depth_min": np.full(batch, DEPTH_MIN, np.float32),
+        "depth_max": np.full(batch, DEPTH_MAX, np.float32),
+    }
+
+
+def step_gradients(device, sample, iteration):
+    """(loss, {name: gradient on the host}) of one stage-2 training forward
+    and backward on `device`, from the DTU weights."""
+    model = load_npz_weights(Pipeline(iteration=iteration, test=False),
+                             pretrained_path("dtu")).to(device)
+    model.train()
+    loss, _ = forward_loss(model, to_device_batch(sample, device), True)
+    loss.backward()
+    return loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()
+                         if p.grad is not None}
+
+
+def compare_train_step():
+    """The train step on the card (K1, K2, K4, K5, cuDNN) against the
+    same step on the CPU (plain versions): loss within 1e-4 relative,
+    the gradient of all parameters within 1e-3 relative L2 (cuDNN and the
+    atomics sum in other orders; a near-tie of an argmax or of the
+    view-weight maximum, flipped by that noise, moves a gradient further
+    than the loss)."""
+    cfg = SMALL_TRAIN
+    sample = train_sample(cfg["width"], cfg["height"], cfg["views"], cfg["batch"], SEED)
+    loss_cpu, g_cpu = step_gradients("cpu", sample, cfg["iteration"])
+    loss_gpu, g_gpu = step_gradients("cuda", sample, cfg["iteration"])
+    if set(g_cpu) != set(g_gpu):
+        raise SystemExit(f"train step: parameters with gradients differ: "
+                         f"{sorted(set(g_cpu) ^ set(g_gpu))}")
+    diff2 = sum(float((g_gpu[k] - g_cpu[k]).pow(2).sum()) for k in g_cpu)
+    norm2 = sum(float(g.pow(2).sum()) for g in g_cpu.values())
+    per_tensor = sorted(((float((g_gpu[k] - g_cpu[k]).norm() / g_cpu[k].norm()), k)
+                         for k in g_cpu if float(g_cpu[k].norm()) > 1e-6 * norm2 ** 0.5),
+                        reverse=True)
+    rec = {"train_step_card_vs_cpu": {**cfg, "loss_cpu": loss_cpu, "loss_gpu": loss_gpu,
+                                      "loss_rel": abs(loss_gpu - loss_cpu) / abs(loss_cpu),
+                                      "grad_rel_l2": (diff2 / norm2) ** 0.5,
+                                      "worst_tensors_rel_l2": per_tensor[:3]}}
+    print(json.dumps(rec))
+    r = rec["train_step_card_vs_cpu"]
+    if not (r["loss_rel"] <= 1e-4 and r["grad_rel_l2"] <= 1e-3):
+        raise SystemExit(f"train step on the card disagrees with the CPU: {r}")
+
+
+def train_full_width(shapes):
+    """The training path at full width (see TRAIN_*): TRAIN_STEPS steps on
+    one batch from a fresh seeded init; the loss must be finite and fall
+    and each sweep kernel launch 52 times per step. Then one profiled
+    step, a validation step and a checkpoint round trip on the card.
+    Returns (launch counts of the timed steps, record)."""
+    t0 = time.perf_counter()
+    sample = train_sample(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_BATCH, SEED)
+    batch = to_device_batch(sample, "cuda")
+    setup_s = time.perf_counter() - t0
+    model = init_weights(Pipeline(iteration=TRAIN_ITERATION, test=False), SEED).cuda()
+    optimizer = make_optimizer(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        scalars = train_step(model, optimizer, batch, TRAIN_LR, True, TRAIN_ITERATION)
+        losses.append(scalars["loss"].item())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    forward = sum(s[-1] for s in shapes)
+    sweeps = sum(s[-1] // len(sample_chunks(*s[1:3], s[3] * s[4], s[7])) for s in shapes)
+    planned = {"sweep_premul": forward * TRAIN_STEPS, "corr_epilogue": forward * TRAIN_STEPS,
+               "fusion_consistency": 0, "sweep_grad_ref": sweeps * TRAIN_STEPS,
+               "sweep_grad_src": sweeps * TRAIN_STEPS}
+    last = step_s[-5:]
+    rec = {"size": [TRAIN_WIDTH, TRAIN_HEIGHT], "batch": TRAIN_BATCH, "views": TRAIN_VIEWS,
+           "iteration": TRAIN_ITERATION, "regress": True, "steps": TRAIN_STEPS,
+           "losses": losses, "step_s": step_s, "ms_per_step_last5": 1e3 * sum(last) / len(last),
+           "steps_per_s_last5": len(last) / sum(last), "peak_mem_gib": peak / 2 ** 30,
+           "batch_setup_s": setup_s, "launches": counts, "planned_launches": planned}
+
+    by_name, by_cat, busy_ms = device_time(
+        lambda: train_step(model, optimizer, batch, TRAIN_LR, True, TRAIN_ITERATION))
+    wall_ms = 1e3 * sorted(last)[len(last) // 2]
+    if busy_ms:
+        rec["profile_step"] = {
+            "device_busy_ms": busy_ms, "wall_ms_unprofiled_median": wall_ms,
+            "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "by_category_ms": {k: v / 1e3 for k, v in
+                               sorted(by_cat.items(), key=lambda kv: -kv[1])},
+            "top_ms": [{"name": k[:90], "calls": c, "device_ms": t / 1e3} for k, (c, t)
+                       in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]]}
+    else:
+        rec["profile_step"] = "device time not measured"
+
+    val = {k: float(v) for k, v in val_step(model, batch, True, TRAIN_ITERATION).items()}
+    rec["val_scalars"] = val
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_checkpoint(tmp, 0, model, optimizer, step=TRAIN_STEPS)
+        restored = Pipeline(iteration=TRAIN_ITERATION, test=False).cuda()
+        restored_opt = make_optimizer(restored)
+        position = restore_checkpoint(path, restored, restored_opt)
+    same_model = all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                       restored.state_dict().values()))
+    opt_a, opt_b = optimizer.state_dict()["state"], restored_opt.state_dict()["state"]
+    same_opt = opt_a.keys() == opt_b.keys() and all(
+        torch.equal(opt_a[i][k], opt_b[i][k]) for i in opt_a for k in opt_a[i])
+    rec["checkpoint"] = {"position": list(position), "model_equal": same_model,
+                         "optimizer_equal": same_opt}
+    print(json.dumps({"train": rec}))
+
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"training loss did not fall: {losses}")
+    if counts != planned:
+        raise SystemExit(f"training launch counts {counts} != planned {planned}")
+    if not all(np.isfinite(list(val.values()))):
+        raise SystemExit(f"validation step not finite: {val}")
+    if position != (0, TRAIN_STEPS) or not (same_model and same_opt):
+        raise SystemExit(f"checkpoint round trip failed: {rec['checkpoint']}")
+    return counts, rec
 
 
 def main():
@@ -624,7 +885,7 @@ def main():
         if bad:
             raise SystemExit(f"depth check failed: {bad}")
         planned = {"sweep_premul": expected, "corr_epilogue": expected,
-                   "fusion_consistency": 0}
+                   "fusion_consistency": 0, "sweep_grad_ref": 0, "sweep_grad_src": 0}
         if counts != planned:
             raise SystemExit(f"launch counts {counts} != planned {planned}")
 
@@ -642,7 +903,8 @@ def main():
         fused.update(scene="learned depth", launches=fusion_counts)
         print(json.dumps({"fusion": fused}))
         if fusion_counts != {"sweep_premul": 0, "corr_epilogue": 0,
-                             "fusion_consistency": VIEWS}:
+                             "fusion_consistency": VIEWS, "sweep_grad_ref": 0,
+                             "sweep_grad_src": 0}:
             raise SystemExit(f"fusion launch counts {fusion_counts}: "
                              f"want {VIEWS} of fusion_consistency only")
         if not (fused["pixel_share"] >= 0.05 and fused["median_abs_z_minus_z0"] < 0.05):
@@ -667,12 +929,25 @@ def main():
 
         profile_maps(model, samples, os.path.join(tmp, "prof"), wall)
 
+    # Training: the backward kernels at the step's shapes, a small step
+    # against the CPU, then the full-width run.
+    train_shapes = sweep_shapes(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_ITERATION,
+                                TRAIN_BATCH)
+    check_kernels(train_shapes, per="step")
+    per_step = check_grad_kernels(train_shapes)
+    compare_train_step()
+    train_counts, _ = train_full_width(train_shapes)
+
     sources = {"corr_epilogue": ("itermvs_tpu_torch/csrc/corr_epilogue.cu",
                                  "itermvs_tpu/ops/sweep_epilogue.py:61"),
                "sweep_premul": ("itermvs_tpu_torch/csrc/sweep_premul.cu",
                                 "itermvs_tpu/ops/grid_sample.py:472"),
                "fusion_consistency": ("itermvs_tpu_torch/csrc/fusion_consistency.cu",
-                                      "itermvs_tpu/fusion.py:57")}
+                                      "itermvs_tpu/fusion.py:57"),
+               "sweep_grad_ref": ("itermvs_tpu_torch/csrc/sweep_grad_ref.cu",
+                                  "itermvs_tpu/models/itermvs.py:106"),
+               "sweep_grad_src": ("itermvs_tpu_torch/csrc/sweep_grad_src.cu",
+                                  "itermvs_tpu/models/itermvs.py:106")}
     report = []
     for name in ("corr_epilogue", "sweep_premul"):
         tot = per_map[name]
@@ -693,6 +968,18 @@ def main():
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": None,
         "per": f"one {WIDTH}x{HEIGHT} reference view, {VIEWS - 1} sources"})
+    for name in ("sweep_grad_ref", "sweep_grad_src"):
+        tot = per_step[name]
+        t_bytes, t_ops = tot["bytes"] / PEAK_BYTES_PER_S, tot["ops"] / PEAK_F32_PER_S
+        report.append({
+            "name": name, "route": "cuda", "source": sources[name][0],
+            "replaces": sources[name][1], "launches": train_counts[name],
+            "max_abs_err": tot["max_abs_err"], "max_rel_err": tot["max_rel_err"],
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "launches_per_step": tot["launches"],
+            "per": f"one training step, {TRAIN_WIDTH}x{TRAIN_HEIGHT}, batch {TRAIN_BATCH}, "
+                   f"{TRAIN_VIEWS} views, {TRAIN_ITERATION} iterations"})
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
-"""Dataset registry: the eval loaders (the training loaders are not
-ported yet)."""
+"""Dataset registry: the names the JAX package's CLIs accept."""
 from __future__ import annotations
 
 import importlib
 
 _ALIASES = {
+    "dtu_yao": "itermvs_tpu_torch.data.dtu",
+    "blendedmvs": "itermvs_tpu_torch.data.blendedmvs",
     "dtu_yao_eval": "itermvs_tpu_torch.data.dtu_eval",
     "custom": "itermvs_tpu_torch.data.custom",
     "tanks": "itermvs_tpu_torch.data.tanks",

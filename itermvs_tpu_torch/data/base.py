@@ -1,5 +1,4 @@
-"""Shared eval-dataset machinery (copy of the eval parts of
-itermvs_tpu/data/base.py; training-only helpers are not ported yet).
+"""Shared dataset machinery (copy of itermvs_tpu/data/base.py).
 
 Loaders emit NHWC numpy samples with the reference's field layout:
 
@@ -7,12 +6,14 @@ Loaders emit NHWC numpy samples with the reference's field layout:
                    (level_0 optionally raw uint8)
     proj_matrices: level_0..3 → [V, 4, 4]
     depth_min/max: float scalars
-    filename:      '<scan>/{}/<refview:08d>{}' template
+    (train) depth/mask: level_0..3 → [H_l, W_l, 1]
+    (eval)  filename:   '<scan>/{}/<refview:08d>{}' template
 
 Image pyramids: scale to [−1, 1], optional INTER_LINEAR resize to the
-target, then INTER_LINEAR /2 /4 /8. `cv2` and `PIL` are imported only
-inside the functions that decode or resize image files, so the rest of
-the port runs where they are not installed.
+target, then INTER_LINEAR /2 /4 /8; GT depth and mask pyramids use
+INTER_NEAREST. `cv2` and `PIL` are imported only inside the functions
+that decode or resize image files, so the rest of the port runs where
+they are not installed.
 """
 from __future__ import annotations
 
@@ -132,6 +133,31 @@ def split_decode_cache_cap(workers: int):
     _pyramid_cache.set_cap(_cache_cap_mb() / max(1, workers))
 
 
+def nearest_pyramid(arr: np.ndarray) -> dict:
+    """INTER_NEAREST /1 /2 /4 /8 pyramid of an [H, W] float map."""
+    import cv2
+
+    h, w = arr.shape
+    return {f"level_{i}": cv2.resize(arr, (w // (2 ** i), h // (2 ** i)),
+                                     interpolation=cv2.INTER_NEAREST)
+            for i in range(LEVELS)}
+
+
+def color_jitter(pil_img, rng, brightness=0.5, contrast=0.5):
+    """torchvision-equivalent ColorJitter(brightness, contrast) on PIL:
+    factors U[1−b, 1+b] and U[1−c, 1+c], applied in random order (the
+    reference's training augmentation)."""
+    from PIL import ImageEnhance
+
+    b = rng.uniform(max(0.0, 1 - brightness), 1 + brightness)
+    c = rng.uniform(max(0.0, 1 - contrast), 1 + contrast)
+    ops = [lambda im: ImageEnhance.Brightness(im).enhance(b),
+           lambda im: ImageEnhance.Contrast(im).enhance(c)]
+    for i in rng.permutation(2):
+        pil_img = ops[i](pil_img)
+    return pil_img
+
+
 def proj_matrix_pyramid(intrinsics: np.ndarray, extrinsics: np.ndarray) -> dict:
     """Per-level 4×4 projections `[K_l·E ; E_lastrow]`; level l scales the
     first two rows of the full-resolution K by 2^−l."""
@@ -155,9 +181,20 @@ class MVSDatasetBase:
     `torch.utils.data.DataLoader`."""
 
     metas: list
+    seed: int = 0
+    _epoch: int = 0
 
     def __len__(self):
         return len(self.metas)
+
+    def set_epoch(self, epoch: int):
+        """Set by the loader so that per-item randomness varies by epoch."""
+        self._epoch = int(epoch)
+
+    def item_rng(self, idx: int) -> np.random.Generator:
+        """Per-item generator: (seed, epoch, idx) fully determines the
+        sample, whichever worker draws it."""
+        return np.random.default_rng((self.seed, self._epoch, int(idx)))
 
     def __getitem__(self, idx):
         raise NotImplementedError
@@ -169,3 +206,14 @@ class MVSDatasetBase:
     @staticmethod
     def read_cam(path):
         return read_cam_file(path)
+
+    @staticmethod
+    def read_image(path):
+        from PIL import Image
+
+        return Image.open(path)
+
+    @staticmethod
+    def expand_map(level_dict):
+        """[H,W] float maps → [H,W,1] (NHWC channel axis)."""
+        return {k: v[..., None].astype(np.float32) for k, v in level_dict.items()}

@@ -33,7 +33,7 @@ from itermvs_tpu_torch.fusion import filter_depth
 from itermvs_tpu_torch.io import save_pfm
 from itermvs_tpu_torch.models import Pipeline
 from itermvs_tpu_torch.ops.consistency import quantize_depth
-from itermvs_tpu_torch.weights import load_npz_weights, pretrained_path
+from itermvs_tpu_torch.weights import load_weights, pretrained_path
 
 parser = argparse.ArgumentParser(description="Predict depth, filter, and fuse "
                                              "(PyTorch port)")
@@ -49,7 +49,8 @@ parser.add_argument("--n_views", type=int, default=5, help="num of view")
 parser.add_argument("--img_wh", nargs="+", type=int, default=None,
                     help="width and height of the image")
 parser.add_argument("--loadckpt", default=None,
-                    help="vendored .npz weights (default: checkpoints/dtu)")
+                    help="weights: vendored .npz (default: checkpoints/dtu) "
+                         "or a checkpoint of the port's trainer (.ckpt)")
 parser.add_argument("--outdir", default="./outputs", help="output dir")
 parser.add_argument("--display", action="store_true",
                     help="write the depth and mask images under OUT/display")
@@ -285,9 +286,8 @@ def save_depth(args, img_wh) -> list[float]:
     if args.feature_cache == "on" and args.batch_size != 1:
         raise SystemExit("--feature_cache on requires --batch_size 1")
     path = args.loadckpt or pretrained_path("dtu")
-    if not path.endswith(".npz"):
-        raise SystemExit(f"--loadckpt {path}: the port reads the vendored "
-                         ".npz weights (checkpoints/*/model_000015.npz)")
+    print(f"loading model {path}")
+    model = load_weights(Pipeline(iteration=args.iteration), path).to(device)
     dataset = apply_scan_shard(build_dataset(args, img_wh),
                                parse_scan_shard(args.scan_shard))
     ncpu = os.cpu_count() or 1
@@ -298,8 +298,6 @@ def save_depth(args, img_wh) -> list[float]:
         worker_init_fn=(functools.partial(_init_loader_worker, workers=workers)
                         if workers else None))
 
-    print(f"loading model {path}")
-    model = load_npz_weights(Pipeline(iteration=args.iteration), path).to(device)
     use_cache = args.feature_cache == "on" or (
         args.feature_cache == "auto" and args.batch_size == 1)
     return run_depth(model, loader, args.outdir, device,

@@ -24,7 +24,8 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("corr_epilogue", "sweep_premul", "fusion_consistency")
+SOURCES = ("corr_epilogue", "sweep_premul", "fusion_consistency", "sweep_grad_ref",
+           "sweep_grad_src")
 # No --use_fast_math: fusion_consistency needs IEEE divides and sqrt.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -37,6 +38,10 @@ SIGNATURES = {
                      (_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P)),
     "fusion_consistency": ("itermvs_fusion_consistency",
                            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P)),
+    "sweep_grad_ref": ("itermvs_sweep_grad_ref",
+                       (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "sweep_grad_src": ("itermvs_sweep_grad_src",
+                       (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
 }
 
 _lock = threading.Lock()

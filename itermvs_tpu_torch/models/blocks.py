@@ -1,7 +1,8 @@
 """NN building blocks, NCHW (counterpart of itermvs_tpu/models/blocks.py).
 
 Convolutions are `nn.Conv2d` / `nn.ConvTranspose2d` (cuDNN on the card),
-BN is `nn.BatchNorm2d` with eps 1e-5 used in eval mode. Module and
+BN is `BatchNorm`, an `nn.BatchNorm2d` (eps 1e-5) whose train mode keeps
+the JAX package's (flax's) running statistics. Module and
 parameter names follow the reference's torch state_dict (e.g.
 `conv1.conv.weight`, `conv1.bn.running_mean`), which `weights.py` fills
 from the vendored flax checkpoint.
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 
 def conv(cin: int, cout: int, kernel: int = 3, stride: int = 1, pad: int = 1,
@@ -24,12 +26,34 @@ def conv_transpose(cin: int, cout: int) -> nn.ConvTranspose2d:
                               output_padding=1, bias=False)
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d with flax's statistics (itermvs_tpu/models/blocks.py
+    `BatchNorm`: momentum 0.9, eps 1e-5). Both normalize a training batch
+    with its biased variance, but torch moves `running_var` towards the
+    unbiased one (n/(n-1) larger); flax, and so this module, towards the
+    biased one: running = 0.9·running + 0.1·batch for mean and variance.
+    Eval mode is `nn.BatchNorm2d`'s."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(0.9).add_(0.1 * mean)
+            self.running_var.mul_(0.9).add_(0.1 * var)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 class ConvBn(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  pad: int = 1):
         super().__init__()
         self.conv = conv(cin, cout, kernel, stride, pad, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn = BatchNorm(cout)
 
     def forward(self, x):
         return self.bn(self.conv(x))

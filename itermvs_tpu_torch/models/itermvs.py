@@ -1,10 +1,10 @@
-"""IterMVS core, test mode: plane-sweep matching + GRU probability
-iteration (counterpart of itermvs_tpu/models/itermvs.py).
+"""IterMVS core: plane-sweep matching + GRU probability iteration
+(counterpart of itermvs_tpu/models/itermvs.py), in test and train mode.
 
 Maps are NCHW; depth-sample stacks are [B, N, H, W]. Every sweep runs
-`fused_sweep_taps` (plain torch) → K2 `sweep_premul` → K1
-`corr_epilogue`, once per (source view, level), through
-`chunked_warp_corr`.
+`fused_sweep_taps` (plain torch) → `SweepCorr` (K2 `sweep_premul` → K1
+`corr_epilogue`; backward K4 `sweep_grad_ref` and K5 `sweep_grad_src`),
+once per (source view, level), through `chunked_warp_corr`.
 
 Numerical semantics kept from the JAX package:
   - init-branch view weights are bilinearly ×2 upsampled before reuse
@@ -13,7 +13,13 @@ Numerical semantics kept from the JAX package:
   - the hidden state starts from the 32-channel level-3 CorrNet score
     volume, ×2 upsampled then tanh'd;
   - in test mode the confidence head runs only on the last iteration,
-    and the returned coarse depth is the one taken before that update.
+    and the returned coarse depth is the one taken before that update;
+  - in train mode every prediction (the init head and each iteration)
+    returns its depth, 256-bin probability and confidence logits, and the
+    gradient stops where the JAX package stops it: at the sweep
+    coordinates, at the view weights entering the iterations, and at the
+    normalized depth after each prediction (the GRU input and the next
+    samples).
 """
 from __future__ import annotations
 
@@ -23,8 +29,7 @@ import torch.nn as nn
 from itermvs_tpu_torch.models.blocks import ConvGRU, ConvReLU, conv, conv_transpose
 from itermvs_tpu_torch.ops.depth_range import depth_unnormalization
 from itermvs_tpu_torch.ops.resize import resize_bilinear, upsample_bilinear
-from itermvs_tpu_torch.ops.sweep import sample_chunks, sweep_premul
-from itermvs_tpu_torch.ops.sweep_epilogue import corr_epilogue
+from itermvs_tpu_torch.ops.sweep_grad import SweepCorr
 from itermvs_tpu_torch.ops.upsample import convex_upsample
 from itermvs_tpu_torch.ops.warping import fused_sweep_taps
 
@@ -86,9 +91,7 @@ def windowed_expectation(probability: torch.Tensor) -> torch.Tensor:
 
 def chunked_warp_corr(src, ref, flat_idx, taps, groups: int = GROUPS):
     """Gather + bilinear taps + group correlation for one (view, level),
-    through K2 `sweep_premul` and K1 `corr_epilogue`, split on sample
-    boundaries only where the premul block would exceed
-    `ops.sweep.PREMUL_BUDGET_BYTES`.
+    differentiable in `src` and `ref` (`ops.sweep_grad.SweepCorr`).
 
     Args:
       src: [B, H1, W1, C] NHWC source features (contiguous).
@@ -97,18 +100,7 @@ def chunked_warp_corr(src, ref, flat_idx, taps, groups: int = GROUPS):
 
     Returns correlation [B, n, G, HW] float32.
     """
-    b, n, hw = flat_idx.shape
-    c = src.shape[-1]
-    outs = []
-    for s0, s1 in sample_chunks(b, n, hw, c):
-        m = s1 - s0
-        premul = sweep_premul(
-            src, flat_idx[:, s0:s1].reshape(b, m * hw).contiguous(),
-            taps[:, :, s0:s1].reshape(4, b, m * hw).contiguous(), ref, m)
-        corr = corr_epilogue(premul.reshape(b * m * hw, 4 * c), b * m, groups)
-        outs.append(corr.reshape(groups, b, m, hw))
-    corr = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
-    return corr.permute(1, 2, 0, 3)                                # [B,n,G,HW]
+    return SweepCorr.apply(src, ref, flat_idx, taps, groups)
 
 
 class PixelViewWeight(nn.Module):
@@ -166,8 +158,8 @@ class Evaluation(nn.Module):
           depth_samples: [B, 32, H8, W8].
 
         Returns view_weights [B, V−1, H4, W4] (×2 upsampled) and the score
-        volume [B, 32, H8, W8]. (The JAX branch also returns the init-sweep
-        depth, which only training reads.)
+        volume [B, 32, H8, W8]. (The init-sweep depth, which only training
+        reads, is `init_depth` of the score.)
         """
         b, n, h, w = depth_samples.shape
         flat_idx, taps = fused_sweep_taps(
@@ -183,6 +175,18 @@ class Evaluation(nn.Module):
             1e-5 + weight.sum(dim=1))[:, None, None]
         score = self.corr_conv1[2](correlation)                     # [B,N,H,W]
         return upsample_bilinear(weight, 2), score
+
+    @staticmethod
+    def init_depth(score, idmin_b, idmax_b):
+        """Init-sweep depth [B, 1, H4, W4]: the expectation of the sample
+        index under the softmax of the score, unnormalized, ×2 upsampled."""
+        n = score.shape[1]
+        probability = torch.softmax(score, dim=1)
+        index = torch.arange(n, dtype=torch.float32,
+                             device=score.device).reshape(1, n, 1, 1)
+        normalized = (index * probability).sum(dim=1, keepdim=True) / (n - 1.0)
+        return upsample_bilinear(
+            depth_unnormalization(normalized, idmin_b, idmax_b), 2)
 
     def iter_sweep(self, ref_features, src_features, rel_projs, depth_samples,
                    view_weights):
@@ -200,6 +204,7 @@ class Evaluation(nn.Module):
 
         Returns correlation scores [B, 10, H4, W4].
         """
+        view_weights = view_weights.detach()
         b, _, h, w = depth_samples.shape
         weight_sum = 1e-5 + view_weights.sum(dim=1)                # [B,H,W]
         rel_stack = torch.stack([rel_projs[k] for k in LEVELS], dim=2)
@@ -246,26 +251,25 @@ class Update(nn.Module):
         return torch.tanh(upsample_bilinear(self.hidden_init_head(score_volume), 2))
 
     def depth(self, hidden):
-        """Normalized depth [B, 1, H, W] from the 256-bin depth head."""
-        return windowed_expectation(torch.softmax(self.depth_head(hidden), dim=1))
+        """(normalized depth [B, 1, H, W], probability [B, 256, H, W]) from
+        the 256-bin depth head."""
+        probability = torch.softmax(self.depth_head(hidden), dim=1)
+        return windowed_expectation(probability), probability
 
-    def forward(self, hidden, normalized_depth, corr, confidence_flag=False):
+    def forward(self, hidden, normalized_depth, corr):
         """One GRU step. corr: [B, 10, H, W]; normalized_depth [B, 1, H, W]."""
-        hidden = self.gru(hidden, torch.cat([normalized_depth, corr], dim=1))
-        confidence = None
-        if confidence_flag:
-            confidence = torch.sigmoid(self.confidence_head(hidden))
-        return hidden, self.depth(hidden), confidence
+        return self.gru(hidden, torch.cat([normalized_depth, corr], dim=1))
 
 
 class IterMVS(nn.Module):
-    """Init sweep → hidden/depth init → GRU iterations (test mode)."""
+    """Init sweep → hidden/depth init → GRU iterations."""
 
-    def __init__(self, iteration: int = 4):
+    def __init__(self, iteration: int = 4, test: bool = True):
         super().__init__()
         if iteration < 1:
             raise ValueError("IterMVS needs at least one iteration")
         self.iteration = iteration
+        self.test = test
         self.evaluation = Evaluation()
         self.update = Update(HIDDEN_DIM)
         self.upsample = nn.Sequential(
@@ -285,8 +289,13 @@ class IterMVS(nn.Module):
           rel_projs: dict level1..3 of [B, V−1, 4, 4] (src @ inv(ref)).
           depth_min, depth_max: [B].
 
-        Returns (depth [B,1,H4,W4], depth_upsampled [B,1,H,W],
-        confidence [B,1,H4,W4], confidence_upsampled [B,1,H,W]).
+        Returns, in test mode, (depth [B,1,H4,W4], depth_upsampled
+        [B,1,H,W], confidence [B,1,H4,W4], confidence_upsampled [B,1,H,W]);
+        in train mode, as the JAX package, (depths, [depth_upsampled],
+        confidences, confidence_upsampled): depths a dict of lists
+        "initial" [init-sweep depth], "combine" (depth of the init head,
+        then of each iteration, [B,1,H4,W4]) and "probability" (the same
+        predictions' [B,256,H4,W4]); confidences their logits [B,1,H4,W4].
         """
         batch, _, h4, w4 = ref_features["level2"].shape
         idmin = 1.0 / depth_min.reshape(batch)
@@ -317,7 +326,18 @@ class IterMVS(nn.Module):
             rel_projs["level3"], depth_samples)
 
         hidden = self.update.hidden_init(score_volume)
-        normalized_depth = self.update.depth(hidden)
+        normalized_depth, probability = self.update.depth(hidden)
+
+        depths = {"combine": [], "probability": [], "initial": []}
+        confidences = []
+        if not self.test:
+            depths["initial"].append(
+                self.evaluation.init_depth(score_volume, idmin_b, idmax_b))
+            depths["combine"].append(
+                depth_unnormalization(normalized_depth, idmin_b, idmax_b))
+            depths["probability"].append(probability)
+            confidences.append(self.update.confidence_head(hidden))
+            normalized_depth = normalized_depth.detach()
 
         intervals = torch.tensor(
             sum((CORR_INTERVALS[k] for k in LEVELS), ()), dtype=torch.float32,
@@ -329,12 +349,24 @@ class IterMVS(nn.Module):
             corr = self.evaluation.iter_sweep(
                 ref_iter, src_nhwc, rel_projs, samples, view_weights)
             last = it == self.iteration - 1
-            if last:
+            if self.test and last:
                 depth = depth_unnormalization(normalized_depth, idmin_b, idmax_b)
-            hidden, normalized_depth, confidence = self.update(
-                hidden, normalized_depth, corr, confidence_flag=last)
+            hidden = self.update(hidden, normalized_depth, corr)
+            normalized_depth, probability = self.update.depth(hidden)
+            if not self.test or last:
+                logits = self.update.confidence_head(hidden)
+            if not self.test:
+                depths["combine"].append(
+                    depth_unnormalization(normalized_depth, idmin_b, idmax_b))
+                depths["probability"].append(probability)
+                confidences.append(logits)
+                if not last:
+                    normalized_depth = normalized_depth.detach()
 
         up = convex_upsample(normalized_depth, upsample_weights, scale=4)
         depth_upsampled = depth_unnormalization(up, idmin_b, idmax_b)
+        confidence = torch.sigmoid(logits)
         confidence_upsampled = upsample_bilinear(confidence, 4)
-        return depth, depth_upsampled, confidence, confidence_upsampled
+        if self.test:
+            return depth, depth_upsampled, confidence, confidence_upsampled
+        return depths, [depth_upsampled], confidences, confidence_upsampled

@@ -1,4 +1,4 @@
-"""Top-level model: FeatureNet → IterMVS, test mode (counterpart of
+"""Top-level model: FeatureNet → IterMVS (counterpart of
 itermvs_tpu/models/pipeline.py).
 
 Consumes the dataset sample layout of the loaders:
@@ -6,8 +6,8 @@ Consumes the dataset sample layout of the loaders:
                   loaders emit it; only level_0 is read)
   proj_matrices:  dict level_0..level_3 → [B, V, 4, 4]
   depth_min/max:  [B]
-and returns depth and confidence maps as [B, H, W, 1], the JAX layout.
-Inside, maps are NCHW.
+and returns maps as [B, H, W, C], the JAX layout (test mode: depth and
+confidence; train mode: the JAX train dict). Inside, maps are NCHW.
 
 float32 here is full float32: constructing a `Pipeline` turns TF32 off
 for cuDNN convolutions and for matmuls (`disable_tf32`), since PyTorch
@@ -31,15 +31,25 @@ def disable_tf32() -> None:
 
 
 class Pipeline(nn.Module):
-    """IterMVS pipeline in test mode (the JAX `Pipeline(test=True)`;
-    training is not ported yet)."""
+    """IterMVS pipeline (the JAX `Pipeline`; `test` defaults to True here).
 
-    def __init__(self, iteration: int = 4):
+    A test-mode Pipeline stays in eval mode whatever `.train()` asks. A
+    train-mode one (`test=False`) returns the JAX train dict and follows
+    `.train()` / `.eval()`: BatchNorm uses batch statistics (over the B·V
+    fold of views) and updates its running ones only in `.train()`, as
+    the JAX package's `train=True`."""
+
+    def __init__(self, iteration: int = 4, test: bool = True):
         super().__init__()
         disable_tf32()
+        self.test = test
         self.feature_net = FeatureNet()
-        self.iter_mvs = IterMVS(iteration=iteration)
-        self.eval()
+        self.iter_mvs = IterMVS(iteration=iteration, test=test)
+        if test:
+            self.eval()
+
+    def train(self, mode: bool = True):
+        return super().train(mode and not self.test)
 
     @staticmethod
     def _normalize(x: torch.Tensor) -> torch.Tensor:
@@ -78,14 +88,22 @@ class Pipeline(nn.Module):
             rel_projs[f"level{level}"] = relative_projection(proj[:, 1:],
                                                              proj[:, 0:1])
         b = ref["level2"].shape[0]
-        depth, depth_up, conf, conf_up = self.iter_mvs(
-            ref, src, rel_projs, depth_min.float().reshape(b),
-            depth_max.float().reshape(b))
+        out = self.iter_mvs(ref, src, rel_projs, depth_min.float().reshape(b),
+                            depth_max.float().reshape(b))
         nhwc = lambda x: x.permute(0, 2, 3, 1)
+        if self.test:
+            depth, depth_up, conf, conf_up = out
+            return {
+                "depth": nhwc(depth),
+                "depths_upsampled": nhwc(depth_up),
+                "confidence": nhwc(conf),
+                "confidence_upsampled": nhwc(conf_up),
+            }
+        depths, depths_up, confs, conf_up = out
         return {
-            "depth": nhwc(depth),
-            "depths_upsampled": nhwc(depth_up),
-            "confidence": nhwc(conf),
+            "depths": {k: [nhwc(x) for x in v] for k, v in depths.items()},
+            "depths_upsampled": [nhwc(x) for x in depths_up],
+            "confidences": [nhwc(x) for x in confs],
             "confidence_upsampled": nhwc(conf_up),
         }
 

@@ -39,6 +39,22 @@ def sample_chunks(batch: int, n: int, hw: int, c: int,
     return [(s0, min(s0 + chunk, n)) for s0 in range(0, n, chunk)]
 
 
+def pack_corners_plain(src: torch.Tensor) -> torch.Tensor:
+    """The zero-filled 4-corner table [B·H1·W1, 4C] of an NHWC source:
+    row (b, y, x) holds src at (y, x), (y, x+1), (y+1, x), (y+1, x+1)."""
+    b, h1, w1, c = src.shape
+    sx = F.pad(src[:, :, 1:], (0, 0, 0, 1))
+    sy = F.pad(src[:, 1:], (0, 0, 0, 0, 0, 1))
+    sxy = F.pad(src[:, 1:, 1:], (0, 0, 0, 1, 0, 1))
+    return torch.cat([src, sx, sy, sxy], dim=-1).reshape(b * h1 * w1, 4 * c)
+
+
+def table_rows(base: torch.Tensor, cells: int) -> torch.Tensor:
+    """Flat rows into a batch of `cells`-row tables for [B, P] base indices."""
+    offs = torch.arange(base.shape[0], device=base.device).reshape(-1, 1) * cells
+    return (base.long() + offs).reshape(-1)
+
+
 def sweep_premul_plain(src: torch.Tensor, base: torch.Tensor,
                        taps: torch.Tensor, ref: torch.Tensor, n: int
                        ) -> torch.Tensor:
@@ -46,13 +62,8 @@ def sweep_premul_plain(src: torch.Tensor, base: torch.Tensor,
     then the tap and reference products (in that order)."""
     b, h1, w1, c = src.shape
     hw = ref.shape[1]
-    sx = F.pad(src[:, :, 1:], (0, 0, 0, 1))
-    sy = F.pad(src[:, 1:], (0, 0, 0, 0, 0, 1))
-    sxy = F.pad(src[:, 1:, 1:], (0, 0, 0, 1, 0, 1))
-    packed = torch.cat([src, sx, sy, sxy], dim=-1).reshape(b * h1 * w1, 4 * c)
-    offs = torch.arange(b, device=src.device).reshape(b, 1) * (h1 * w1)
-    rows = (base.long() + offs).reshape(-1)
-    vals = packed.index_select(0, rows).reshape(b, n, hw, 4, c)
+    packed = pack_corners_plain(src)
+    vals = packed.index_select(0, table_rows(base, h1 * w1)).reshape(b, n, hw, 4, c)
     t = taps.permute(1, 2, 0).reshape(b, n, hw, 4, 1)
     r = ref.reshape(b, 1, hw, 1, c)
     return (vals * t * r).reshape(b, n * hw, 4 * c)

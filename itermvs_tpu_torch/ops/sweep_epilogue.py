@@ -20,7 +20,9 @@ def corr_epilogue_plain(premul: torch.Tensor, n: int, groups: int) -> torch.Tens
     (`corr_epilogue_reference`): corner sum, then per-group channel mean."""
     p, c4 = premul.shape
     c = c4 // 4
-    s = premul.reshape(n, p // n, 4, c).float().sum(dim=2)
+    # f32 accumulation (f64 stays f64, for gradcheck).
+    s = premul.reshape(n, p // n, 4, c).to(
+        torch.promote_types(premul.dtype, torch.float32)).sum(dim=2)
     corr = s.reshape(n, p // n, groups, c // groups).mean(dim=-1)
     return corr.permute(2, 0, 1).contiguous()               # [G, n, HW]
 

@@ -1,0 +1,183 @@
+"""The plane sweep as an autograd function: forward K2 `sweep_premul` →
+K1 `corr_epilogue`, backward K4 `sweep_grad_ref` and K5 `sweep_grad_src`.
+
+The JAX package differentiates `chunked_warp_corr` (itermvs_tpu/models/
+itermvs.py: `gather_corners` of the `pack_bilinear` table, then
+`group_corr`) with XLA's autodiff: a gather-multiply-reduce for the
+reference features and a scatter-add for the source features. The
+sampling coordinates are stop-gradient there (ops/warping.py
+`fused_sweep_taps`), so base indices and taps get no gradient here.
+
+With g' = grad_corr[b, s, grp(ch), pix] / (C/G), the transpose of the
+group mean:
+    d_ref[b, pix, ch]       = Σ_s Σ_k tap_k[b, s, pix] · src[b, y_k, x_k, ch] · g'
+    d_src[b, y_k, x_k, ch] += tap_k[b, s, pix] · ref[b, pix, ch] · g'
+A +1 corner past the edge read the zero fill in the forward pass and
+gets no gradient.
+
+`SweepCorr` saves only its inputs (src, ref, and the contiguous base and
+taps), never the premultiplied block: at 640×512, batch 4, the init
+sweep's block is 503 MB per view. On CUDA tensors the backward launches
+the hand-written kernels (csrc/sweep_grad_ref.cu, csrc/sweep_grad_src.cu)
+or raises; only CPU tensors take the plain versions beside them.
+"""
+from __future__ import annotations
+
+import torch
+
+from itermvs_tpu_torch import kernels
+from itermvs_tpu_torch.ops.sweep import (
+    pack_corners_plain, sample_chunks, sweep_premul, table_rows)
+from itermvs_tpu_torch.ops.sweep_epilogue import corr_epilogue
+
+
+def _channel_grad(grad: torch.Tensor, c: int) -> torch.Tensor:
+    """[B, n, G, HW] → g' per channel, [B, n, HW, C]."""
+    groups = grad.shape[2]
+    cg = c // groups
+    return (grad / cg).permute(0, 1, 3, 2).repeat_interleave(cg, dim=-1)
+
+
+def sweep_grad_ref_plain(src: torch.Tensor, base: torch.Tensor,
+                         taps: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K4: corner rows by `index_select`, the tap
+    sum, then g' and the sum over samples. [B, HW, C]."""
+    b, h1, w1, c = src.shape
+    n, hw = grad.shape[1], grad.shape[3]
+    vals = pack_corners_plain(src).index_select(
+        0, table_rows(base, h1 * w1)).reshape(b, n, hw, 4, c)
+    t = taps.permute(1, 2, 0).reshape(b, n, hw, 4, 1)
+    return ((vals * t).sum(dim=3) * _channel_grad(grad, c)).sum(dim=1)
+
+
+def sweep_grad_src_plain(ref: torch.Tensor, base: torch.Tensor,
+                         taps: torch.Tensor, grad: torch.Tensor,
+                         h1: int, w1: int) -> torch.Tensor:
+    """Plain PyTorch version of K5: the corner products `index_add_`-ed
+    into the zero-filled 4-corner table, which is then unpacked onto the
+    source grid (entries of +1 corners past the edge dropped).
+    [B, H1, W1, C]."""
+    b, hw, c = ref.shape
+    n = grad.shape[1]
+    t = taps.permute(1, 2, 0).reshape(b, n, hw, 4, 1)
+    rg = (ref.reshape(b, 1, hw, c) * _channel_grad(grad, c)).reshape(b, n, hw, 1, c)
+    table = torch.zeros(b * h1 * w1, 4 * c, dtype=ref.dtype, device=ref.device)
+    table.index_add_(0, table_rows(base, h1 * w1), (t * rg).reshape(-1, 4 * c))
+    table = table.reshape(b, h1, w1, 4, c)
+    d_src = table[..., 0, :].clone()
+    d_src[:, :, 1:] += table[:, :, :-1, 1]
+    d_src[:, 1:, :] += table[:, :-1, :, 2]
+    d_src[:, 1:, 1:] += table[:, :-1, :-1, 3]
+    return d_src
+
+
+def _check(name, tensors, dtypes, c, groups):
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: inputs on different devices")
+    if tuple(t.dtype for t in tensors) != dtypes:
+        raise ValueError(f"{name}: needs float32 features/taps/grad, int32 base")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if c % 4 or c > 1024 or c % groups or tensors[0].data_ptr() % 16:
+        raise ValueError(f"{name}: needs C % 4 == 0, C <= 1024, C % G == 0 and "
+                         "16-byte aligned features")
+
+
+def _shapes(name, base, taps, grad, b, hw):
+    n = grad.shape[1]
+    if (grad.ndim != 4 or grad.shape[0] != b or grad.shape[3] != hw
+            or tuple(base.shape) != (b, n * hw) or tuple(taps.shape) != (4, b, n * hw)):
+        raise ValueError(f"{name}: shapes base {tuple(base.shape)}, taps "
+                         f"{tuple(taps.shape)}, grad {tuple(grad.shape)} do not "
+                         f"agree for batch {b}, HW {hw}")
+    return n
+
+
+def sweep_grad_ref(src: torch.Tensor, base: torch.Tensor, taps: torch.Tensor,
+                   grad: torch.Tensor) -> torch.Tensor:
+    """K4: d_ref [B, HW, C] from src [B, H1, W1, C], base [B, n·HW] int32,
+    taps [4, B, n·HW] and grad_corr [B, n, G, HW]."""
+    b, h1, w1, c = src.shape
+    n = _shapes("sweep_grad_ref", base, taps, grad, b, grad.shape[-1])
+    if src.device.type == "cpu":
+        return sweep_grad_ref_plain(src, base, taps, grad)
+    groups, hw = grad.shape[2], grad.shape[3]
+    _check("sweep_grad_ref", (src, base, taps, grad),
+           (torch.float32, torch.int32, torch.float32, torch.float32), c, groups)
+    out = torch.empty((b, hw, c), dtype=torch.float32, device=src.device)
+    fn = kernels.function("sweep_grad_ref")
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernels.check_launch("sweep_grad_ref", fn(
+            src.data_ptr(), base.data_ptr(), taps.data_ptr(), grad.data_ptr(),
+            out.data_ptr(), b, n, hw, h1, w1, c, groups, stream))
+    sweep_grad_ref.launches += 1
+    return out
+
+
+def sweep_grad_src(ref: torch.Tensor, base: torch.Tensor, taps: torch.Tensor,
+                   grad: torch.Tensor, h1: int, w1: int) -> torch.Tensor:
+    """K5: d_src [B, H1, W1, C] from ref [B, HW, C], base [B, n·HW] int32,
+    taps [4, B, n·HW] and grad_corr [B, n, G, HW]. On the card the sum
+    runs in f32 atomics, so its last bits change from run to run."""
+    b, hw, c = ref.shape
+    n = _shapes("sweep_grad_src", base, taps, grad, b, hw)
+    if ref.device.type == "cpu":
+        return sweep_grad_src_plain(ref, base, taps, grad, h1, w1)
+    groups = grad.shape[2]
+    _check("sweep_grad_src", (ref, base, taps, grad),
+           (torch.float32, torch.int32, torch.float32, torch.float32), c, groups)
+    out = torch.zeros((b, h1, w1, c), dtype=torch.float32, device=ref.device)
+    fn = kernels.function("sweep_grad_src")
+    with torch.cuda.device(ref.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernels.check_launch("sweep_grad_src", fn(
+            ref.data_ptr(), base.data_ptr(), taps.data_ptr(), grad.data_ptr(),
+            out.data_ptr(), b, n, hw, h1, w1, c, groups, stream))
+    sweep_grad_src.launches += 1
+    return out
+
+
+sweep_grad_ref.launches = 0
+sweep_grad_src.launches = 0
+
+
+class SweepCorr(torch.autograd.Function):
+    """Group correlation of one (view, level) sweep, [B, n, G, HW].
+
+    forward(src [B, H1, W1, C], ref [B, HW, C], flat_idx [B, n, HW] int32,
+    taps [4, B, n, HW], groups): K2 → K1, split on sample boundaries only
+    where the premul block would exceed `ops.sweep.PREMUL_BUDGET_BYTES`.
+    backward: K4 for d_ref and K5 for d_src over all samples at once (they
+    keep no premul block); no gradient for the indices and taps."""
+
+    @staticmethod
+    def forward(ctx, src, ref, flat_idx, taps, groups):
+        b, n, hw = flat_idx.shape
+        c = src.shape[-1]
+        base = flat_idx.reshape(b, n * hw).contiguous()
+        taps = taps.reshape(4, b, n * hw).contiguous()
+        outs = []
+        for s0, s1 in sample_chunks(b, n, hw, c):
+            m = s1 - s0
+            premul = sweep_premul(src, base[:, s0 * hw:s1 * hw].contiguous(),
+                                  taps[:, :, s0 * hw:s1 * hw].contiguous(), ref, m)
+            corr = corr_epilogue(premul.reshape(b * m * hw, 4 * c), b * m, groups)
+            outs.append(corr.reshape(groups, b, m, hw))
+        corr = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+        ctx.save_for_backward(src, ref, base, taps)
+        return corr.permute(1, 2, 0, 3).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        src, ref, base, taps = ctx.saved_tensors
+        grad = grad.contiguous()
+        d_src = d_ref = None
+        if ctx.needs_input_grad[0]:
+            d_src = sweep_grad_src(ref, base, taps, grad, src.shape[1], src.shape[2])
+        if ctx.needs_input_grad[1]:
+            d_ref = sweep_grad_ref(src, base, taps, grad)
+        return d_src, d_ref, None, None, None

@@ -136,8 +136,10 @@ def fused_sweep_taps(rel_projs: torch.Tensor, depth_samples: torch.Tensor,
     px = torch.where(valid, proj_xyz[..., 0], torch.full_like(z, float(w)))
     py = torch.where(valid, proj_xyz[..., 1], torch.full_like(z, float(h)))
     pz = torch.where(valid, z, torch.ones_like(z))
-    px = px / pz                                                  # [B,V,N,HW]
-    py = py / pz
+    # Stop-gradient, as in the JAX package: no gradient reaches the
+    # sampling coordinates (nor the depths and projections behind them).
+    px = (px / pz).detach()                                       # [B,V,N,HW]
+    py = (py / pz).detach()
 
     sizes = torch.as_tensor([src_hws[l] for l in level_of_sample],
                             dtype=f32, device=dev)                # [N, 2]

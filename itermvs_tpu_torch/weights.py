@@ -1,16 +1,19 @@
-"""Vendored flax checkpoint (.npz) → torch state_dict for `Pipeline`.
+"""Weights between the JAX package's flax variables and the port's torch
+state_dict, in both directions, and the port's weight files.
 
-The npz holds 132 `params/…` and `batch_stats/…` arrays named by the
-flax module tree (`checkpoints/{dtu,blendedmvs}/model_000015.npz`). The
-port's modules carry the reference's torch state_dict names, so this is
-the inverse of the JAX package's torch importer:
+The flax variables are a tree `{"params": …, "batch_stats": …}` named by
+the flax module tree; the vendored npz (`checkpoints/{dtu,blendedmvs}/
+model_000015.npz`) holds the same 132 arrays flat, `/`-joined. The
+port's modules carry the reference's torch state_dict names, so the way
+in is the inverse of the JAX package's torch importer:
   * Conv kernels HWIO → OIHW;
   * ConvTranspose kernels: undo the spatial flip and the transpose of the
     correlation form → IOHW;
   * BN scale/bias/mean/var → weight/bias/running_mean/running_var.
-Loading is strict: every npz array is used exactly once, and every
-parameter and buffer of the model is set except BN's
-`num_batches_tracked`, which the npz does not carry.
+Each transform is a permutation of elements, so `flax_tree` maps a
+state_dict or its gradients back the same way. Loading is strict: every
+array is used exactly once, and every parameter and buffer of the model
+is set except BN's `num_batches_tracked`, which flax does not carry.
 """
 from __future__ import annotations
 
@@ -38,6 +41,11 @@ def _deconv(w):
 
 def _vec(w):
     return w
+
+
+_INVERSE = {_conv: lambda w: w.transpose(2, 3, 1, 0),                 # OIHW → HWIO
+            _deconv: lambda w: w.transpose(2, 3, 0, 1)[::-1, ::-1],   # IOHW → flipped HWIO
+            _vec: _vec}
 
 
 def key_map() -> list[tuple[str, str, object]]:
@@ -103,31 +111,87 @@ def key_map() -> list[tuple[str, str, object]]:
     return out
 
 
-def npz_state_dict(path: str) -> dict[str, torch.Tensor]:
-    """Read a vendored npz into a torch state_dict (CPU tensors). Raises
-    if the npz holds an array the port does not use, or lacks one."""
+def flat_state_dict(flat, source: str = "flax variables") -> dict[str, torch.Tensor]:
+    """A flat `{"params/…": array}` mapping (the npz form) → torch
+    state_dict (CPU tensors). Raises if it holds an array the port does
+    not use, or lacks one."""
     mapping = key_map()
+    keys = set(flat.keys())
+    wanted = {k for k, _, _ in mapping}
+    if keys != wanted or len(wanted) != len(mapping):
+        raise ValueError(
+            f"{source}: keys do not match the port's modules; unused "
+            f"{sorted(keys - wanted)}, missing {sorted(wanted - keys)}")
+    return {tkey: torch.from_numpy(np.array(fn(np.asarray(flat[nkey])), order="C"))
+            for nkey, tkey, fn in mapping}
+
+
+def flax_state_dict(variables: dict) -> dict[str, torch.Tensor]:
+    """Nested flax variables `{"params": …, "batch_stats": …}` of numpy
+    arrays (e.g. a fresh JAX `model.init`) → torch state_dict."""
+    flat = {}
+
+    def walk(prefix, node):
+        for k, v in node.items():
+            key = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                walk(key, v)
+            else:
+                flat[key] = v
+
+    walk("", variables)
+    return flat_state_dict(flat)
+
+
+def flax_tree(tensors: dict[str, torch.Tensor]) -> dict:
+    """Inverse of `flax_state_dict`: a state_dict, or gradients keyed by
+    parameter name, → nested flax tree of numpy arrays. Only the keys
+    present are mapped (gradients give a `params` tree alone)."""
+    tree: dict = {}
+    for nkey, tkey, fn in key_map():
+        if tkey not in tensors:
+            continue
+        node = tree
+        parts = nkey.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        value = tensors[tkey].detach().cpu().numpy()
+        node[parts[-1]] = np.ascontiguousarray(_INVERSE[fn](value))
+    return tree
+
+
+def npz_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """Read a vendored npz into a torch state_dict (CPU tensors)."""
     with np.load(path) as data:
-        files = set(data.files)
-        wanted = {k for k, _, _ in mapping}
-        if files != wanted or len(wanted) != len(mapping):
-            raise ValueError(
-                f"{path}: npz keys do not match the port's modules; unused "
-                f"{sorted(files - wanted)}, missing {sorted(wanted - files)}")
-        return {tkey: torch.from_numpy(np.ascontiguousarray(fn(data[nkey])))
-                for nkey, tkey, fn in mapping}
+        return flat_state_dict({k: data[k] for k in data.files}, path)
 
 
-def load_npz_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
-    """Strictly load a vendored npz into `model` (a `Pipeline`)."""
-    sd = npz_state_dict(path)
+def load_state(model: torch.nn.Module, sd: dict, source: str) -> torch.nn.Module:
+    """Strictly load `sd` into `model` (a `Pipeline`): every parameter and
+    buffer but `num_batches_tracked`, which `sd` may lack."""
     expected = {k for k in model.state_dict()
                 if not k.endswith("num_batches_tracked")}
-    if set(sd) != expected:
+    given = {k for k in sd if not k.endswith("num_batches_tracked")}
+    if given != expected:
         raise ValueError(
-            f"{path}: state_dict mismatch; not set {sorted(expected - set(sd))}, "
-            f"unknown {sorted(set(sd) - expected)}")
+            f"{source}: state_dict mismatch; not set {sorted(expected - given)}, "
+            f"unknown {sorted(given - expected)}")
     missing, unexpected = model.load_state_dict(sd, strict=False)
     if unexpected or any(not k.endswith("num_batches_tracked") for k in missing):
         raise ValueError(f"load_state_dict: missing {missing}, unexpected {unexpected}")
     return model
+
+
+def load_npz_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Strictly load a vendored npz into `model` (a `Pipeline`)."""
+    return load_state(model, npz_state_dict(path), path)
+
+
+def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Strictly load weights into `model` from a vendored `.npz` or from a
+    checkpoint of the port's trainer (a torch file `{"model": state_dict,
+    ...}`, engine/checkpoint.py)."""
+    if path.endswith(".npz"):
+        return load_npz_weights(model, path)
+    state = torch.load(path, map_location="cpu", weights_only=True)["model"]
+    return load_state(model, state, path)

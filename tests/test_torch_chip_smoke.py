@@ -41,6 +41,37 @@ def test_launch_plan_is_52_per_map_at_1600x1152():
         ("iter_level3", 1, 2, 288, 400, 144, 200, 48)]
 
 
+def test_training_plan_is_52_launches_of_each_sweep_kernel_per_step():
+    """At 640x512, batch 4, 5 views, 4 iterations, the init sweep's premul
+    block (503 MB per view) runs unsplit: 52 forward and 52 backward
+    launches per step."""
+    shapes = chip_smoke.sweep_shapes(640, 512, 5, 4, 4)
+    assert [s[:8] for s in shapes] == [
+        ("init", 4, 32, 64, 80, 64, 80, 48),
+        ("iter_level1", 4, 4, 128, 160, 256, 320, 16),
+        ("iter_level2", 4, 4, 128, 160, 128, 160, 32),
+        ("iter_level3", 4, 2, 128, 160, 64, 80, 48)]
+    assert [s[-1] for s in shapes] == [4, 16, 16, 16]
+    assert all(len(chip_smoke.sample_chunks(*s[1:3], s[3] * s[4], s[7])) == 1 for s in shapes)
+
+
+def test_train_sample_and_step_on_the_cpu():
+    """chip_smoke's in-memory training batch has the loader's layout, and
+    its CPU train step (the side the card is held against) runs."""
+    sample = chip_smoke.train_sample(160, 128, 3, 2, 0)
+    assert sample["imgs"]["level_0"].shape == (2, 3, 128, 160, 3)
+    assert sample["proj_matrices"]["level_3"].shape == (2, 3, 4, 4)
+    assert sample["depth"]["level_2"].shape == (2, 32, 40, 1)
+    assert (sample["mask"]["level_0"] == 1).all()
+    _, _, depths = chip_smoke.render_scene(160, 128, 3, 0)
+    assert np.array_equal(sample["depth"]["level_0"][1, ..., 0], depths[1])
+    loss, grads = chip_smoke.step_gradients("cpu", sample, 2)
+    assert np.isfinite(loss) and len(grads) == 100
+    assert all(torch.isfinite(g).all() for g in grads.values())
+    base = torch.tensor([[0, 3, 4 * 5 - 1, 3 * 5]], dtype=torch.int32)    # 4x5 map
+    assert chip_smoke.valid_corners(base, 4, 5).tolist() == [[4, 4, 1, 2]]
+
+
 @pytest.mark.parametrize("cache", [True, False])
 def test_in_memory_samples_through_run_depth(tmp_path, cache):
     cams, images, gts = chip_smoke.render_scene(512, 384, 3, 0)

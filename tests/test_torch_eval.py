@@ -83,7 +83,10 @@ def _port_modules():
 def test_port_imports_neither_jax_nor_the_jax_package():
     modules = _port_modules()
     assert {"itermvs_tpu_torch.eval", "itermvs_tpu_torch.kernels",
-            "itermvs_tpu_torch.ops.sweep", "itermvs_tpu_torch.weights"} <= set(modules)
+            "itermvs_tpu_torch.ops.sweep", "itermvs_tpu_torch.weights",
+            "itermvs_tpu_torch.train", "itermvs_tpu_torch.ops.sweep_grad",
+            "itermvs_tpu_torch.engine.train_loop", "itermvs_tpu_torch.data.loader",
+            "itermvs_tpu_torch.data.dtu"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
@@ -111,9 +114,15 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch, tmp_path):
 
 
 def test_eval_rejects_weights_it_cannot_read(tmp_path):
-    with pytest.raises(SystemExit, match="vendored .npz"):
+    """--loadckpt reads a vendored .npz or a checkpoint of the port's
+    trainer; a checkpoint of other weights is refused before any work."""
+    ckpt = tmp_path / "model.ckpt"
+    torch.save({"epoch": 0, "model": {"foo.weight": torch.zeros(3)}}, ckpt)
+    with pytest.raises(ValueError, match="state_dict mismatch"):
         port_eval.main(["--device", "cpu", "--dataset", "custom",
-                        "--testpath", str(tmp_path), "--loadckpt", "model.ckpt"])
+                        "--testpath", str(tmp_path), "--loadckpt", str(ckpt),
+                        "--outdir", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
 
 
 @pytest.fixture(scope="module")
