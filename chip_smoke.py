@@ -29,8 +29,11 @@
 7. Holds the sweep kernels, forward (sweep_premul, corr_epilogue) and
    backward (sweep_grad_ref, sweep_grad_src), against their plain
    versions on the card at the four sweep shapes of a training step at
-   640x512, batch 4, 5 views, and times them; checks that a base index
-   outside the source map shows as NaN in both backward kernels.
+   640x512, batch 4, 5 views, and times them (the backward kernels bare
+   and through their wrappers); holds the backward kernels on pile-up,
+   edge and one-corner bases too, and K4 bit for bit against a second
+   launch; checks that a base index outside the source map shows as NaN
+   in both.
 8. One train step of the port (`engine.train_loop`) on the card against
    the same step on the CPU (plain versions) at 160x128, batch 2, 3
    views, 2 iterations, the DTU weights: loss and gradients.
@@ -73,7 +76,8 @@ from itermvs_tpu_torch.ops.consistency import (
 from itermvs_tpu_torch.ops.sweep import sample_chunks, sweep_premul, sweep_premul_plain
 from itermvs_tpu_torch.ops.sweep_epilogue import corr_epilogue, corr_epilogue_plain
 from itermvs_tpu_torch.ops.sweep_grad import (
-    sweep_grad_ref, sweep_grad_ref_plain, sweep_grad_src, sweep_grad_src_plain)
+    launch_sweep_grad_ref, launch_sweep_grad_src, sweep_grad_ref, sweep_grad_ref_plain,
+    sweep_grad_src, sweep_grad_src_plain)
 from itermvs_tpu_torch.weights import load_npz_weights, pretrained_path
 
 WIDTH, HEIGHT = 1600, 1152
@@ -232,11 +236,10 @@ def sweep_shapes(width, height, views, iteration, batch=1):
     return out
 
 
-def sweep_inputs(b, n, h, w, h1, w1, c, gen):
+def sweep_inputs(b, n, h, w, h1, w1, c, gen, dev="cuda"):
     """K2 inputs with the access pattern of a real sweep: each sample is
     the reference grid, scaled to the source size and shifted by a
     per-sample sub-pixel-to-several-pixel disparity."""
-    dev = "cuda"
     ys = torch.arange(h, device=dev, dtype=torch.float32).reshape(1, h, 1) * (h1 / h)
     xs = torch.arange(w, device=dev, dtype=torch.float32).reshape(1, 1, w) * (w1 / w)
     shift = torch.linspace(-6.0, 6.0, n, device=dev).reshape(n, 1, 1)
@@ -249,6 +252,41 @@ def sweep_inputs(b, n, h, w, h1, w1, c, gen):
     src = torch.rand(b, h1, w1, c, device=dev, generator=gen) * 2 - 1
     ref = torch.rand(b, h * w, c, device=dev, generator=gen) * 2 - 1
     return src, base, taps, ref
+
+
+# The harder inputs K4 and K5 are held at besides the sweep's own, each
+# launched GRAD_CASE_LAUNCHES times: K5's reductions land in another order
+# every launch, and so does its rounding.
+GRAD_CASES = ("pile_up", "edges", "one_corner")
+# one_corner: batch 0's bases in the last 8x8 cells (1.25% of the init
+# sweep's cells). On 3x3, its rows alternate among 9 cells, so K5 sums no
+# runs and ~73,000 float4 reductions meet on one element: float32 rounding
+# alone then spreads its error up to 0.9 of the 1e-5 limit.
+CORNER_CELLS = 8
+GRAD_CASE_LAUNCHES = 10
+
+
+def grad_cases(b, n, h, w, h1, w1, c, gen, dev="cuda"):
+    """{case: (src, base, taps, ref, grad)} for the backward kernels, from
+    `sweep_inputs` and a seeded grad_corr, with the bases replaced:
+    pile_up, every row of batch 0 on one cell (the map's centre: the most
+    rows that can meet on a cell); edges, every base on the last row or
+    the last column, so that +1 corners fall off the map; one_corner,
+    batch 0's bases all in the last CORNER_CELLS x CORNER_CELLS cells, so
+    that most of its cells get nothing (the other batches as the sweep
+    has them)."""
+    src, base, taps, ref = sweep_inputs(b, n, h, w, h1, w1, c, gen, dev)
+    grad = torch.randn(b, n, GROUPS, h * w, device=dev, generator=gen)
+    pile = base.clone()
+    pile[0] = (h1 // 2) * w1 + w1 // 2
+    r = torch.randint(0, w1 + h1 - 1, base.shape, device=dev, generator=gen)
+    edges = torch.where(r < w1, (h1 - 1) * w1 + r, (r - w1) * w1 + w1 - 1).to(torch.int32)
+    corner = base.clone()
+    dy, dx = (torch.randint(0, CORNER_CELLS, base[0].shape, device=dev, generator=gen)
+              for _ in range(2))
+    corner[0] = ((h1 - 1 - dy).clamp(min=0) * w1 + (w1 - 1 - dx).clamp(min=0)).to(torch.int32)
+    return {name: (src, bases, taps, ref, grad)
+            for name, bases in zip(GRAD_CASES, (pile, edges, corner))}
 
 
 def time_ms(fn, reps=20):
@@ -349,71 +387,147 @@ def valid_corners(base, h1, w1):
     return 1 + (x + 1 < w1).int() + (y + 1 < h1).int() + ((x + 1 < w1) & (y + 1 < h1)).int()
 
 
+def hold_grad(kname, got, want, label):
+    """(max |err|, max|plain|) of a backward kernel's result, or SystemExit
+    beyond 1e-5 of max|plain| (the kernels sum the same products in
+    another order than the plain versions)."""
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    if not err <= 1e-5 * scale:
+        raise SystemExit(f"{kname} at {label}: max |kernel - plain| {err} > 1e-5 * {scale}")
+    return err, scale
+
+
+def grad_launchers(src, base, taps, ref, grad, d_ref, d_src):
+    """{kernel: bare launch of K4 / K5 into the preallocated d_ref / d_src}."""
+    return {"sweep_grad_ref": lambda: launch_sweep_grad_ref(src, base, taps, grad, d_ref),
+            "sweep_grad_src": lambda: launch_sweep_grad_src(ref, base, taps, grad, d_src)}
+
+
+def repeats_equal(launch, out):
+    """Whether two launches on the same inputs write the same bits."""
+    launch()
+    first = out.clone()
+    launch()
+    torch.cuda.synchronize()
+    return torch.equal(first, out)
+
+
 def check_grad_kernels(shapes, rounds=5, reps=20):
     """K4 sweep_grad_ref and K5 sweep_grad_src against their plain versions
     at every sweep shape, with seeded taps and indices (edge corners
-    included) and a seeded grad_corr; one JSON line per (kernel, shape),
-    and per kernel the totals of one step (each shape's line times its
-    launches). Tolerance 1e-5 of max|plain|: both sum the same products
-    in another order (K5 with f32 atomics, whose order changes from run
-    to run). Then a base index outside the source map must give NaN in
-    d_ref (K4) and in d_src (K5)."""
+    included) and a seeded grad_corr, through the wrappers and through
+    their bare launches. One JSON line per (kernel, shape): `ms` the
+    kernel's device time, the median of `rounds` rounds of `reps` bare
+    launches (K5's zero fill included, outputs allocated beforehand),
+    `call_ms` the wrapper's; per kernel the totals of one step (each
+    shape's line times its launches). K4 sums in a fixed order and must
+    repeat bit for bit; K5's float4 reductions land in an order that
+    changes, and its line says whether two launches agreed. Then the
+    GRAD_CASES (pile-up, edges, one corner) at the init and level-1
+    shapes, GRAD_CASE_LAUNCHES launches each, every one held against the
+    plain versions in float64 (the float32 plain version's own sum of the
+    pile-up's 163,840 rows on one cell is ~1.4e-5 of the largest value off
+    the exact one: its line gives that control beside the kernels' largest
+    and smallest error), and a base index outside the source map must
+    give NaN in d_ref (K4) and in d_src (K5)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
-    per_step = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_rel_err": 0.0,
-                    "max_abs_err": 0.0, "bytes": 0.0, "ops": 0.0, "launches": 0}
+    per_step = {k: {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                    "max_rel_err": 0.0, "max_abs_err": 0.0, "bytes": 0.0, "ops": 0.0,
+                    "launches": 0}
                 for k in ("sweep_grad_ref", "sweep_grad_src")}
+
+    def hold_repeats(kname, run, out, label):
+        equal = repeats_equal(run, out)
+        if kname == "sweep_grad_ref" and not equal:
+            raise SystemExit(f"{kname} at {label}: two launches on the same inputs differ")
+        return equal
+
     for name, b, n, h, w, h1, w1, c, launches in shapes:
         launches = launches // len(sample_chunks(b, n, h * w, c))   # one per sweep
         src, base, taps, ref = sweep_inputs(b, n, h, w, h1, w1, c, gen)
         grad = torch.randn(b, n, GROUPS, h * w, device="cuda", generator=gen)
+        outs = {"sweep_grad_ref": torch.empty(b, h * w, c, device="cuda"),
+                "sweep_grad_src": torch.empty(b, h1, w1, c, device="cuda")}
+        bare = grad_launchers(src, base, taps, ref, grad, *outs.values())
         # 1 + 2 flops per valid corner and channel (the tap products and
         # their sum, the g' product and the accumulation), per row.
         ops = float(c * (1 + 2 * valid_corners(base, h1, w1).sum().item()))
-        streams = 4 * (base.numel() + taps.numel() + grad.numel())
-        for kname, run, plain, nbytes in (
+        nbytes = 4 * (base.numel() + taps.numel() + grad.numel() + src.numel() + ref.numel())
+        for kname, call, plain in (
                 ("sweep_grad_ref", lambda: sweep_grad_ref(src, base, taps, grad),
-                 lambda: sweep_grad_ref_plain(src, base, taps, grad),
-                 streams + 4 * (src.numel() + ref.numel())),
+                 lambda: sweep_grad_ref_plain(src, base, taps, grad)),
                 ("sweep_grad_src", lambda: sweep_grad_src(ref, base, taps, grad, h1, w1),
-                 lambda: sweep_grad_src_plain(ref, base, taps, grad, h1, w1),
-                 streams + 4 * (ref.numel() + src.numel()))):
-            got = run()
-            torch.cuda.synchronize()
+                 lambda: sweep_grad_src_plain(ref, base, taps, grad, h1, w1))):
             want = plain()
-            err = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            del got, want
-            rec = {"ms": median_ms(run, rounds, reps)[0], "plain_ms": time_ms(plain, reps=3),
-                   "library_ms": None}
+            err, scale = hold_grad(kname, call(), want, name)
+            bare[kname]()
+            hold_grad(kname, outs[kname], want, f"{name}, bare launch")
+            del want
+            ms, ms_min, ms_max = median_ms(bare[kname], rounds, reps)
+            rec = {"ms": ms, "ms_min": ms_min, "ms_max": ms_max,
+                   "call_ms": median_ms(call, rounds, reps)[0],
+                   "plain_ms": time_ms(plain, reps=3), "library_ms": None,
+                   "repeats_bit_equal": hold_repeats(kname, bare[kname], outs[kname], name)}
             rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops)
             line = {"kernel": kname, "shape": name, "batch": b, "n": n, "hw": h * w,
                     "src_hw": [h1, w1], "c": c, "launches_per_step": launches,
                     "max_abs_err": err, "max_rel_err": err / scale, "tol_rel": 1e-5,
                     "share_of_bound": rec["bound_ms"] / rec["ms"], **rec}
             print(json.dumps(line))
-            if not err <= 1e-5 * scale:
-                raise SystemExit(f"{kname} at {name}: max |kernel - plain| {err} > "
-                                 f"1e-5 * {scale}")
             tot = per_step[kname]
-            for key in ("ms", "plain_ms", "bound_ms"):
+            for key in ("ms", "call_ms", "plain_ms", "bound_ms"):
                 tot[key] += launches * rec[key]
             tot["max_rel_err"] = max(tot["max_rel_err"], err / scale)
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
             tot["bytes"] += launches * nbytes
             tot["ops"] += launches * ops
             tot["launches"] += launches
-        del src, base, taps, ref, grad
+        del src, base, taps, ref, grad, outs, bare
+        torch.cuda.empty_cache()
+
+    # The harder inputs, at the init sweep's shape (n = 32) and level 1's.
+    for name, b, n, h, w, h1, w1, c, _ in shapes[:2]:
+        for case, (src, base, taps, ref, grad) in grad_cases(
+                b, n, h, w, h1, w1, c, gen).items():
+            outs = {"sweep_grad_ref": torch.empty(b, h * w, c, device="cuda"),
+                    "sweep_grad_src": torch.empty(b, h1, w1, c, device="cuda")}
+            bare = grad_launchers(src, base, taps, ref, grad, *outs.values())
+            exact = {"sweep_grad_ref": sweep_grad_ref_plain(
+                         src.double(), base, taps.double(), grad.double()).float(),
+                     "sweep_grad_src": sweep_grad_src_plain(
+                         ref.double(), base, taps.double(), grad.double(), h1, w1).float()}
+            plain = {"sweep_grad_ref": lambda: sweep_grad_ref_plain(src, base, taps, grad),
+                     "sweep_grad_src": lambda: sweep_grad_src_plain(ref, base, taps, grad,
+                                                                    h1, w1)}
+            rec = {"grad_case": case, "shape": name, "most_rows_on_a_cell": int(
+                torch.unique(base[0], return_counts=True)[1].max()),
+                "launches": GRAD_CASE_LAUNCHES, "max_rel_err": {}, "min_rel_err": {},
+                "plain_f32_rel_err": {}, "ms": {}, "repeats_bit_equal": {}}
+            for kname, run in bare.items():
+                errs = []
+                for _ in range(GRAD_CASE_LAUNCHES):
+                    run()
+                    err, scale = hold_grad(kname, outs[kname], exact[kname], f"{name}, {case}")
+                    errs.append(err / scale)
+                rec["max_rel_err"][kname], rec["min_rel_err"][kname] = max(errs), min(errs)
+                # The control: the float32 plain version against float64.
+                rec["plain_f32_rel_err"][kname] = (
+                    plain[kname]() - exact[kname]).abs().max().item() / scale
+                rec["repeats_bit_equal"][kname] = hold_repeats(
+                    kname, run, outs[kname], f"{name}, {case}")
+                rec["ms"][kname] = time_ms(run, reps=3)
+            print(json.dumps(rec))
+            del src, base, taps, ref, grad, outs, bare, exact, plain
         torch.cuda.empty_cache()
 
     # An upstream fault must show, not be skipped.
     src, base, taps, ref = sweep_inputs(1, 2, 8, 8, 8, 8, 16, gen)
     grad = torch.randn(1, 2, GROUPS, 64, device="cuda", generator=gen)
     base[0, 5] = 64
-    d_ref = sweep_grad_ref(src, base, taps, grad)
-    d_src = sweep_grad_src(ref, base, taps, grad, 8, 8)
-    torch.cuda.synchronize()
-    faults = {"d_ref_nan": bool(d_ref.isnan().any()), "d_src_nan": bool(d_src.isnan().any())}
+    faults = {"d_ref_nan": bool(sweep_grad_ref(src, base, taps, grad).isnan().any()),
+              "d_src_nan": bool(sweep_grad_src(ref, base, taps, grad, 8, 8).isnan().any())}
     print(json.dumps({"sweep_grad_fault_check": faults}))
     if not all(faults.values()):
         raise SystemExit(f"a base index outside the source map did not show: {faults}")
@@ -975,7 +1089,8 @@ def main():
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": train_counts[name],
             "max_abs_err": tot["max_abs_err"], "max_rel_err": tot["max_rel_err"],
-            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "ms": tot["ms"], "call_ms": tot["call_ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "launches_per_step": tot["launches"],
             "per": f"one training step, {TRAIN_WIDTH}x{TRAIN_HEIGHT}, batch {TRAIN_BATCH}, "

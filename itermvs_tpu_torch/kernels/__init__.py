@@ -4,7 +4,8 @@ Each source `itermvs_tpu_torch/csrc/<name>.cu` is compiled by `nvcc` for
 Hopper (`sm_90a`) into its own shared library with a plain C interface,
 loaded with `ctypes` (pointers and the stream pass as `c_void_p`). The
 libraries go to `itermvs_tpu_torch/_build/` under a name that carries a
-hash of the source and flags, so an edited source is rebuilt. Every
+hash of the source, the shared headers (`csrc/*.cuh`) and the flags, so
+an edited source or header is rebuilt. Every
 missing library is built at once, one `nvcc` per source, all started
 together. Nothing is built at import: the first call of a kernel's
 wrapper builds it, and `build_all` does so up front.
@@ -61,10 +62,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for source in (f"{name}.cu", *headers):
+        with open(os.path.join(CSRC_DIR, source), "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
 def build_all(names=SOURCES) -> float:

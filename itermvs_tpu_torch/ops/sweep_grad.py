@@ -93,7 +93,30 @@ def _shapes(name, base, taps, grad, b, hw):
         raise ValueError(f"{name}: shapes base {tuple(base.shape)}, taps "
                          f"{tuple(taps.shape)}, grad {tuple(grad.shape)} do not "
                          f"agree for batch {b}, HW {hw}")
-    return n
+
+
+def launch_sweep_grad_ref(src, base, taps, grad, out) -> None:
+    """K4's bare launch into `out` [B, HW, C] on the current stream, for
+    checked inputs; counts nothing (the wrapper does)."""
+    b, h1, w1, c = src.shape
+    n, groups, hw = grad.shape[1], grad.shape[2], grad.shape[3]
+    kernels.check_launch("sweep_grad_ref", kernels.function("sweep_grad_ref")(
+        src.data_ptr(), base.data_ptr(), taps.data_ptr(), grad.data_ptr(),
+        out.data_ptr(), b, n, hw, h1, w1, c, groups,
+        torch.cuda.current_stream().cuda_stream))
+
+
+def launch_sweep_grad_src(ref, base, taps, grad, out) -> None:
+    """K5's bare launch into `out` [B, H1, W1, C] on the current stream,
+    for checked inputs: its zero fill and its kernel. Counts nothing (the
+    wrapper does)."""
+    b, hw, c = ref.shape
+    h1, w1 = out.shape[1], out.shape[2]
+    n, groups = grad.shape[1], grad.shape[2]
+    kernels.check_launch("sweep_grad_src", kernels.function("sweep_grad_src")(
+        ref.data_ptr(), base.data_ptr(), taps.data_ptr(), grad.data_ptr(),
+        out.data_ptr(), b, n, hw, h1, w1, c, groups,
+        torch.cuda.current_stream().cuda_stream))
 
 
 def sweep_grad_ref(src: torch.Tensor, base: torch.Tensor, taps: torch.Tensor,
@@ -101,19 +124,14 @@ def sweep_grad_ref(src: torch.Tensor, base: torch.Tensor, taps: torch.Tensor,
     """K4: d_ref [B, HW, C] from src [B, H1, W1, C], base [B, n·HW] int32,
     taps [4, B, n·HW] and grad_corr [B, n, G, HW]."""
     b, h1, w1, c = src.shape
-    n = _shapes("sweep_grad_ref", base, taps, grad, b, grad.shape[-1])
+    _shapes("sweep_grad_ref", base, taps, grad, b, grad.shape[-1])
     if src.device.type == "cpu":
         return sweep_grad_ref_plain(src, base, taps, grad)
-    groups, hw = grad.shape[2], grad.shape[3]
     _check("sweep_grad_ref", (src, base, taps, grad),
-           (torch.float32, torch.int32, torch.float32, torch.float32), c, groups)
-    out = torch.empty((b, hw, c), dtype=torch.float32, device=src.device)
-    fn = kernels.function("sweep_grad_ref")
+           (torch.float32, torch.int32, torch.float32, torch.float32), c, grad.shape[2])
+    out = torch.empty((b, grad.shape[3], c), dtype=torch.float32, device=src.device)
     with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        kernels.check_launch("sweep_grad_ref", fn(
-            src.data_ptr(), base.data_ptr(), taps.data_ptr(), grad.data_ptr(),
-            out.data_ptr(), b, n, hw, h1, w1, c, groups, stream))
+        launch_sweep_grad_ref(src, base, taps, grad, out)
     sweep_grad_ref.launches += 1
     return out
 
@@ -122,21 +140,16 @@ def sweep_grad_src(ref: torch.Tensor, base: torch.Tensor, taps: torch.Tensor,
                    grad: torch.Tensor, h1: int, w1: int) -> torch.Tensor:
     """K5: d_src [B, H1, W1, C] from ref [B, HW, C], base [B, n·HW] int32,
     taps [4, B, n·HW] and grad_corr [B, n, G, HW]. On the card the sum
-    runs in f32 atomics, so its last bits change from run to run."""
+    runs in float4 atomics, so its last bits change from run to run."""
     b, hw, c = ref.shape
-    n = _shapes("sweep_grad_src", base, taps, grad, b, hw)
+    _shapes("sweep_grad_src", base, taps, grad, b, hw)
     if ref.device.type == "cpu":
         return sweep_grad_src_plain(ref, base, taps, grad, h1, w1)
-    groups = grad.shape[2]
     _check("sweep_grad_src", (ref, base, taps, grad),
-           (torch.float32, torch.int32, torch.float32, torch.float32), c, groups)
-    out = torch.zeros((b, h1, w1, c), dtype=torch.float32, device=ref.device)
-    fn = kernels.function("sweep_grad_src")
+           (torch.float32, torch.int32, torch.float32, torch.float32), c, grad.shape[2])
+    out = torch.empty((b, h1, w1, c), dtype=torch.float32, device=ref.device)
     with torch.cuda.device(ref.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        kernels.check_launch("sweep_grad_src", fn(
-            ref.data_ptr(), base.data_ptr(), taps.data_ptr(), grad.data_ptr(),
-            out.data_ptr(), b, n, hw, h1, w1, c, groups, stream))
+        launch_sweep_grad_src(ref, base, taps, grad, out)
     sweep_grad_src.launches += 1
     return out
 

@@ -15,9 +15,11 @@ import torch
 
 import chip_smoke
 from tests import synthetic_scene
+from itermvs_tpu_torch import kernels
 from itermvs_tpu_torch.eval import run_depth
 from itermvs_tpu_torch.io import read_pfm
 from itermvs_tpu_torch.models import Pipeline
+from itermvs_tpu_torch.ops.sweep_grad import sweep_grad_src_plain
 from itermvs_tpu_torch.weights import load_npz_weights, pretrained_path
 
 
@@ -138,3 +140,55 @@ def test_k3_timing_script_needs_a_card():
     out = subprocess.run([sys.executable, script, "--tree", root], capture_output=True,
                          text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode != 0 and "kernel_ms" not in out.stdout
+
+
+def test_k4_k5_timing_script_needs_a_card():
+    """Without a CUDA device the K4/K5 A/B timing script exits non-zero
+    and prints no timing line."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "itermvs_tpu_torch", "tools", "time_sweep_grad.py")
+    out = subprocess.run([sys.executable, script, "--tree", root], capture_output=True,
+                         text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0 and "ms_per_step" not in out.stdout
+    assert '"ms"' not in out.stdout
+
+
+def test_grad_cases_plant_their_cases():
+    """The harder backward inputs: batch 0 piled on one cell, every base on
+    the last row or column, batch 0 in the last 8x8 cells; the rest as
+    the sweep has it; and the plain versions agree with float64 there."""
+    b, n, h, w, h1, w1, c = 2, 32, 4, 5, 10, 12, 16
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    src0, base0, taps0, ref0 = chip_smoke.sweep_inputs(b, n, h, w, h1, w1, c, gen, "cpu")
+    gen.manual_seed(0)
+    cases = chip_smoke.grad_cases(b, n, h, w, h1, w1, c, gen, "cpu")
+    assert tuple(cases) == chip_smoke.GRAD_CASES
+    pile, edges, corner = (cases[k][1] for k in chip_smoke.GRAD_CASES)
+    assert all(t.dtype == torch.int32 and t.shape == base0.shape for t in (pile, edges, corner))
+    assert (pile[0] == (h1 // 2) * w1 + w1 // 2).all() and torch.equal(pile[1], base0[1])
+    y, x = edges // w1, edges % w1
+    assert ((y == h1 - 1) | (x == w1 - 1)).all() and (edges >= 0).all()
+    assert (y == h1 - 1).any() and (x == w1 - 1).any() and (y < h1 - 1).any()
+    y, x = corner[0] // w1, corner[0] % w1
+    k = chip_smoke.CORNER_CELLS
+    assert (y >= h1 - k).all() and (x >= w1 - k).all() and torch.equal(corner[1], base0[1])
+    assert len(torch.unique(corner[0])) <= k * k < h1 * w1
+    for src, base, taps, ref, grad in cases.values():
+        assert torch.equal(src, src0) and torch.equal(taps, taps0) and torch.equal(ref, ref0)
+        assert grad.shape == (b, n, chip_smoke.GROUPS, h * w)
+        got = sweep_grad_src_plain(ref, base, taps, grad, h1, w1)
+        exact = sweep_grad_src_plain(ref.double(), base, taps.double(), grad.double(), h1, w1)
+        assert (got - exact).abs().max() <= 1e-5 * exact.abs().max()
+
+
+def test_kernel_library_name_follows_its_shared_headers(tmp_path, monkeypatch):
+    """A kernel is rebuilt when a header in csrc/ changes, not only its
+    own source."""
+    monkeypatch.setattr(kernels, "CSRC_DIR", str(tmp_path))
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = kernels.library_path("k")
+    assert kernels.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert kernels.library_path("k") != first

@@ -48,14 +48,19 @@ def _port_grads(src, ref, idx, taps, cot):
     return s.grad.numpy(), r.grad.reshape(b, h, w, c).numpy()
 
 
-# The three levels' channel counts; one sample per chunk forced.
-@pytest.mark.parametrize("b,n,c,h1,w1", [(2, 4, 16, 12, 16), (2, 4, 32, 6, 8),
-                                         (1, 5, 48, 3, 4)])
-def test_sweep_backward_matches_jax_vjp(rng, monkeypatch, b, n, c, h1, w1):
+# The three levels' channel counts, the init sweep's 32 samples at C = 48,
+# and a pile-up (every row of batch 0 on one source cell, the largest
+# bucket K5 can meet); one sample per chunk forced.
+@pytest.mark.parametrize("b,n,c,h1,w1,pile_up", [
+    (2, 4, 16, 12, 16, False), (2, 4, 32, 6, 8, False), (1, 5, 48, 3, 4, False),
+    (2, 32, 48, 6, 8, False), (2, 32, 48, 6, 8, True), (2, 4, 16, 12, 16, True)])
+def test_sweep_backward_matches_jax_vjp(rng, monkeypatch, b, n, c, h1, w1, pile_up):
     h, w = 6, 8
     monkeypatch.setattr(sweep, "PREMUL_BUDGET_BYTES", 1)
     assert len(sample_chunks(b, n, h * w, c)) == n
     src, ref, idx, taps = _sweep_inputs(rng, b, n, h, w, h1, w1, c)
+    if pile_up:
+        idx[0] = (h1 // 2) * w1 + w1 // 2
     cot = rng.randn(b, n, h, w, GROUPS).astype(np.float32)
 
     def f(s, r):
