@@ -45,6 +45,23 @@
    device time by kind and idle share; then a validation step and a
    checkpoint saved and restored on the card.
 
+bfloat16 (`Pipeline(dtype=torch.bfloat16)`, eval's and train's
+`--precision bfloat16`) runs the bf16 forms of the four sweep kernels:
+after step 6 they are held against their plain versions at the depth
+path's shapes (sweep_premul_bf16 bit for bit, corr_epilogue_bf16 within
+1e-6 of max|plain|, timed beside a bf16 torch.matmul), then the same 5
+depth maps run in bf16 (each map's median error < 0.05 and within
+max(1.15 f32, f32 + 0.01) of the f32 run's; 52 launches of each forward
+form per map; maps/s, device time by kind, idle share); after step 7 all
+four are held at the training step's shapes and on the pile-up, edge and
+one-corner bases (sweep_grad_ref_bf16 and sweep_grad_src_bf16 within one
+bf16 step of |plain| plus 1e-5 of max|plain|, 10 launches each); after
+step 9 the same 10 training steps run in bf16 (loss finite and falling,
+the first within 2% of the f32 run's, the mean of the last two no more
+than 15% above f32's, each dtype's averaged over its run and two runs
+from the init perturbed by 1e-6; 52 launches of each bf16 form per step;
+the bf16 loss on an f32 run's weights before each step is printed).
+
 The last line is `{"ok": true, "device": {...}}`; any failed phase
 exits non-zero before it. Without a CUDA device, or outside the repo,
 the script exits non-zero and prints no result.
@@ -86,9 +103,15 @@ ITERATION = 4
 DTU_SOURCES = 10        # sources per reference view in DTU's pair lists
 SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and
-# float32 rate outside the tensor cores.
+# float32 rate outside the tensor cores. The bf16 forms of the sweep
+# kernels compute in float32 too, from converted values.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+BF16 = torch.bfloat16
+# One bf16 step relative to a value (2^-7): the bf16 backward kernels and
+# their plain versions each round one float32 sum, summed in another
+# order, so the two may land one step apart.
+BF16_STEP = torch.finfo(BF16).eps
 FEATURE_CHANNELS = {"level1": 16, "level2": 32, "level3": 48}
 # The training step of train_dtu.sh's recipe: 640x512 crops, batch 4,
 # 5 views, 4 GRU iterations, float32, stage 2 (--regress).
@@ -98,6 +121,14 @@ TRAIN_STEPS = 10
 TRAIN_LR = 1e-3
 # The train step held on the card against the CPU.
 SMALL_TRAIN = dict(width=160, height=128, batch=2, views=3, iteration=2)
+# The spread of the training loss after TRAIN_STEPS steps, in each dtype:
+# TRAIN_NOISE_RUNS more runs from the same init with every weight scaled by
+# (1 + TRAIN_NOISE * N(0, 1)). Adam's first steps move each weight by about
+# the learning rate whatever its gradient's size (m/sqrt(v) ~ +-1), so
+# where a gradient is near 0 any noise flips that move, and f32 runs from
+# inits 1e-6 apart end 10 steps tens of percent apart: the bf16 endpoint
+# is held against f32's as the means over these runs.
+TRAIN_NOISE, TRAIN_NOISE_RUNS = 1e-6, 2
 
 # ---------------------------------------------------------------- scene
 # The port's own copy of the textured-plane scene of
@@ -220,26 +251,32 @@ def samples_of(cams, images):
 
 
 # --------------------------------------------------------------- kernels
-def sweep_shapes(width, height, views, iteration, batch=1):
+def sweep_shapes(width, height, views, iteration, batch=1, itemsize=4):
     """Per sweep shape of one forward pass: (name, batch, n, H, W, H1, W1,
-    C, launches of each forward kernel, from the chunk plan). The backward
-    kernels launch once per (view, level) sweep, whatever the chunks."""
+    C, launches of each forward kernel, from the chunk plan for features
+    of `itemsize` bytes). The backward kernels launch once per (view,
+    level) sweep, whatever the chunks."""
     h4, w4 = height // 4, width // 4
     src = {"level1": (height // 2, width // 2), "level2": (h4, w4),
            "level3": (height // 8, width // 8)}
+
+    def chunks(n, hw, c):
+        return len(sample_chunks(batch, n, hw, c, itemsize=itemsize))
+
     out = [("init", batch, NUM_INIT_SAMPLES, h4 // 2, w4 // 2, *src["level3"], 48,
-            (views - 1) * len(sample_chunks(batch, NUM_INIT_SAMPLES, h4 * w4 // 4, 48)))]
+            (views - 1) * chunks(NUM_INIT_SAMPLES, h4 * w4 // 4, 48))]
     for key in LEVELS:
         n, c = len(CORR_INTERVALS[key]), FEATURE_CHANNELS[key]
         out.append((f"iter_{key}", batch, n, h4, w4, *src[key], c,
-                    iteration * (views - 1) * len(sample_chunks(batch, n, h4 * w4, c))))
+                    iteration * (views - 1) * chunks(n, h4 * w4, c)))
     return out
 
 
-def sweep_inputs(b, n, h, w, h1, w1, c, gen, dev="cuda"):
+def sweep_inputs(b, n, h, w, h1, w1, c, gen, dev="cuda", dtype=torch.float32):
     """K2 inputs with the access pattern of a real sweep: each sample is
     the reference grid, scaled to the source size and shifted by a
-    per-sample sub-pixel-to-several-pixel disparity."""
+    per-sample sub-pixel-to-several-pixel disparity. Features and taps in
+    `dtype` (bf16: the float32 draws rounded)."""
     ys = torch.arange(h, device=dev, dtype=torch.float32).reshape(1, h, 1) * (h1 / h)
     xs = torch.arange(w, device=dev, dtype=torch.float32).reshape(1, 1, w) * (w1 / w)
     shift = torch.linspace(-6.0, 6.0, n, device=dev).reshape(n, 1, 1)
@@ -251,7 +288,7 @@ def sweep_inputs(b, n, h, w, h1, w1, c, gen, dev="cuda"):
     taps = torch.rand(4, b, n * h * w, device=dev, generator=gen)
     src = torch.rand(b, h1, w1, c, device=dev, generator=gen) * 2 - 1
     ref = torch.rand(b, h * w, c, device=dev, generator=gen) * 2 - 1
-    return src, base, taps, ref
+    return src.to(dtype), base, taps.to(dtype), ref.to(dtype)
 
 
 # The harder inputs K4 and K5 are held at besides the sweep's own, each
@@ -266,7 +303,7 @@ CORNER_CELLS = 8
 GRAD_CASE_LAUNCHES = 10
 
 
-def grad_cases(b, n, h, w, h1, w1, c, gen, dev="cuda"):
+def grad_cases(b, n, h, w, h1, w1, c, gen, dev="cuda", dtype=torch.float32):
     """{case: (src, base, taps, ref, grad)} for the backward kernels, from
     `sweep_inputs` and a seeded grad_corr, with the bases replaced:
     pile_up, every row of batch 0 on one cell (the map's centre: the most
@@ -274,8 +311,8 @@ def grad_cases(b, n, h, w, h1, w1, c, gen, dev="cuda"):
     the last column, so that +1 corners fall off the map; one_corner,
     batch 0's bases all in the last CORNER_CELLS x CORNER_CELLS cells, so
     that most of its cells get nothing (the other batches as the sweep
-    has them)."""
-    src, base, taps, ref = sweep_inputs(b, n, h, w, h1, w1, c, gen, dev)
+    has them). Features and taps in `dtype`."""
+    src, base, taps, ref = sweep_inputs(b, n, h, w, h1, w1, c, gen, dev, dtype)
     grad = torch.randn(b, n, GROUPS, h * w, device=dev, generator=gen)
     pile = base.clone()
     pile[0] = (h1 // 2) * w1 + w1 // 2
@@ -306,49 +343,61 @@ def bound_ms(nbytes, ops, ops_per_s=PEAK_F32_PER_S):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_kernels(shapes, per="map"):
-    """Each kernel against its plain version at every sweep shape; per
-    shape one JSON line, and per kernel the totals of one depth map (or
-    training step, `per`)."""
+def kernel_name(name, dtype):
+    """A sweep kernel's report name: `name`, or `name_bf16` for its
+    bfloat16 form."""
+    return name if dtype == torch.float32 else f"{name}_bf16"
+
+
+def check_kernels(shapes, per="map", dtype=torch.float32):
+    """Each forward kernel of `dtype` against its plain version at every
+    sweep shape; per shape one JSON line, and per kernel the totals of one
+    depth map (or training step, `per`). Keyed by report name."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
+    k1, k2 = kernel_name("corr_epilogue", dtype), kernel_name("sweep_premul", dtype)
     per_map = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
                    "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
-               for k in ("sweep_premul", "corr_epilogue")}
+               for k in (k2, k1)}
     for name, b, n, h, w, h1, w1, c, launches in shapes:
         hw = h * w
         p = n * hw
-        src, base, taps, ref = sweep_inputs(b, n, h, w, h1, w1, c, gen)
+        src, base, taps, ref = sweep_inputs(b, n, h, w, h1, w1, c, gen, dtype=dtype)
+        size = src.element_size()
 
-        # K2 sweep_premul: products of the same floats in the same
-        # order, so the tolerance is 1e-6 of the largest value.
+        # K2 sweep_premul: products of the same floats in the same order
+        # (f32: the tolerance is 1e-6 of the largest value; bf16: each
+        # product rounded as the plain version rounds it, so bit for bit).
         got = sweep_premul(src, base, taps, ref, n)
         want = sweep_premul_plain(src, base, taps, ref, n)
-        err2 = (got - want).abs().max().item()
-        tol2 = 1e-6 * want.abs().max().item()
-        nbytes2 = 4 * (src.numel() + base.numel() + taps.numel() + ref.numel()
-                       + got.numel())
+        err2 = (got.float() - want.float()).abs().max().item()
+        tol2 = 1e-6 * want.abs().max().item() if dtype == torch.float32 else 0.0
+        if dtype == BF16 and not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise SystemExit(f"{k2} at {name}: bits differ from its plain version")
+        nbytes2 = (size * (src.numel() + taps.numel() + ref.numel() + got.numel())
+                   + 4 * base.numel())
         ops2 = 2 * got.numel()
         k2 = {"ms": time_ms(lambda: sweep_premul(src, base, taps, ref, n)),
               "plain_ms": time_ms(lambda: sweep_premul_plain(src, base, taps, ref, n)),
               "library_ms": None}
         k2["bound_ms"], k2["bound_by"] = bound_ms(nbytes2, ops2)
 
-        # K1 corr_epilogue on the real K2 output: a sum of 4*C/G terms
-        # in another order than the plain version, so 1e-5 of the
-        # largest value.
+        # K1 corr_epilogue on the real K2 output: a float32 sum of 4*C/G
+        # terms in another order than the plain version, so 1e-5 of the
+        # largest value in f32 and 1e-6 in bf16 (whose terms are exact in
+        # float32). The library call: one matmul in premul's dtype.
         premul = got.reshape(b * p, 4 * c)
         del want
         got1 = corr_epilogue(premul, b * n, GROUPS)
         want1 = corr_epilogue_plain(premul, b * n, GROUPS)
         err1 = (got1 - want1).abs().max().item()
-        tol1 = 1e-5 * want1.abs().max().item()
+        tol1 = (1e-5 if dtype == torch.float32 else 1e-6) * want1.abs().max().item()
         cg = c // GROUPS
         m4 = torch.from_numpy(np.tile(np.repeat(np.eye(GROUPS), cg, axis=0) / cg,
-                                      (4, 1)).T.astype(np.float32)).cuda()
+                                      (4, 1)).T.astype(np.float32)).cuda().to(dtype)
         lib = torch.matmul(premul, m4.T)                       # [P, G]
-        err_lib = (lib.T.reshape(GROUPS, b * n, hw) - want1).abs().max().item()
-        nbytes1 = 4 * (premul.numel() + got1.numel())
+        err_lib = (lib.T.reshape(GROUPS, b * n, hw).float() - want1).abs().max().item()
+        nbytes1 = size * premul.numel() + 4 * got1.numel()
         ops1 = premul.numel() + got1.numel()
         k1 = {"ms": time_ms(lambda: corr_epilogue(premul, b * n, GROUPS)),
               "plain_ms": time_ms(lambda: corr_epilogue_plain(premul, b * n, GROUPS)),
@@ -356,12 +405,12 @@ def check_kernels(shapes, per="map"):
         k1["bound_ms"], k1["bound_by"] = bound_ms(nbytes1, ops1)
 
         for kname, rec, err, tol, nbytes, ops in (
-                ("sweep_premul", k2, err2, tol2, nbytes2, ops2),
-                ("corr_epilogue", k1, err1, tol1, nbytes1, ops1)):
+                (kernel_name("sweep_premul", dtype), k2, err2, tol2, nbytes2, ops2),
+                (kernel_name("corr_epilogue", dtype), k1, err1, tol1, nbytes1, ops1)):
             line = {"kernel": kname, "shape": name, "batch": b, "n": n, "hw": hw,
                     "src_hw": [h1, w1], "c": c, f"launches_per_{per}": launches,
                     "max_abs_err": err, "tol": tol, **rec}
-            if kname == "corr_epilogue":
+            if kname.startswith("corr_epilogue"):
                 line["library_max_abs_err"] = err_lib
             print(json.dumps(line))
             if not err <= tol:
@@ -389,19 +438,27 @@ def valid_corners(base, h1, w1):
 
 def hold_grad(kname, got, want, label):
     """(max |err|, max|plain|) of a backward kernel's result, or SystemExit
-    beyond 1e-5 of max|plain| (the kernels sum the same products in
-    another order than the plain versions)."""
-    err = (got - want).abs().max().item()
+    where |err| exceeds 1e-5 of max|plain| (the kernels sum the same
+    products in another order than the plain versions) plus, for a bf16
+    result, one bf16 step of |plain| (each side rounds its float32 sum
+    once, so the two may round apart)."""
+    diff = (got.float() - want.float()).abs()
     scale = want.abs().max().item()
-    if not err <= 1e-5 * scale:
-        raise SystemExit(f"{kname} at {label}: max |kernel - plain| {err} > 1e-5 * {scale}")
-    return err, scale
+    step = BF16_STEP if got.dtype == BF16 else 0.0
+    bound = 1e-5 * scale + step * want.float().abs()
+    if not bool((diff <= bound).all()):
+        worst = (diff - bound).argmax()
+        raise SystemExit(f"{kname} at {label}: |kernel - plain| {diff.flatten()[worst]} > "
+                         f"1e-5 * {scale} + {step} * |plain| at flat index {int(worst)}")
+    return diff.max().item(), scale
 
 
-def grad_launchers(src, base, taps, ref, grad, d_ref, d_src):
-    """{kernel: bare launch of K4 / K5 into the preallocated d_ref / d_src}."""
+def grad_launchers(src, base, taps, ref, grad, d_ref, d_src, scratch=None):
+    """{kernel: bare launch of K4 / K5 into the preallocated d_ref / d_src}
+    (bf16 K5: summing into the float32 `scratch`)."""
     return {"sweep_grad_ref": lambda: launch_sweep_grad_ref(src, base, taps, grad, d_ref),
-            "sweep_grad_src": lambda: launch_sweep_grad_src(ref, base, taps, grad, d_src)}
+            "sweep_grad_src": lambda: launch_sweep_grad_src(ref, base, taps, grad, d_src,
+                                                            scratch)}
 
 
 def repeats_equal(launch, out):
@@ -413,9 +470,10 @@ def repeats_equal(launch, out):
     return torch.equal(first, out)
 
 
-def check_grad_kernels(shapes, rounds=5, reps=20):
-    """K4 sweep_grad_ref and K5 sweep_grad_src against their plain versions
-    at every sweep shape, with seeded taps and indices (edge corners
+def check_grad_kernels(shapes, rounds=5, reps=20, dtype=torch.float32):
+    """K4 sweep_grad_ref and K5 sweep_grad_src (their forms for features
+    of `dtype`; keyed by report name) against their plain versions at
+    every sweep shape, with seeded taps and indices (edge corners
     included) and a seeded grad_corr, through the wrappers and through
     their bare launches. One JSON line per (kernel, shape): `ms` the
     kernel's device time, the median of `rounds` rounds of `reps` bare
@@ -429,32 +487,44 @@ def check_grad_kernels(shapes, rounds=5, reps=20):
     plain versions in float64 (the float32 plain version's own sum of the
     pile-up's 163,840 rows on one cell is ~1.4e-5 of the largest value off
     the exact one: its line gives that control beside the kernels' largest
-    and smallest error), and a base index outside the source map must
-    give NaN in d_ref (K4) and in d_src (K5)."""
+    and smallest error; for bf16, the float64 sums rounded once to bf16),
+    and a base index outside the source map must give NaN in d_ref (K4)
+    and in d_src (K5)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
-    per_step = {k: {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                    "max_rel_err": 0.0, "max_abs_err": 0.0, "bytes": 0.0, "ops": 0.0,
-                    "launches": 0}
+    names = {k: kernel_name(k, dtype) for k in ("sweep_grad_ref", "sweep_grad_src")}
+    per_step = {names[k]: {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                           "max_rel_err": 0.0, "max_abs_err": 0.0, "bytes": 0.0,
+                           "ops": 0.0, "launches": 0}
                 for k in ("sweep_grad_ref", "sweep_grad_src")}
 
     def hold_repeats(kname, run, out, label):
         equal = repeats_equal(run, out)
         if kname == "sweep_grad_ref" and not equal:
-            raise SystemExit(f"{kname} at {label}: two launches on the same inputs differ")
+            raise SystemExit(f"{names[kname]} at {label}: two launches on the same inputs "
+                             "differ")
         return equal
 
+    def outputs(b, hw, h1, w1, c):
+        """(d_ref, d_src, K5's float32 scratch or None), preallocated."""
+        return (torch.empty(b, hw, c, device="cuda", dtype=dtype),
+                torch.empty(b, h1, w1, c, device="cuda", dtype=dtype),
+                None if dtype == torch.float32
+                else torch.empty(b, h1, w1, c, device="cuda"))
+
     for name, b, n, h, w, h1, w1, c, launches in shapes:
-        launches = launches // len(sample_chunks(b, n, h * w, c))   # one per sweep
-        src, base, taps, ref = sweep_inputs(b, n, h, w, h1, w1, c, gen)
+        size = torch.tensor([], dtype=dtype).element_size()
+        launches = launches // len(sample_chunks(b, n, h * w, c, itemsize=size))  # per sweep
+        src, base, taps, ref = sweep_inputs(b, n, h, w, h1, w1, c, gen, dtype=dtype)
         grad = torch.randn(b, n, GROUPS, h * w, device="cuda", generator=gen)
-        outs = {"sweep_grad_ref": torch.empty(b, h * w, c, device="cuda"),
-                "sweep_grad_src": torch.empty(b, h1, w1, c, device="cuda")}
-        bare = grad_launchers(src, base, taps, ref, grad, *outs.values())
+        d_ref, d_src, scratch = outputs(b, h * w, h1, w1, c)
+        outs = {"sweep_grad_ref": d_ref, "sweep_grad_src": d_src}
+        bare = grad_launchers(src, base, taps, ref, grad, d_ref, d_src, scratch)
         # 1 + 2 flops per valid corner and channel (the tap products and
         # their sum, the g' product and the accumulation), per row.
         ops = float(c * (1 + 2 * valid_corners(base, h1, w1).sum().item()))
-        nbytes = 4 * (base.numel() + taps.numel() + grad.numel() + src.numel() + ref.numel())
+        nbytes = (4 * (base.numel() + grad.numel())
+                  + size * (taps.numel() + src.numel() + ref.numel()))
         for kname, call, plain in (
                 ("sweep_grad_ref", lambda: sweep_grad_ref(src, base, taps, grad),
                  lambda: sweep_grad_ref_plain(src, base, taps, grad)),
@@ -471,12 +541,12 @@ def check_grad_kernels(shapes, rounds=5, reps=20):
                    "plain_ms": time_ms(plain, reps=3), "library_ms": None,
                    "repeats_bit_equal": hold_repeats(kname, bare[kname], outs[kname], name)}
             rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops)
-            line = {"kernel": kname, "shape": name, "batch": b, "n": n, "hw": h * w,
+            line = {"kernel": names[kname], "shape": name, "batch": b, "n": n, "hw": h * w,
                     "src_hw": [h1, w1], "c": c, "launches_per_step": launches,
                     "max_abs_err": err, "max_rel_err": err / scale, "tol_rel": 1e-5,
                     "share_of_bound": rec["bound_ms"] / rec["ms"], **rec}
             print(json.dumps(line))
-            tot = per_step[kname]
+            tot = per_step[names[kname]]
             for key in ("ms", "call_ms", "plain_ms", "bound_ms"):
                 tot[key] += launches * rec[key]
             tot["max_rel_err"] = max(tot["max_rel_err"], err / scale)
@@ -484,24 +554,25 @@ def check_grad_kernels(shapes, rounds=5, reps=20):
             tot["bytes"] += launches * nbytes
             tot["ops"] += launches * ops
             tot["launches"] += launches
-        del src, base, taps, ref, grad, outs, bare
+        del src, base, taps, ref, grad, outs, bare, d_ref, d_src, scratch
         torch.cuda.empty_cache()
 
     # The harder inputs, at the init sweep's shape (n = 32) and level 1's.
     for name, b, n, h, w, h1, w1, c, _ in shapes[:2]:
         for case, (src, base, taps, ref, grad) in grad_cases(
-                b, n, h, w, h1, w1, c, gen).items():
-            outs = {"sweep_grad_ref": torch.empty(b, h * w, c, device="cuda"),
-                    "sweep_grad_src": torch.empty(b, h1, w1, c, device="cuda")}
-            bare = grad_launchers(src, base, taps, ref, grad, *outs.values())
+                b, n, h, w, h1, w1, c, gen, dtype=dtype).items():
+            d_ref, d_src, scratch = outputs(b, h * w, h1, w1, c)
+            outs = {"sweep_grad_ref": d_ref, "sweep_grad_src": d_src}
+            bare = grad_launchers(src, base, taps, ref, grad, d_ref, d_src, scratch)
             exact = {"sweep_grad_ref": sweep_grad_ref_plain(
-                         src.double(), base, taps.double(), grad.double()).float(),
+                         src.double(), base, taps.double(), grad.double()).to(dtype),
                      "sweep_grad_src": sweep_grad_src_plain(
-                         ref.double(), base, taps.double(), grad.double(), h1, w1).float()}
+                         ref.double(), base, taps.double(), grad.double(), h1, w1).to(dtype)}
             plain = {"sweep_grad_ref": lambda: sweep_grad_ref_plain(src, base, taps, grad),
                      "sweep_grad_src": lambda: sweep_grad_src_plain(ref, base, taps, grad,
                                                                     h1, w1)}
-            rec = {"grad_case": case, "shape": name, "most_rows_on_a_cell": int(
+            rec = {"grad_case": case, "dtype": str(dtype), "shape": name,
+                   "most_rows_on_a_cell": int(
                 torch.unique(base[0], return_counts=True)[1].max()),
                 "launches": GRAD_CASE_LAUNCHES, "max_rel_err": {}, "min_rel_err": {},
                 "plain_f32_rel_err": {}, "ms": {}, "repeats_bit_equal": {}}
@@ -512,23 +583,23 @@ def check_grad_kernels(shapes, rounds=5, reps=20):
                     err, scale = hold_grad(kname, outs[kname], exact[kname], f"{name}, {case}")
                     errs.append(err / scale)
                 rec["max_rel_err"][kname], rec["min_rel_err"][kname] = max(errs), min(errs)
-                # The control: the float32 plain version against float64.
+                # The control: the plain version (float32 sums) against float64.
                 rec["plain_f32_rel_err"][kname] = (
-                    plain[kname]() - exact[kname]).abs().max().item() / scale
+                    plain[kname]().float() - exact[kname].float()).abs().max().item() / scale
                 rec["repeats_bit_equal"][kname] = hold_repeats(
                     kname, run, outs[kname], f"{name}, {case}")
                 rec["ms"][kname] = time_ms(run, reps=3)
             print(json.dumps(rec))
-            del src, base, taps, ref, grad, outs, bare, exact, plain
+            del src, base, taps, ref, grad, outs, bare, exact, plain, d_ref, d_src, scratch
         torch.cuda.empty_cache()
 
     # An upstream fault must show, not be skipped.
-    src, base, taps, ref = sweep_inputs(1, 2, 8, 8, 8, 8, 16, gen)
+    src, base, taps, ref = sweep_inputs(1, 2, 8, 8, 8, 8, 16, gen, dtype=dtype)
     grad = torch.randn(1, 2, GROUPS, 64, device="cuda", generator=gen)
     base[0, 5] = 64
     faults = {"d_ref_nan": bool(sweep_grad_ref(src, base, taps, grad).isnan().any()),
               "d_src_nan": bool(sweep_grad_src(ref, base, taps, grad, 8, 8).isnan().any())}
-    print(json.dumps({"sweep_grad_fault_check": faults}))
+    print(json.dumps({"sweep_grad_fault_check": faults, "dtype": str(dtype)}))
     if not all(faults.values()):
         raise SystemExit(f"a base index outside the source map did not show: {faults}")
     return per_step
@@ -716,26 +787,42 @@ def fuse_scene(views, outdir, device):
 
 
 # ------------------------------------------------------------ end to end
-KERNELS = (sweep_premul, corr_epilogue, consistency, sweep_grad_ref, sweep_grad_src)
+SWEEP_KERNELS = (sweep_premul, corr_epilogue, sweep_grad_ref, sweep_grad_src)
+# Every kernel's report name, float32 forms first.
+KERNEL_NAMES = ("sweep_premul", "corr_epilogue", "fusion_consistency", "sweep_grad_ref",
+                "sweep_grad_src", "sweep_premul_bf16", "corr_epilogue_bf16",
+                "sweep_grad_ref_bf16", "sweep_grad_src_bf16")
 
 
 def launch_counts():
-    return {"sweep_premul": sweep_premul.launches,
-            "corr_epilogue": corr_epilogue.launches,
-            "fusion_consistency": consistency.launches,
-            "sweep_grad_ref": sweep_grad_ref.launches,
-            "sweep_grad_src": sweep_grad_src.launches}
+    """{report name: launches} of all nine kernels."""
+    counts = {"fusion_consistency": consistency.launches}
+    for fn in SWEEP_KERNELS:
+        counts[fn.__name__] = fn.launches
+        counts[f"{fn.__name__}_bf16"] = fn.launches_bf16
+    return {k: counts[k] for k in KERNEL_NAMES}
+
+
+def planned_counts(**launches):
+    """`launches` for the named kernels, 0 for every other."""
+    return {k: launches.get(k, 0) for k in KERNEL_NAMES}
 
 
 def reset_launch_counts():
-    for fn in KERNELS:
-        fn.launches = 0
+    consistency.launches = 0
+    for fn in SWEEP_KERNELS:
+        fn.launches = fn.launches_bf16 = 0
 
 
 def _category(name):
-    for kernel in ("sweep_premul", "corr_epilogue", "sweep_grad_ref", "sweep_grad_src"):
-        if kernel in name:
-            return kernel
+    if "round_to_bf16" in name:           # sweep_grad_src_bf16's rounding pass
+        return "sweep_grad_src_bf16"
+    for fn in SWEEP_KERNELS:
+        if f"{fn.__name__}_bf16" in name:
+            return f"{fn.__name__}_bf16"
+    for fn in SWEEP_KERNELS:
+        if fn.__name__ in name:
+            return fn.__name__
     if "Memcpy" in name or "Memset" in name:
         return "memcpy"
     if "bn_" in name or "batch_norm" in name:
@@ -782,7 +869,8 @@ def profile_maps(model, samples, outdir, unprofiled_wall):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     maps = len(samples)
     print(json.dumps({
-        "profile_maps": maps, "device_busy_ms_per_map": busy_ms / maps,
+        "profile_maps": maps, "dtype": str(model.compute_dtype),
+        "device_busy_ms_per_map": busy_ms / maps,
         "wall_ms_per_map_unprofiled": unprofiled_wall * 1e3 / maps,
         "device_idle_share": max(0.0, 1 - busy_ms / (unprofiled_wall * 1e3)),
         "by_category_ms_per_map": {k: v / 1e3 / maps for k, v in
@@ -854,17 +942,19 @@ def compare_train_step():
         raise SystemExit(f"train step on the card disagrees with the CPU: {r}")
 
 
-def train_full_width(shapes):
-    """The training path at full width (see TRAIN_*): TRAIN_STEPS steps on
-    one batch from a fresh seeded init; the loss must be finite and fall
-    and each sweep kernel launch 52 times per step. Then one profiled
-    step, a validation step and a checkpoint round trip on the card.
-    Returns (launch counts of the timed steps, record)."""
+def train_full_width(shapes, dtype=torch.float32):
+    """The training path at full width (see TRAIN_*) in `dtype`:
+    TRAIN_STEPS steps on one batch from a fresh seeded init; the loss must
+    be finite and fall and each sweep kernel of `dtype` launch 52 times
+    per step. Then one profiled step, a validation step and a checkpoint
+    round trip on the card. Returns (launch counts of the timed steps,
+    record)."""
     t0 = time.perf_counter()
     sample = train_sample(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_BATCH, SEED)
     batch = to_device_batch(sample, "cuda")
     setup_s = time.perf_counter() - t0
-    model = init_weights(Pipeline(iteration=TRAIN_ITERATION, test=False), SEED).cuda()
+    model = init_weights(Pipeline(iteration=TRAIN_ITERATION, test=False, dtype=dtype),
+                         SEED).cuda()
     optimizer = make_optimizer(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -878,14 +968,17 @@ def train_full_width(shapes):
         step_s.append(time.perf_counter() - t0)
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    size = torch.tensor([], dtype=dtype).element_size()
     forward = sum(s[-1] for s in shapes)
-    sweeps = sum(s[-1] // len(sample_chunks(*s[1:3], s[3] * s[4], s[7])) for s in shapes)
-    planned = {"sweep_premul": forward * TRAIN_STEPS, "corr_epilogue": forward * TRAIN_STEPS,
-               "fusion_consistency": 0, "sweep_grad_ref": sweeps * TRAIN_STEPS,
-               "sweep_grad_src": sweeps * TRAIN_STEPS}
+    sweeps = sum(s[-1] // len(sample_chunks(*s[1:3], s[3] * s[4], s[7], itemsize=size))
+                 for s in shapes)
+    planned = planned_counts(**{kernel_name(k, dtype): n * TRAIN_STEPS for k, n in (
+        ("sweep_premul", forward), ("corr_epilogue", forward), ("sweep_grad_ref", sweeps),
+        ("sweep_grad_src", sweeps))})
     last = step_s[-5:]
     rec = {"size": [TRAIN_WIDTH, TRAIN_HEIGHT], "batch": TRAIN_BATCH, "views": TRAIN_VIEWS,
-           "iteration": TRAIN_ITERATION, "regress": True, "steps": TRAIN_STEPS,
+           "iteration": TRAIN_ITERATION, "dtype": str(dtype), "regress": True,
+           "steps": TRAIN_STEPS,
            "losses": losses, "step_s": step_s, "ms_per_step_last5": 1e3 * sum(last) / len(last),
            "steps_per_s_last5": len(last) / sum(last), "peak_mem_gib": peak / 2 ** 30,
            "batch_setup_s": setup_s, "launches": counts, "planned_launches": planned}
@@ -908,7 +1001,7 @@ def train_full_width(shapes):
     rec["val_scalars"] = val
     with tempfile.TemporaryDirectory() as tmp:
         path = save_checkpoint(tmp, 0, model, optimizer, step=TRAIN_STEPS)
-        restored = Pipeline(iteration=TRAIN_ITERATION, test=False).cuda()
+        restored = Pipeline(iteration=TRAIN_ITERATION, test=False, dtype=dtype).cuda()
         restored_opt = make_optimizer(restored)
         position = restore_checkpoint(path, restored, restored_opt)
     same_model = all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
@@ -929,6 +1022,101 @@ def train_full_width(shapes):
     if position != (0, TRAIN_STEPS) or not (same_model and same_opt):
         raise SystemExit(f"checkpoint round trip failed: {rec['checkpoint']}")
     return counts, rec
+
+
+def perturbed_losses(batch, seed, dtype):
+    """TRAIN_STEPS training losses in `dtype` from the seeded init with
+    every weight scaled by (1 + TRAIN_NOISE * N(0, 1)), N drawn from
+    `seed`."""
+    model = init_weights(Pipeline(iteration=TRAIN_ITERATION, test=False, dtype=dtype),
+                         SEED).cuda()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1 + TRAIN_NOISE * torch.randn(p.shape, device="cuda", generator=gen))
+    optimizer = make_optimizer(model)
+    return [train_step(model, optimizer, batch, TRAIN_LR, True, TRAIN_ITERATION)["loss"].item()
+            for _ in range(TRAIN_STEPS)]
+
+
+def bf16_tracks_f32(losses32, losses16):
+    """The bf16 training run against the f32 one (same init and batch).
+    Gates: the first loss within 2%; the mean of the last two losses no
+    more than 15% above f32's, each dtype's averaged over its run and
+    TRAIN_NOISE_RUNS runs from the init perturbed by TRAIN_NOISE. Below
+    f32's is no fault: the bf16 policy lowers the upsampled depth's L1,
+    in the JAX package's bf16 mode too, most where training has made the
+    convex-upsample weights sharp. Printed beside: the two-sided
+    differences, and along an f32 run from the same init the bf16 loss on
+    its weights before each step (the same term takes it several percent
+    below f32's there). SystemExit on a miss."""
+    batch = to_device_batch(
+        train_sample(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_BATCH, SEED), "cuda")
+    model = init_weights(Pipeline(iteration=TRAIN_ITERATION, test=False), SEED).cuda()
+    optimizer = make_optimizer(model)
+    probe = Pipeline(iteration=TRAIN_ITERATION, test=False, dtype=BF16).cuda().train()
+    along = []
+    for _ in range(TRAIN_STEPS):
+        probe.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            loss16 = forward_loss(probe, batch, True)[0].item()
+        loss32 = train_step(model, optimizer, batch, TRAIN_LR, True, TRAIN_ITERATION)["loss"]
+        along.append((loss32.item(), loss16))
+    ends, perturbed = {}, {}
+    for name, dtype, losses in (("f32", torch.float32, losses32), ("bf16", BF16, losses16)):
+        perturbed[name] = [perturbed_losses(batch, SEED + 10 + i, dtype)
+                           for i in range(TRAIN_NOISE_RUNS)]
+        ends[name] = [float(np.mean(r[-2:])) for r in [losses] + perturbed[name]]
+    mean32, mean16 = float(np.mean(ends["f32"])), float(np.mean(ends["bf16"]))
+    rec = {"first_rel": abs(losses16[0] - losses32[0]) / losses32[0],
+           "along_f32_losses": along,
+           "along_f32_max_rel": max(abs(b - a) / a for a, b in along),
+           "last2_rel_one_run": abs(ends["bf16"][0] - ends["f32"][0]) / ends["f32"][0],
+           "last2_per_run": ends, "last2_mean_rel": abs(mean16 - mean32) / mean32,
+           "last2_mean_excess": mean16 / mean32 - 1.0,
+           "perturbed_runs_losses": perturbed}
+    print(json.dumps({"train_bf16_vs_f32": rec}))
+    if not (rec["first_rel"] < 0.02 and rec["last2_mean_excess"] < 0.15):
+        raise SystemExit(f"bf16 training does not track f32: {rec}")
+    return rec
+
+
+def depth_run(model, samples, gt_depths, outdir, tmp, dtype):
+    """The eval core loop (`run_depth`) over `samples` after one warm-up
+    map, timed, its launches counted; reads the PFMs back and holds each
+    map's median error against the analytic depth below 0.05. Prints one
+    JSON line; returns (launch counts, per-view records, wall seconds)."""
+    warm = run_depth(model, samples[:1], os.path.join(tmp, f"warm_{dtype}"), "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    secs = run_depth(model, samples, outdir, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    errs = []
+    for v, gt in enumerate(gt_depths):
+        depth, _ = read_pfm(os.path.join(outdir, "depth_est", f"{v:08d}.pfm"))
+        conf, _ = read_pfm(os.path.join(outdir, "confidence", f"{v:08d}.pfm"))
+        if depth.shape != (HEIGHT, WIDTH, 1) or conf.shape != depth.shape:
+            raise SystemExit(f"view {v}: PFM shape {depth.shape}")
+        if not (np.isfinite(depth).all() and np.isfinite(conf).all()):
+            raise SystemExit(f"view {v}: non-finite output")
+        errs.append({"view": v,
+                     "median_abs_err_vs_gt": float(np.median(np.abs(depth[..., 0] - gt))),
+                     "median_abs_depth_minus_z0": float(np.median(np.abs(depth - Z0))),
+                     "median_confidence": float(np.median(conf))})
+    print(json.dumps({"dtype": str(dtype), "maps": len(samples), "wall_s": wall,
+                      "maps_per_s": len(samples) / wall, "per_map_s": secs,
+                      "warmup_s": warm, "peak_mem_gib": peak / 2 ** 30,
+                      "launches": counts, "depth_check": errs}))
+    bad = [e for e in errs if not e["median_abs_err_vs_gt"] < 0.05]
+    if bad:
+        raise SystemExit(f"depth check failed ({dtype}): {bad}")
+    return counts, errs, wall
 
 
 def main():
@@ -963,43 +1151,12 @@ def main():
     samples = samples_of(cams, images)
     print(json.dumps({"scene_seconds": time.perf_counter() - t0,
                       "size": [WIDTH, HEIGHT], "views": VIEWS}))
+    expected = sum(s[-1] for s in shapes) * len(samples)
 
     with tempfile.TemporaryDirectory() as tmp:
-        warm = run_depth(model, samples[:1], os.path.join(tmp, "warm"), "cuda")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         outdir = os.path.join(tmp, "out")
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        secs = run_depth(model, samples, outdir, "cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-
-        expected = sum(s[-1] for s in shapes) * len(samples)
-        errs = []
-        for v, gt in enumerate(gt_depths):
-            depth, _ = read_pfm(os.path.join(outdir, "depth_est", f"{v:08d}.pfm"))
-            conf, _ = read_pfm(os.path.join(outdir, "confidence", f"{v:08d}.pfm"))
-            if depth.shape != (HEIGHT, WIDTH, 1) or conf.shape != depth.shape:
-                raise SystemExit(f"view {v}: PFM shape {depth.shape}")
-            if not (np.isfinite(depth).all() and np.isfinite(conf).all()):
-                raise SystemExit(f"view {v}: non-finite output")
-            errs.append({"view": v,
-                         "median_abs_err_vs_gt": float(np.median(np.abs(depth[..., 0] - gt))),
-                         "median_abs_depth_minus_z0": float(np.median(np.abs(depth - Z0))),
-                         "median_confidence": float(np.median(conf))})
-        print(json.dumps({"maps": len(samples), "wall_s": wall,
-                          "maps_per_s": len(samples) / wall, "per_map_s": secs,
-                          "warmup_s": warm, "peak_mem_gib": peak / 2 ** 30,
-                          "launches": counts, "expected_launches": expected,
-                          "depth_check": errs}))
-        bad = [e for e in errs if not e["median_abs_err_vs_gt"] < 0.05]
-        if bad:
-            raise SystemExit(f"depth check failed: {bad}")
-        planned = {"sweep_premul": expected, "corr_epilogue": expected,
-                   "fusion_consistency": 0, "sweep_grad_ref": 0, "sweep_grad_src": 0}
+        counts, errs, wall = depth_run(model, samples, gt_depths, outdir, tmp, torch.float32)
+        planned = planned_counts(sweep_premul=expected, corr_epilogue=expected)
         if counts != planned:
             raise SystemExit(f"launch counts {counts} != planned {planned}")
 
@@ -1016,9 +1173,7 @@ def main():
         fusion_counts = launch_counts()
         fused.update(scene="learned depth", launches=fusion_counts)
         print(json.dumps({"fusion": fused}))
-        if fusion_counts != {"sweep_premul": 0, "corr_epilogue": 0,
-                             "fusion_consistency": VIEWS, "sweep_grad_ref": 0,
-                             "sweep_grad_src": 0}:
+        if fusion_counts != planned_counts(fusion_consistency=VIEWS):
             raise SystemExit(f"fusion launch counts {fusion_counts}: "
                              f"want {VIEWS} of fusion_consistency only")
         if not (fused["pixel_share"] >= 0.05 and fused["median_abs_z_minus_z0"] < 0.05):
@@ -1042,15 +1197,47 @@ def main():
         print(json.dumps({"repeat_maps_per_s": repeats}))
 
         profile_maps(model, samples, os.path.join(tmp, "prof"), wall)
+        del model
+        torch.cuda.empty_cache()
+
+        # bf16: the forward forms at the same shapes, then the same maps
+        # with the same weights in bf16, held against the f32 run's error.
+        shapes16 = sweep_shapes(WIDTH, HEIGHT, VIEWS, ITERATION, itemsize=2)
+        per_map.update(check_kernels(shapes16, dtype=BF16))
+        model16 = load_npz_weights(Pipeline(iteration=ITERATION, dtype=BF16),
+                                   pretrained_path("dtu")).cuda()
+        counts16, errs16, wall16 = depth_run(model16, samples, gt_depths,
+                                             os.path.join(tmp, "out_bf16"), tmp, BF16)
+        expected16 = sum(s[-1] for s in shapes16) * len(samples)
+        planned = planned_counts(sweep_premul_bf16=expected16, corr_epilogue_bf16=expected16)
+        if counts16 != planned:
+            raise SystemExit(f"bf16 launch counts {counts16} != planned {planned}")
+        bad = [(e16, e32) for e16, e32 in zip(errs16, errs)
+               if not e16["median_abs_err_vs_gt"] < max(1.15 * e32["median_abs_err_vs_gt"],
+                                                        e32["median_abs_err_vs_gt"] + 0.01)]
+        if bad:
+            raise SystemExit(f"bf16 depth error beyond max(1.15 f32, f32 + 0.01): {bad}")
+        profile_maps(model16, samples, os.path.join(tmp, "prof_bf16"), wall16)
+        del model16
+        torch.cuda.empty_cache()
+    counts.update({k: counts16[k] for k in ("sweep_premul_bf16", "corr_epilogue_bf16")})
 
     # Training: the backward kernels at the step's shapes, a small step
-    # against the CPU, then the full-width run.
+    # against the CPU, then the full-width run, in f32 and in bf16.
     train_shapes = sweep_shapes(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_ITERATION,
                                 TRAIN_BATCH)
+    train_shapes16 = sweep_shapes(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_ITERATION,
+                                  TRAIN_BATCH, itemsize=2)
     check_kernels(train_shapes, per="step")
+    check_kernels(train_shapes16, per="step", dtype=BF16)
     per_step = check_grad_kernels(train_shapes)
+    per_step.update(check_grad_kernels(train_shapes16, dtype=BF16))
     compare_train_step()
-    train_counts, _ = train_full_width(train_shapes)
+    train_counts, train32 = train_full_width(train_shapes)
+    train_counts16, train16 = train_full_width(train_shapes16, BF16)
+    bf16_tracks_f32(train32["losses"], train16["losses"])
+    train_counts.update({k: train_counts16[k] for k in ("sweep_grad_ref_bf16",
+                                                        "sweep_grad_src_bf16")})
 
     sources = {"corr_epilogue": ("itermvs_tpu_torch/csrc/corr_epilogue.cu",
                                  "itermvs_tpu/ops/sweep_epilogue.py:61"),
@@ -1062,8 +1249,11 @@ def main():
                                   "itermvs_tpu/models/itermvs.py:106"),
                "sweep_grad_src": ("itermvs_tpu_torch/csrc/sweep_grad_src.cu",
                                   "itermvs_tpu/models/itermvs.py:106")}
+    for name in ("corr_epilogue", "sweep_premul", "sweep_grad_ref", "sweep_grad_src"):
+        source, replaces = sources[name]
+        sources[f"{name}_bf16"] = (source.replace(".cu", "_bf16.cu"), replaces)
     report = []
-    for name in ("corr_epilogue", "sweep_premul"):
+    for name in ("corr_epilogue", "sweep_premul", "corr_epilogue_bf16", "sweep_premul_bf16"):
         tot = per_map[name]
         t_bytes, t_ops = tot["bytes"] / PEAK_BYTES_PER_S, tot["ops"] / PEAK_F32_PER_S
         report.append({
@@ -1082,7 +1272,8 @@ def main():
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": None,
         "per": f"one {WIDTH}x{HEIGHT} reference view, {VIEWS - 1} sources"})
-    for name in ("sweep_grad_ref", "sweep_grad_src"):
+    for name in ("sweep_grad_ref", "sweep_grad_src", "sweep_grad_ref_bf16",
+                 "sweep_grad_src_bf16"):
         tot = per_step[name]
         t_bytes, t_ops = tot["bytes"] / PEAK_BYTES_PER_S, tot["ops"] / PEAK_F32_PER_S
         report.append({

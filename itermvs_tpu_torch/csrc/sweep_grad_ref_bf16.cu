@@ -1,0 +1,131 @@
+// K4 sweep_grad_ref, bfloat16 form: gradient of the plane-sweep group
+// correlation with respect to bfloat16 reference features.
+//
+// Replaces: the reference-feature half of the XLA autodiff of
+// itermvs_tpu/models/itermvs.py `chunked_warp_corr` in the JAX package's
+// bfloat16 mode (bfloat16 tables and taps, float32 correlation), i.e. the
+// transpose of K2 sweep_premul followed by K1 corr_epilogue. With g' =
+// grad_corr[b, s, grp(ch), pix] / (C/G), float32:
+//     d_ref[b, pix, ch] = bf16( sum_s sum_k tap_k[b, s, pix]
+//                               * src[b, y_k, x_k, ch] * g' )
+// over corners k = (y, x), (y, x+1), (y+1, x), (y+1, x+1) of the base
+// index base[b, s*HW + pix] = y*W1 + x, summed in float32 and rounded to
+// bfloat16 once, as the plain version (ops/sweep_grad.py
+// `sweep_grad_ref_plain`) does. A +1 corner past the image edge adds
+// nothing. Entry point: itermvs_sweep_grad_ref_bf16 (the float32 form is
+// csrc/sweep_grad_ref.cu).
+//
+// What bounds it on an H100: memory, as in float32: per (sample, pixel)
+// one index, 4 taps (bfloat16 here) and G float32 gradient words, ~9
+// flops per channel over the 4 corners.
+//
+// Design: the float32 kernel's (csrc/sweep_grad_ref.cu), with 16-byte lanes
+// of 8 bfloat16 values in place of float4. A block takes `pt` consecutive
+// pixels of one batch and walks the samples in chunks; for each chunk it
+// stages every row's index, taps (converted to float32) and gradient words
+// in shared memory (sweep_records.cuh). Then one thread per (pixel, 8-value
+// lane) walks the chunk's samples in order, gathers the 4 corners of each
+// as one 16-byte load each, sums in float32 registers and writes its 8
+// values of d_ref once, rounded: no atomics, the same bits every launch. A
+// base index outside [0, H1*W1) makes the pixel's d_ref NaN.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include "bf16_lanes.cuh"
+#include "sweep_records.cuh"
+
+namespace {
+
+__global__ void sweep_grad_ref_bf16_kernel(const uint4* __restrict__ src,
+                                           const int* __restrict__ base,
+                                           const __nv_bfloat16* __restrict__ taps,
+                                           const float* __restrict__ grad,
+                                           uint4* __restrict__ d_ref,
+                                           int batch, int n, int hw, int h1, int w1,
+                                           int c8, int groups, int pt, int chunk) {
+  extern __shared__ float rec[];
+  const int fields = 5 + groups;
+  const int tiles = (hw + pt - 1) / pt;
+  const int b = blockIdx.x / tiles;
+  const int pix0 = (blockIdx.x - b * tiles) * pt;
+  const int npix = min(pt, hw - pix0);
+  const int cells = h1 * w1;
+  const long long plane = static_cast<long long>(batch) * n * hw;   // one corner's taps
+  const int cc = threadIdx.x % c8;     // 8-value lane within the channels
+  const int q = threadIdx.x / c8;      // pixel within the block
+  const int cg = 8 * c8 / groups;
+  const float cg_f = static_cast<float>(cg);
+  int gf[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) gf[j] = (5 + (8 * cc + j) / cg) * pt;
+  const uint4* src_b = src + static_cast<long long>(b) * cells * c8 + cc;
+
+  float acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+  bool fault = false;
+  for (int s0 = 0; s0 < n; s0 += chunk) {
+    const int ns = min(chunk, n - s0);
+    stage_records(rec, base, taps, grad, b, n, hw, groups, plane, pix0, npix, pt, s0, ns);
+    __syncthreads();
+    if (q < npix) {
+#pragma unroll 2
+      for (int u = 0; u < ns; ++u) {
+        const float* r = rec + u * fields * pt + q;
+        const int idx = __float_as_int(r[0]);
+        if (idx < 0 || idx >= cells) {
+          fault = true;
+          continue;
+        }
+        float g[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) g[j] = r[gf[j]] / cg_f;
+        const int y = idx / w1;
+        const int x = idx - y * w1;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int yk = y + (k >> 1);
+          const int xk = x + (k & 1);
+          if (yk < h1 && xk < w1) {
+            const float t = r[(1 + k) * pt];
+            float v[8];
+            bf16x8_to_float(src_b[static_cast<long long>(yk * w1 + xk) * c8], v);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[j] += t * v[j] * g[j];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (q >= npix) return;
+  if (fault) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] = CUDART_NAN_F;
+  }
+  d_ref[(static_cast<long long>(b) * hw + pix0 + q) * c8 + cc] = float_to_bf16x8(acc);
+}
+
+}  // namespace
+
+// src: [batch, h1, w1, c] bf16 NHWC. base: [batch, n*hw] int32. taps: [4,
+// batch, n*hw] bf16. grad: [batch, n, groups, hw] f32. d_ref: [batch, hw,
+// c] bf16 (every element written). All contiguous, src and d_ref 16-byte
+// aligned; c % 8 == 0, c <= 1024, c % groups == 0.
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int itermvs_sweep_grad_ref_bf16(const void* src, const int* base,
+                                           const void* taps, const float* grad,
+                                           void* d_ref, int batch, int n, int hw,
+                                           int h1, int w1, int c, int groups,
+                                           void* stream) {
+  if (static_cast<long long>(batch) * hw <= 0) return 0;
+  const int c8 = c / 8;
+  const RecordTiles t(n, c8, groups);
+  const long long blocks = static_cast<long long>(batch) * ((hw + t.pt - 1) / t.pt);
+  sweep_grad_ref_bf16_kernel<<<static_cast<unsigned>(blocks), t.pt * c8, t.smem_bytes(),
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(src), base, static_cast<const __nv_bfloat16*>(taps), grad,
+      static_cast<uint4*>(d_ref), batch, n, hw, h1, w1, c8, groups, t.pt, t.chunk);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -9,13 +9,20 @@
 // independent of the others. Read from the thread of each (pixel, float4
 // lane) instead, a warp covered only 32/(C/4) pixels per load and waited
 // for the index before the rest.
+//
+// The taps are float32 or bfloat16 (the features' dtype); the records
+// hold them as float32 either way.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "bf16_lanes.cuh"
+
 // Block shape: `pt` pixels (a power of two, at most 32, at most 256
-// threads of C/4 lanes each: 32 pixels at C = 16 or 32, 16 at C = 48) and
-// `chunk` samples of records (at most 32, within 48 KB).
+// threads of `c4` vector lanes each; C/4 lanes, float32 and K5's bfloat16
+// form: 32 pixels at C = 16 or 32, 16 at C = 48; C/8 lanes, K4's bfloat16
+// form: 32 pixels) and `chunk` samples of records (at most 32, within 48
+// KB).
 struct RecordTiles {
   int pt = 1;
   int chunk = 1;
@@ -33,8 +40,9 @@ struct RecordTiles {
 // Samples [s0, s0 + ns) of pixels [pix0, pix0 + npix) of batch b:
 // rec[(u * fields + f) * pt + q] for sample s0 + u, pixel pix0 + q and
 // field f: the index (its bits), tap k at 1 + k, gradient word j at 5 + j.
+template <typename Tap>
 __device__ __forceinline__ void stage_records(float* rec, const int* __restrict__ base,
-                                              const float* __restrict__ taps,
+                                              const Tap* __restrict__ taps,
                                               const float* __restrict__ grad, int b, int n,
                                               int hw, int groups, long long plane, int pix0,
                                               int npix, int pt, int s0, int ns) {
@@ -49,7 +57,7 @@ __device__ __forceinline__ void stage_records(float* rec, const int* __restrict_
     float* r = rec + u * fields * pt + q;
     r[0] = __int_as_float(base[row]);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) r[(1 + k) * pt] = taps[k * plane + row];
+    for (int k = 0; k < 4; ++k) r[(1 + k) * pt] = tap_float(taps[k * plane + row]);
     const float* g = grad + (static_cast<long long>(b) * n + s) * groups * hw + pix0 + q;
     for (int j = 0; j < groups; ++j) r[(5 + j) * pt] = g[static_cast<long long>(j) * hw];
   }

@@ -6,7 +6,9 @@
 Writes `OUT/{depth_est,confidence}/<view:08d>.pfm` per reference view
 (`save_depth`), then fuses each scan (`run_fusion`, fusion.py) into
 `OUT/mask/*.png` and a PLY named per dataset as eval.py names it. Flags
-keep the names and defaults of the JAX eval.py (float32 only);
+keep the names and defaults of the JAX eval.py; `--precision bfloat16`
+runs the model in the JAX package's bfloat16 mode (the maps it writes are
+float32 either way), and `--debug_nans` is not ported yet and refused.
 `--device` (default `cuda`) is the port's own, both steps run on it, and
 a missing card is an error, not a silent run on the CPU.
 
@@ -37,6 +39,7 @@ from itermvs_tpu_torch.weights import load_weights, pretrained_path
 
 parser = argparse.ArgumentParser(description="Predict depth, filter, and fuse "
                                              "(PyTorch port)")
+parser.add_argument("--model", default="IterMVS", help="select model")
 parser.add_argument("--dataset", default="dtu_yao_eval",
                     choices=["dtu_yao_eval", "custom", "tanks", "eth3d"],
                     help="select dataset")
@@ -55,8 +58,11 @@ parser.add_argument("--outdir", default="./outputs", help="output dir")
 parser.add_argument("--display", action="store_true",
                     help="write the depth and mask images under OUT/display")
 parser.add_argument("--iteration", type=int, default=4, help="num of iteration of GRU")
-parser.add_argument("--precision", default="float32", choices=["float32"],
-                    help="compute precision (bfloat16 is not ported yet)")
+parser.add_argument("--precision", default="float32", choices=["float32", "bfloat16"],
+                    help="compute precision: float32 = reference parity; "
+                         "bfloat16 = fast path (heads stay float32)")
+parser.add_argument("--debug_nans", action="store_true",
+                    help="not ported yet (rejected)")
 parser.add_argument("--feature_cache", default="auto", choices=["auto", "on", "off"],
                     help="cache FeatureNet outputs per (scan, view) across "
                          "reference views; auto = on for batch-1 eval")
@@ -287,7 +293,8 @@ def save_depth(args, img_wh) -> list[float]:
         raise SystemExit("--feature_cache on requires --batch_size 1")
     path = args.loadckpt or pretrained_path("dtu")
     print(f"loading model {path}")
-    model = load_weights(Pipeline(iteration=args.iteration), path).to(device)
+    model = load_weights(Pipeline(iteration=args.iteration,
+                                  dtype=getattr(torch, args.precision)), path).to(device)
     dataset = apply_scan_shard(build_dataset(args, img_wh),
                                parse_scan_shard(args.scan_shard))
     ncpu = os.cpu_count() or 1
@@ -356,6 +363,8 @@ def run_fusion(args, img_wh) -> list[tuple[str, float]]:
 
 def main(argv=None):
     args = parser.parse_args(argv)
+    if args.debug_nans:
+        raise SystemExit("--debug_nans is not ported yet")
     print("argv:", sys.argv[1:] if argv is None else argv)
     for k, v in sorted(vars(args).items()):
         print(f"{k}: {v}")

@@ -26,7 +26,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("corr_epilogue", "sweep_premul", "fusion_consistency", "sweep_grad_ref",
-           "sweep_grad_src")
+           "sweep_grad_src", "corr_epilogue_bf16", "sweep_premul_bf16",
+           "sweep_grad_ref_bf16", "sweep_grad_src_bf16")
 # No --use_fast_math: fusion_consistency needs IEEE divides and sqrt.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,6 +44,13 @@ SIGNATURES = {
                        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "sweep_grad_src": ("itermvs_sweep_grad_src",
                        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "corr_epilogue_bf16": ("itermvs_corr_epilogue_bf16", (_P, _P, _L, _I, _I, _P)),
+    "sweep_premul_bf16": ("itermvs_sweep_premul_bf16",
+                          (_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P)),
+    "sweep_grad_ref_bf16": ("itermvs_sweep_grad_ref_bf16",
+                            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "sweep_grad_src_bf16": ("itermvs_sweep_grad_src_bf16",
+                            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
 }
 
 _lock = threading.Lock()

@@ -20,6 +20,14 @@ Numerical semantics kept from the JAX package:
     coordinates, at the view weights entering the iterations, and at the
     normalized depth after each prediction (the GRU input and the next
     samples).
+
+Precision follows the JAX modules' `dtype`: in bfloat16 the convolutions
+of CorrNet, PixelViewWeight, the GRU, the heads and the upsample weights
+compute in bfloat16, as do the hidden state and the sweep's tables and
+taps (the source features and `fused_sweep_taps(table_dtype=...)`); the
+sweep's correlation, the outputs of CorrNet and PixelViewWeight, the head
+logits, every softmax, the windowed expectation, the convex upsampling
+weights and every depth and confidence map stay float32.
 """
 from __future__ import annotations
 
@@ -106,54 +114,56 @@ def chunked_warp_corr(src, ref, flat_idx, taps, groups: int = GROUPS):
 class PixelViewWeight(nn.Module):
     """Per-pixel source-view weight."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Sequential(ConvReLU(GROUPS, 16), conv(16, 1, 1, pad=0))
+        self.conv = nn.Sequential(ConvReLU(GROUPS, 16, dtype=dtype),
+                                  conv(16, 1, 1, pad=0, dtype=dtype))
 
     def forward(self, corr):
-        """corr: [B, N, G, H, W] → weight [B, H, W]."""
+        """corr: [B, N, G, H, W] → weight [B, H, W] float32."""
         b, n, g, h, w = corr.shape
-        x = self.conv(corr.reshape(b * n, g, h, w)).reshape(b, n, h, w)
+        x = self.conv(corr.reshape(b * n, g, h, w)).reshape(b, n, h, w).float()
         return torch.softmax(x, dim=1).amax(dim=1)
 
 
 class CorrNet(nn.Module):
     """Per-depth-slice 2D encoder-decoder on correlation."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv0 = ConvReLU(GROUPS, 8)
-        self.conv1 = ConvReLU(8, 16, stride=2)
-        self.conv2 = ConvReLU(16, 32, stride=2)
-        self.conv3 = conv_transpose(32, 16)
-        self.conv4 = conv_transpose(16, 8)
-        self.conv5 = conv(8, 1)
+        self.conv0 = ConvReLU(GROUPS, 8, dtype=dtype)
+        self.conv1 = ConvReLU(8, 16, stride=2, dtype=dtype)
+        self.conv2 = ConvReLU(16, 32, stride=2, dtype=dtype)
+        self.conv3 = conv_transpose(32, 16, dtype)
+        self.conv4 = conv_transpose(16, 8, dtype)
+        self.conv5 = conv(8, 1, dtype=dtype)
 
     def forward(self, corr):
-        """corr: [B, N, G, H, W] → score volume [B, N, H, W]."""
+        """corr: [B, N, G, H, W] → score volume [B, N, H, W] float32."""
         b, n, g, h, w = corr.shape
         conv0 = self.conv0(corr.reshape(b * n, g, h, w))
         conv1 = self.conv1(conv0)
         x = self.conv2(conv1)
         x = conv1 + self.conv3(x)
         x = conv0 + self.conv4(x)
-        return self.conv5(x).reshape(b, n, h, w)
+        return self.conv5(x).reshape(b, n, h, w).float()
 
 
 class Evaluation(nn.Module):
     """Plane-sweep matching: warp + group corr + view-weighted aggregation."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.pixel_view_weight = PixelViewWeight()
-        self.corr_conv1 = nn.ModuleList([CorrNet() for _ in range(3)])
+        self.pixel_view_weight = PixelViewWeight(dtype)
+        self.corr_conv1 = nn.ModuleList([CorrNet(dtype) for _ in range(3)])
 
     def init_sweep(self, ref_feature, src_features, rel_projs, depth_samples):
         """Initialization branch on level 3.
 
         Args:
           ref_feature: [B, H8·W8, 48] level-3 reference feature (NHWC flat).
-          src_features: list of V−1 NHWC [B, H8, W8, 48] maps.
+          src_features: list of V−1 NHWC [B, H8, W8, 48] maps (the gather
+            tables: the taps take their dtype).
           rel_projs: [B, V−1, 4, 4] level-3 relative projections.
           depth_samples: [B, 32, H8, W8].
 
@@ -164,7 +174,7 @@ class Evaluation(nn.Module):
         b, n, h, w = depth_samples.shape
         flat_idx, taps = fused_sweep_taps(
             rel_projs[:, :, None], depth_samples, (0,) * n,
-            (tuple(src_features[0].shape[1:3]),))
+            (tuple(src_features[0].shape[1:3]),), src_features[0].dtype)
         corr = torch.stack([
             chunked_warp_corr(src, ref_feature, flat_idx[:, v], taps[:, :, v])
             for v, src in enumerate(src_features)], dim=1)
@@ -212,7 +222,8 @@ class Evaluation(nn.Module):
         counts = [len(CORR_INTERVALS[k]) for k in LEVELS]
         level_of_sample = sum(([i] * c for i, c in enumerate(counts)), [])
         flat_idx, taps = fused_sweep_taps(rel_stack, depth_samples,
-                                          level_of_sample, src_hws)
+                                          level_of_sample, src_hws,
+                                          src_features["level1"][0].dtype)
         scores = []
         off = 0
         for i, key in enumerate(LEVELS):
@@ -230,21 +241,23 @@ class Evaluation(nn.Module):
 
 
 class Update(nn.Module):
-    """ConvGRU + depth/confidence heads."""
+    """ConvGRU + depth/confidence heads. The hidden state is in the compute
+    dtype; the heads' logits are float32."""
 
-    def __init__(self, hidden_dim: int = HIDDEN_DIM):
+    def __init__(self, hidden_dim: int = HIDDEN_DIM, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.gru = ConvGRU(hidden_dim, 1 + sum(len(v) for v in CORR_INTERVALS.values()))
+        dt = dtype
+        self.gru = ConvGRU(hidden_dim, 1 + sum(len(v) for v in CORR_INTERVALS.values()), dt)
         self.depth_head = nn.Sequential(
-            conv(hidden_dim, 32, 3, pad=2, dilation=2, bias=False), nn.ReLU(),
-            conv(32, 64, 1, pad=0, bias=False), nn.ReLU(),
-            conv(64, NUM_BINS, 1, pad=0))
+            conv(hidden_dim, 32, 3, pad=2, dilation=2, bias=False, dtype=dt), nn.ReLU(),
+            conv(32, 64, 1, pad=0, bias=False, dtype=dt), nn.ReLU(),
+            conv(64, NUM_BINS, 1, pad=0, dtype=dt))
         self.confidence_head = nn.Sequential(
-            conv(hidden_dim, 32, 3, pad=2, dilation=2, bias=False), nn.ReLU(),
-            conv(32, 1, 1, pad=0))
+            conv(hidden_dim, 32, 3, pad=2, dilation=2, bias=False, dtype=dt), nn.ReLU(),
+            conv(32, 1, 1, pad=0, dtype=dt))
         self.hidden_init_head = nn.Sequential(
-            conv(NUM_INIT_SAMPLES, 64, 3, bias=False), nn.ReLU(),
-            conv(64, hidden_dim, 1, pad=0))
+            conv(NUM_INIT_SAMPLES, 64, 3, bias=False, dtype=dt), nn.ReLU(),
+            conv(64, hidden_dim, 1, pad=0, dtype=dt))
 
     def hidden_init(self, score_volume):
         """[B, 32, H8, W8] level-3 score volume → hidden [B, hidden, H4, W4]."""
@@ -253,8 +266,12 @@ class Update(nn.Module):
     def depth(self, hidden):
         """(normalized depth [B, 1, H, W], probability [B, 256, H, W]) from
         the 256-bin depth head."""
-        probability = torch.softmax(self.depth_head(hidden), dim=1)
+        probability = torch.softmax(self.depth_head(hidden).float(), dim=1)
         return windowed_expectation(probability), probability
+
+    def confidence(self, hidden):
+        """Confidence logits [B, 1, H, W], float32."""
+        return self.confidence_head(hidden).float()
 
     def forward(self, hidden, normalized_depth, corr):
         """One GRU step. corr: [B, 10, H, W]; normalized_depth [B, 1, H, W]."""
@@ -264,22 +281,23 @@ class Update(nn.Module):
 class IterMVS(nn.Module):
     """Init sweep → hidden/depth init → GRU iterations."""
 
-    def __init__(self, iteration: int = 4, test: bool = True):
+    def __init__(self, iteration: int = 4, test: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if iteration < 1:
             raise ValueError("IterMVS needs at least one iteration")
         self.iteration = iteration
         self.test = test
-        self.evaluation = Evaluation()
-        self.update = Update(HIDDEN_DIM)
+        self.evaluation = Evaluation(dtype)
+        self.update = Update(HIDDEN_DIM, dtype)
         self.upsample = nn.Sequential(
-            conv(32, 64, 3, bias=False), nn.ReLU(),
-            conv(64, 16 * 9, 1, pad=0, bias=False))
+            conv(32, 64, 3, bias=False, dtype=dtype), nn.ReLU(),
+            conv(64, 16 * 9, 1, pad=0, bias=False, dtype=dtype))
 
     def _upsample_weights(self, ref_level2):
-        """Convex-upsample tap weights [B, 9, 4, 4, H4, W4]."""
+        """Convex-upsample tap weights [B, 9, 4, 4, H4, W4], float32."""
         b, _, h, w = ref_level2.shape
-        x = self.upsample(ref_level2).reshape(b, 9, 4, 4, h, w)
+        x = self.upsample(ref_level2).float().reshape(b, 9, 4, 4, h, w)
         return torch.softmax(x, dim=1)
 
     def forward(self, ref_features, src_features, rel_projs, depth_min, depth_max):
@@ -336,7 +354,7 @@ class IterMVS(nn.Module):
             depths["combine"].append(
                 depth_unnormalization(normalized_depth, idmin_b, idmax_b))
             depths["probability"].append(probability)
-            confidences.append(self.update.confidence_head(hidden))
+            confidences.append(self.update.confidence(hidden))
             normalized_depth = normalized_depth.detach()
 
         intervals = torch.tensor(
@@ -354,7 +372,7 @@ class IterMVS(nn.Module):
             hidden = self.update(hidden, normalized_depth, corr)
             normalized_depth, probability = self.update.depth(hidden)
             if not self.test or last:
-                logits = self.update.confidence_head(hidden)
+                logits = self.update.confidence(hidden)
             if not self.test:
                 depths["combine"].append(
                     depth_unnormalization(normalized_depth, idmin_b, idmax_b))

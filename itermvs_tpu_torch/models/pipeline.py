@@ -9,9 +9,14 @@ Consumes the dataset sample layout of the loaders:
 and returns maps as [B, H, W, C], the JAX layout (test mode: depth and
 confidence; train mode: the JAX train dict). Inside, maps are NCHW.
 
-float32 here is full float32: constructing a `Pipeline` turns TF32 off
-for cuDNN convolutions and for matmuls (`disable_tf32`), since PyTorch
-runs f32 convolutions in TF32 on the card by default.
+`dtype` is the compute precision, as in the JAX `Pipeline`: float32 (the
+default) or bfloat16, which runs convolutions, features and the sweep's
+gather tables in bfloat16 and keeps geometry, the correlation sums,
+probability softmaxes, depth readout and every head output float32.
+Parameters are float32 in both modes (the same checkpoints). float32
+is full float32: constructing a `Pipeline` turns TF32 off for cuDNN
+convolutions and for matmuls (`disable_tf32`), since PyTorch runs f32
+convolutions in TF32 on the card by default.
 """
 from __future__ import annotations
 
@@ -39,12 +44,14 @@ class Pipeline(nn.Module):
     fold of views) and updates its running ones only in `.train()`, as
     the JAX package's `train=True`."""
 
-    def __init__(self, iteration: int = 4, test: bool = True):
+    def __init__(self, iteration: int = 4, test: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         disable_tf32()
         self.test = test
-        self.feature_net = FeatureNet()
-        self.iter_mvs = IterMVS(iteration=iteration, test=test)
+        self.compute_dtype = dtype
+        self.feature_net = FeatureNet(dtype)
+        self.iter_mvs = IterMVS(iteration=iteration, test=test, dtype=dtype)
         if test:
             self.eval()
 
@@ -63,7 +70,7 @@ class Pipeline(nn.Module):
         """FeatureNet over a flat batch of views.
 
         imgs: [N, H, W, 3] NHWC float in [-1, 1] (or raw uint8) → dict
-        level1..3 of NCHW [N, C, h, w]. A separate entry point so that
+        level1..3 of NCHW [N, C, h, w] in the compute dtype. A separate entry point so that
         inference can compute each image's features once per scan and
         reuse them for every depth map it appears in (the eval feature
         cache)."""

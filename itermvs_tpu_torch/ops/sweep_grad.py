@@ -17,9 +17,13 @@ gets no gradient.
 
 `SweepCorr` saves only its inputs (src, ref, and the contiguous base and
 taps), never the premultiplied block: at 640×512, batch 4, the init
-sweep's block is 503 MB per view. On CUDA tensors the backward launches
-the hand-written kernels (csrc/sweep_grad_ref.cu, csrc/sweep_grad_src.cu)
-or raises; only CPU tensors take the plain versions beside them.
+sweep's block is 503 MB per view in f32. On CUDA tensors the backward
+launches the hand-written kernels of the features' dtype
+(csrc/sweep_grad_ref.cu, csrc/sweep_grad_src.cu; for bfloat16 features
+and taps csrc/sweep_grad_ref_bf16.cu, csrc/sweep_grad_src_bf16.cu) or
+raises; only CPU tensors take the plain versions beside them. grad_corr
+is float32 in both modes, as the correlation is; d_src and d_ref come out
+in the dtype of src and ref, summed in float32 and rounded once.
 """
 from __future__ import annotations
 
@@ -29,6 +33,16 @@ from itermvs_tpu_torch import kernels
 from itermvs_tpu_torch.ops.sweep import (
     pack_corners_plain, sample_chunks, sweep_premul, table_rows)
 from itermvs_tpu_torch.ops.sweep_epilogue import corr_epilogue
+
+# Per features' dtype: (K4's kernel, K5's kernel, channel multiple: one
+# 16-byte vector lane).
+KERNELS = {torch.float32: ("sweep_grad_ref", "sweep_grad_src", 4),
+           torch.bfloat16: ("sweep_grad_ref_bf16", "sweep_grad_src_bf16", 8)}
+
+
+def _wide(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the plain versions sum in: float32, or float64 for float64."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def _channel_grad(grad: torch.Tensor, c: int) -> torch.Tensor:
@@ -41,13 +55,16 @@ def _channel_grad(grad: torch.Tensor, c: int) -> torch.Tensor:
 def sweep_grad_ref_plain(src: torch.Tensor, base: torch.Tensor,
                          taps: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K4: corner rows by `index_select`, the tap
-    sum, then g' and the sum over samples. [B, HW, C]."""
+    sum, then g' and the sum over samples, in float32 (float64 for float64
+    inputs), rounded once to src's dtype. [B, HW, C]."""
     b, h1, w1, c = src.shape
     n, hw = grad.shape[1], grad.shape[3]
-    vals = pack_corners_plain(src).index_select(
+    wide = _wide(src.dtype)
+    vals = pack_corners_plain(src.to(wide)).index_select(
         0, table_rows(base, h1 * w1)).reshape(b, n, hw, 4, c)
-    t = taps.permute(1, 2, 0).reshape(b, n, hw, 4, 1)
-    return ((vals * t).sum(dim=3) * _channel_grad(grad, c)).sum(dim=1)
+    t = taps.to(wide).permute(1, 2, 0).reshape(b, n, hw, 4, 1)
+    d_ref = ((vals * t).sum(dim=3) * _channel_grad(grad.to(wide), c)).sum(dim=1)
+    return d_ref.to(src.dtype)
 
 
 def sweep_grad_src_plain(ref: torch.Tensor, base: torch.Tensor,
@@ -55,34 +72,45 @@ def sweep_grad_src_plain(ref: torch.Tensor, base: torch.Tensor,
                          h1: int, w1: int) -> torch.Tensor:
     """Plain PyTorch version of K5: the corner products `index_add_`-ed
     into the zero-filled 4-corner table, which is then unpacked onto the
-    source grid (entries of +1 corners past the edge dropped).
+    source grid (entries of +1 corners past the edge dropped), in float32
+    (float64 for float64 inputs), rounded once to ref's dtype.
     [B, H1, W1, C]."""
     b, hw, c = ref.shape
     n = grad.shape[1]
-    t = taps.permute(1, 2, 0).reshape(b, n, hw, 4, 1)
-    rg = (ref.reshape(b, 1, hw, c) * _channel_grad(grad, c)).reshape(b, n, hw, 1, c)
-    table = torch.zeros(b * h1 * w1, 4 * c, dtype=ref.dtype, device=ref.device)
+    wide = _wide(ref.dtype)
+    t = taps.to(wide).permute(1, 2, 0).reshape(b, n, hw, 4, 1)
+    rg = (ref.to(wide).reshape(b, 1, hw, c) * _channel_grad(grad.to(wide), c)
+          ).reshape(b, n, hw, 1, c)
+    table = torch.zeros(b * h1 * w1, 4 * c, dtype=wide, device=ref.device)
     table.index_add_(0, table_rows(base, h1 * w1), (t * rg).reshape(-1, 4 * c))
     table = table.reshape(b, h1, w1, 4, c)
     d_src = table[..., 0, :].clone()
     d_src[:, :, 1:] += table[:, :, :-1, 1]
     d_src[:, 1:, :] += table[:, :-1, :, 2]
     d_src[:, 1:, 1:] += table[:, :-1, :-1, 3]
-    return d_src
+    return d_src.to(ref.dtype)
 
 
-def _check(name, tensors, dtypes, c, groups):
-    dev = tensors[0].device
+def _check(name, tensors, c, groups):
+    """Raise unless (features, base, taps, grad) suit the kernels: on one
+    CUDA device, contiguous, float32 or bfloat16 features with taps of
+    their dtype, int32 base, float32 grad, C a multiple of the vector
+    lane."""
+    feats, base, taps, grad = tensors
+    dev = feats.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
     if any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: inputs on different devices")
-    if tuple(t.dtype for t in tensors) != dtypes:
-        raise ValueError(f"{name}: needs float32 features/taps/grad, int32 base")
+    if (feats.dtype not in KERNELS or taps.dtype != feats.dtype
+            or base.dtype != torch.int32 or grad.dtype != torch.float32):
+        raise ValueError(f"{name}: needs float32 or bfloat16 features with taps of "
+                         "their dtype, int32 base, float32 grad")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
-    if c % 4 or c > 1024 or c % groups or tensors[0].data_ptr() % 16:
-        raise ValueError(f"{name}: needs C % 4 == 0, C <= 1024, C % G == 0 and "
+    lane = KERNELS[feats.dtype][2]
+    if c % lane or c > 1024 or c % groups or feats.data_ptr() % 16:
+        raise ValueError(f"{name}: needs C % {lane} == 0, C <= 1024, C % G == 0 and "
                          "16-byte aligned features")
 
 
@@ -96,73 +124,100 @@ def _shapes(name, base, taps, grad, b, hw):
 
 
 def launch_sweep_grad_ref(src, base, taps, grad, out) -> None:
-    """K4's bare launch into `out` [B, HW, C] on the current stream, for
-    checked inputs; counts nothing (the wrapper does)."""
+    """K4's bare launch (the kernel of src's dtype) into `out` [B, HW, C]
+    on the current stream, for checked inputs; counts nothing (the
+    wrapper does)."""
     b, h1, w1, c = src.shape
     n, groups, hw = grad.shape[1], grad.shape[2], grad.shape[3]
-    kernels.check_launch("sweep_grad_ref", kernels.function("sweep_grad_ref")(
+    name = KERNELS[src.dtype][0]
+    kernels.check_launch(name, kernels.function(name)(
         src.data_ptr(), base.data_ptr(), taps.data_ptr(), grad.data_ptr(),
         out.data_ptr(), b, n, hw, h1, w1, c, groups,
         torch.cuda.current_stream().cuda_stream))
 
 
-def launch_sweep_grad_src(ref, base, taps, grad, out) -> None:
-    """K5's bare launch into `out` [B, H1, W1, C] on the current stream,
-    for checked inputs: its zero fill and its kernel. Counts nothing (the
+def launch_sweep_grad_src(ref, base, taps, grad, out, scratch=None) -> None:
+    """K5's bare launch (the kernel of ref's dtype) into `out` [B, H1, W1,
+    C] on the current stream, for checked inputs: its zero fill and its
+    kernel. The bfloat16 kernel sums into `scratch`, a float32 tensor of
+    out's shape, and rounds it into `out` once. Counts nothing (the
     wrapper does)."""
     b, hw, c = ref.shape
     h1, w1 = out.shape[1], out.shape[2]
     n, groups = grad.shape[1], grad.shape[2]
-    kernels.check_launch("sweep_grad_src", kernels.function("sweep_grad_src")(
-        ref.data_ptr(), base.data_ptr(), taps.data_ptr(), grad.data_ptr(),
-        out.data_ptr(), b, n, hw, h1, w1, c, groups,
-        torch.cuda.current_stream().cuda_stream))
+    name = KERNELS[ref.dtype][1]
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (ref.data_ptr(), base.data_ptr(), taps.data_ptr(), grad.data_ptr())
+    if ref.dtype == torch.float32:
+        status = kernels.function(name)(*args, out.data_ptr(), b, n, hw, h1, w1, c,
+                                        groups, stream)
+    else:
+        if (scratch is None or scratch.dtype != torch.float32
+                or scratch.shape != out.shape or not scratch.is_contiguous()):
+            raise ValueError(f"{name}: needs a contiguous float32 scratch of the "
+                             "output's shape")
+        status = kernels.function(name)(*args, scratch.data_ptr(), out.data_ptr(), b, n,
+                                        hw, h1, w1, c, groups, stream)
+    kernels.check_launch(name, status)
 
 
 def sweep_grad_ref(src: torch.Tensor, base: torch.Tensor, taps: torch.Tensor,
                    grad: torch.Tensor) -> torch.Tensor:
-    """K4: d_ref [B, HW, C] from src [B, H1, W1, C], base [B, n·HW] int32,
-    taps [4, B, n·HW] and grad_corr [B, n, G, HW]."""
+    """K4: d_ref [B, HW, C] in src's dtype from src [B, H1, W1, C], base
+    [B, n·HW] int32, taps [4, B, n·HW] in src's dtype and float32
+    grad_corr [B, n, G, HW]."""
     b, h1, w1, c = src.shape
     _shapes("sweep_grad_ref", base, taps, grad, b, grad.shape[-1])
     if src.device.type == "cpu":
         return sweep_grad_ref_plain(src, base, taps, grad)
-    _check("sweep_grad_ref", (src, base, taps, grad),
-           (torch.float32, torch.int32, torch.float32, torch.float32), c, grad.shape[2])
-    out = torch.empty((b, grad.shape[3], c), dtype=torch.float32, device=src.device)
+    _check("sweep_grad_ref", (src, base, taps, grad), c, grad.shape[2])
+    out = torch.empty((b, grad.shape[3], c), dtype=src.dtype, device=src.device)
     with torch.cuda.device(src.device):
         launch_sweep_grad_ref(src, base, taps, grad, out)
-    sweep_grad_ref.launches += 1
+    if src.dtype == torch.float32:
+        sweep_grad_ref.launches += 1
+    else:
+        sweep_grad_ref.launches_bf16 += 1
     return out
 
 
 def sweep_grad_src(ref: torch.Tensor, base: torch.Tensor, taps: torch.Tensor,
                    grad: torch.Tensor, h1: int, w1: int) -> torch.Tensor:
-    """K5: d_src [B, H1, W1, C] from ref [B, HW, C], base [B, n·HW] int32,
-    taps [4, B, n·HW] and grad_corr [B, n, G, HW]. On the card the sum
-    runs in float4 atomics, so its last bits change from run to run."""
+    """K5: d_src [B, H1, W1, C] in ref's dtype from ref [B, HW, C], base
+    [B, n·HW] int32, taps [4, B, n·HW] in ref's dtype and float32
+    grad_corr [B, n, G, HW]. On the card the sum runs in float32 float4
+    atomics (for bfloat16, into a float32 scratch rounded once at the
+    end), so its last bits change from run to run."""
     b, hw, c = ref.shape
     _shapes("sweep_grad_src", base, taps, grad, b, hw)
     if ref.device.type == "cpu":
         return sweep_grad_src_plain(ref, base, taps, grad, h1, w1)
-    _check("sweep_grad_src", (ref, base, taps, grad),
-           (torch.float32, torch.int32, torch.float32, torch.float32), c, grad.shape[2])
-    out = torch.empty((b, h1, w1, c), dtype=torch.float32, device=ref.device)
+    _check("sweep_grad_src", (ref, base, taps, grad), c, grad.shape[2])
+    out = torch.empty((b, h1, w1, c), dtype=ref.dtype, device=ref.device)
+    scratch = (None if ref.dtype == torch.float32
+               else torch.empty(out.shape, dtype=torch.float32, device=ref.device))
     with torch.cuda.device(ref.device):
-        launch_sweep_grad_src(ref, base, taps, grad, out)
-    sweep_grad_src.launches += 1
+        launch_sweep_grad_src(ref, base, taps, grad, out, scratch)
+    if ref.dtype == torch.float32:
+        sweep_grad_src.launches += 1
+    else:
+        sweep_grad_src.launches_bf16 += 1
     return out
 
 
+# Launches of the float32 and the bfloat16 kernels.
 sweep_grad_ref.launches = 0
+sweep_grad_ref.launches_bf16 = 0
 sweep_grad_src.launches = 0
+sweep_grad_src.launches_bf16 = 0
 
 
 class SweepCorr(torch.autograd.Function):
     """Group correlation of one (view, level) sweep, [B, n, G, HW].
 
     forward(src [B, H1, W1, C], ref [B, HW, C], flat_idx [B, n, HW] int32,
-    taps [4, B, n, HW], groups): K2 → K1, split on sample boundaries only
+    taps [4, B, n, HW], groups), features and taps of one dtype (float32
+    or bfloat16), corr float32: K2 → K1, split on sample boundaries only
     where the premul block would exceed `ops.sweep.PREMUL_BUDGET_BYTES`.
     backward: K4 for d_ref and K5 for d_src over all samples at once (they
     keep no premul block); no gradient for the indices and taps."""
@@ -174,7 +229,7 @@ class SweepCorr(torch.autograd.Function):
         base = flat_idx.reshape(b, n * hw).contiguous()
         taps = taps.reshape(4, b, n * hw).contiguous()
         outs = []
-        for s0, s1 in sample_chunks(b, n, hw, c):
+        for s0, s1 in sample_chunks(b, n, hw, c, itemsize=src.element_size()):
             m = s1 - s0
             premul = sweep_premul(src, base[:, s0 * hw:s1 * hw].contiguous(),
                                   taps[:, :, s0 * hw:s1 * hw].contiguous(), ref, m)

@@ -6,7 +6,8 @@ bilinear tap weights; `sweep_premul` (ops/sweep.py) and `corr_epilogue`
 (ops/sweep_epilogue.py) consume them. All of it is float32 arithmetic
 written out elementwise, so no product here goes through TF32 tensor
 cores whatever the backend flags say: projective coordinates rounded to
-TF32 would cost sub-pixel accuracy.
+TF32 would cost sub-pixel accuracy. Only the taps are cast at the end,
+to the gather table's dtype.
 
 Semantics kept from the JAX package:
 * the reference pixel grid is scaled into SOURCE-pixel units,
@@ -90,7 +91,7 @@ def axis_taps(p: torch.Tensor, size: torch.Tensor):
 
 
 def fused_sweep_taps(rel_projs: torch.Tensor, depth_samples: torch.Tensor,
-                     level_of_sample, src_hws):
+                     level_of_sample, src_hws, table_dtype: torch.dtype = torch.float32):
     """Base-corner indices + bilinear taps for a multi-level, multi-view
     sweep, as one elementwise chain over [B, V, N, H·W].
 
@@ -100,9 +101,12 @@ def fused_sweep_taps(rel_projs: torch.Tensor, depth_samples: torch.Tensor,
         along the sample axis.
       level_of_sample: length-N sequence mapping sample → level index.
       src_hws: per-level (H_l, W_l) source-feature sizes.
+      table_dtype: dtype of the gather tables (the source features). The
+        taps are computed in float32 and cast to it, as the JAX package
+        casts them, so that the gather's products stay in that dtype.
 
     Returns (flat_idx [B, V, N, H·W] int32 `by·W_l + bx`,
-    taps [4, B, V, N, H·W] float32 in corner order
+    taps [4, B, V, N, H·W] in `table_dtype`, in corner order
     (y, x), (y, x+1), (y+1, x), (y+1, x+1)).
     """
     b, n, h, w = depth_samples.shape
@@ -149,4 +153,4 @@ def fused_sweep_taps(rel_projs: torch.Tensor, depth_samples: torch.Tensor,
     by, wy_a, wy_b = axis_taps(py, size_y)
     flat_idx = by * size_x.to(torch.int32) + bx
     taps = torch.stack([wy_a * wx_a, wy_a * wx_b, wy_b * wx_a, wy_b * wx_b])
-    return flat_idx, taps
+    return flat_idx, taps.to(table_dtype)

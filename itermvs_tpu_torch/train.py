@@ -10,10 +10,13 @@ the latest checkpoint in `--logdir`, mid-epoch step saves included),
 per-epoch MultiStep LR, TensorBoard scalars every `--summary_freq`
 steps and images every 50·`--summary_freq`, a checkpoint every
 `--save_freq` epochs (and every `--save_step_freq` steps), and a
-validation pass per epoch; `--mode val` only validates. `--device`
-(default `cuda`) is the port's own: a missing card is an error, not a
-run on the CPU. Not ported yet, and rejected: `--precision bfloat16`,
-`--distributed on` (one process on one device) and `--debug_nans`.
+validation pass per epoch; `--mode val` only validates.
+`--precision bfloat16` trains in the JAX package's bfloat16 mode: the
+parameters, the optimizer state and the checkpoints stay float32, and
+the loss is computed in float32. `--device` (default `cuda`) is the
+port's own: a missing card is an error, not a run on the CPU. Not ported
+yet, and rejected: `--distributed on` (one process on one device) and
+`--debug_nans`.
 """
 from __future__ import annotations
 
@@ -74,7 +77,9 @@ parser.add_argument("--save_step_freq", type=int, default=0,
 parser.add_argument("--seed", type=int, default=1, metavar="S", help="random seed")
 parser.add_argument("--iteration", type=int, default=4, help="num of iteration of GRU")
 parser.add_argument("--precision", default="float32", choices=["float32", "bfloat16"],
-                    help="training compute precision (bfloat16 is not ported yet)")
+                    help="training compute precision: float32 = reference parity; "
+                         "bfloat16 = fast path (heads, loss, BN statistics and "
+                         "parameters stay float32)")
 parser.add_argument("--debug_nans", action="store_true",
                     help="not ported yet (rejected)")
 parser.add_argument("--distributed", default="auto", choices=["auto", "on", "off"],
@@ -91,9 +96,6 @@ parser.add_argument("--device", default="cuda",
 def reject_unported(args) -> None:
     """Flags of features this port does not have yet exit with a clear
     error instead of being ignored."""
-    if args.precision != "float32":
-        raise SystemExit("--precision bfloat16 is not ported yet: the PyTorch "
-                         "port trains in float32")
     if args.distributed == "on":
         raise SystemExit("--distributed on is not ported yet: the PyTorch port "
                          "trains in one process on one device")
@@ -136,7 +138,8 @@ def main(argv=None):
     val_loader = DataLoader(val_dataset, args.batch_size, shuffle=False,
                             drop_last=False, workers=workers)
 
-    model = init_weights(Pipeline(iteration=args.iteration, test=False),
+    model = init_weights(Pipeline(iteration=args.iteration, test=False,
+                                  dtype=getattr(torch, args.precision)),
                          args.seed).to(device)
     optimizer = make_optimizer(model, args.wd)
     print(f"Number of model parameters: {sum(p.numel() for p in model.parameters())}")

@@ -192,3 +192,86 @@ def test_kernel_library_name_follows_its_shared_headers(tmp_path, monkeypatch):
     assert kernels.library_path("k") == first
     (tmp_path / "h.cuh").write_text("// two\n")
     assert kernels.library_path("k") != first
+
+
+def test_bf16_plans_launch_as_many_kernels():
+    """bf16 halves the premul blocks; at these sizes nothing was split in
+    f32, so the plans (52 per map and per step) are the same."""
+    for args in ((1600, 1152, 5, 4), (640, 512, 5, 4, 4)):
+        assert chip_smoke.sweep_shapes(*args, itemsize=2) == chip_smoke.sweep_shapes(*args)
+
+
+def test_launch_counts_name_all_nine_kernels():
+    chip_smoke.reset_launch_counts()
+    counts = chip_smoke.launch_counts()
+    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 9
+    assert counts == chip_smoke.planned_counts()
+    assert chip_smoke.planned_counts(sweep_premul_bf16=3)["sweep_premul_bf16"] == 3
+    for name in counts:
+        assert chip_smoke.kernel_name(name.removesuffix("_bf16"), torch.bfloat16) in (
+            name, name + "_bf16")
+
+
+def test_profile_categories_keep_the_bf16_forms_apart():
+    cat = chip_smoke._category
+    assert cat("void (anonymous namespace)::sweep_premul_bf16_kernel(uint4 const*)") == \
+        "sweep_premul_bf16"
+    assert cat("void (anonymous namespace)::sweep_premul_kernel(float4 const*)") == \
+        "sweep_premul"
+    assert cat("void (anonymous namespace)::round_to_bf16_kernel(float4 const*)") == \
+        "sweep_grad_src_bf16"
+    assert cat("void (anonymous namespace)::corr_epilogue_bf16_kernel(uint4 const*)") == \
+        "corr_epilogue_bf16"
+
+
+def test_hold_grad_allows_one_bf16_step_and_no_more():
+    """bf16 results may differ from their plain version by one bf16 step
+    of |plain| plus 1e-5 of max|plain|; f32 results by the 1e-5 alone."""
+    want = torch.tensor([1.0, -3.0, 0.5, 200.0]).to(torch.bfloat16)
+
+    def ulps(k):                 # each value k bf16 steps further from 0
+        return (want.view(torch.int16) + k).view(torch.bfloat16)
+
+    assert chip_smoke.hold_grad("k", ulps(1), want, "one step")[0] > 0
+    with pytest.raises(SystemExit):
+        chip_smoke.hold_grad("k", ulps(3), want, "three steps")
+    want32 = want.float()
+    chip_smoke.hold_grad("k", want32 + 0.9e-5 * 200, want32, "f32 within")
+    with pytest.raises(SystemExit):
+        chip_smoke.hold_grad("k", want32 + 1.1e-5 * 200, want32, "f32 beyond")
+
+
+def test_bf16_sweep_inputs_round_the_f32_draws():
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    f32 = chip_smoke.sweep_inputs(2, 3, 4, 5, 6, 7, 16, gen, "cpu")
+    gen.manual_seed(0)
+    bf16 = chip_smoke.sweep_inputs(2, 3, 4, 5, 6, 7, 16, gen, "cpu", torch.bfloat16)
+    assert [t.dtype for t in bf16] == [torch.bfloat16, torch.int32, torch.bfloat16,
+                                       torch.bfloat16]
+    for a, b in zip(f32, bf16):
+        assert torch.equal(a.to(b.dtype), b)
+
+
+def test_in_memory_samples_through_run_depth_in_bf16(tmp_path):
+    """chip_smoke's bf16 depth phase on the CPU: the same scene, weights
+    and bar as the f32 run."""
+    cams, images, gts = chip_smoke.render_scene(512, 384, 3, 0)
+    model = load_npz_weights(Pipeline(iteration=4, dtype=torch.bfloat16), pretrained_path("dtu"))
+    run_depth(model, chip_smoke.samples_of(cams, images)[:1], str(tmp_path),
+              torch.device("cpu"), log=lambda *_: None)
+    depth, _ = read_pfm(os.path.join(tmp_path, "depth_est", "00000000.pfm"))
+    assert depth.dtype == np.float32 and depth.shape == (384, 512, 1)
+    assert np.median(np.abs(depth[..., 0] - gts[0])) < 0.05
+
+
+def test_sass_tool_needs_the_cuda_toolkit():
+    """Without nvcc the SASS comparison exits non-zero and prints no
+    comparison line."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "itermvs_tpu_torch", "tools", "compare_sass.py")
+    out = subprocess.run([sys.executable, script, "--tree", root], capture_output=True,
+                         text=True, env=dict(os.environ, CUDA_HOME="/nonexistent",
+                                             PATH="/usr/bin:/bin"))
+    assert out.returncode != 0 and "differing_lines" not in out.stdout
+    assert "nvcc" in out.stderr
