@@ -9,9 +9,10 @@
    the 1600x1152 shapes of the depth path (sweep_premul, corr_epilogue)
    and of fusion (fusion_consistency, bit for bit: with 10 sources as
    DTU's pair lists give, with the 4 of the fusion run below, which the
-   report line carries, and at the K3_EDGE_CASES), and times kernel,
-   plain version and (for corr_epilogue) one PyTorch call of the same
-   function.
+   report line carries, and at the K3_EDGE_CASES), and times kernel
+   (`ms`: sweep_premul and corr_epilogue launched bare into outputs
+   allocated beforehand, `call_ms` through their wrappers), plain version
+   and (for corr_epilogue) one PyTorch call of the same function.
 4. Runs the port's eval core loop (`itermvs_tpu_torch.eval.run_depth`)
    with the vendored DTU weights and the feature cache on a 5-view
    textured-plane scene made in memory at 1600x1152, one depth map per
@@ -49,18 +50,22 @@ bfloat16 (`Pipeline(dtype=torch.bfloat16)`, eval's and train's
 `--precision bfloat16`) runs the bf16 forms of the four sweep kernels:
 after step 6 they are held against their plain versions at the depth
 path's shapes (sweep_premul_bf16 bit for bit, corr_epilogue_bf16 within
-1e-6 of max|plain|, timed beside a bf16 torch.matmul), then the same 5
-depth maps run in bf16 (each map's median error < 0.05 and within
-max(1.15 f32, f32 + 0.01) of the f32 run's; 52 launches of each forward
-form per map; maps/s, device time by kind, idle share); after step 7 all
-four are held at the training step's shapes and on the pile-up, edge and
-one-corner bases (sweep_grad_ref_bf16 and sweep_grad_src_bf16 within one
-bf16 step of |plain| plus 1e-5 of max|plain|, 10 launches each); after
-step 9 the same 10 training steps run in bf16 (loss finite and falling,
-the first within 2% of the f32 run's, the mean of the last two no more
-than 15% above f32's, each dtype's averaged over its run and two runs
-from the init perturbed by 1e-6; 52 launches of each bf16 form per step;
-the bf16 loss on an f32 run's weights before each step is printed).
+1e-6 of max|plain|, timed beside a bf16 torch.matmul; each line with the
+share of the bound and, for K1, its time over the matmul's) and at their
+edges (`check_fwd_edge_cases`: ragged row counts, bases on the map's
+last row or column and off it, where both write NaN, C = 8 and 256),
+then the same 5 depth maps run in bf16 (each map's median error < 0.05
+and within max(1.15 f32, f32 + 0.01) of the f32 run's; 52 launches of
+each forward form per map; maps/s, device time by kind, idle share);
+after step 7 all four are held at the training step's shapes and on the
+pile-up, edge and one-corner bases (sweep_grad_ref_bf16 and
+sweep_grad_src_bf16 within one bf16 step of |plain| plus 1e-5 of
+max|plain|, 10 launches each); after step 9 the same 10 training steps
+run in bf16 (loss finite and falling, the first within 2% of the f32
+run's, the mean of the last two no more than 15% above f32's, each
+dtype's averaged over its run and two runs from the init perturbed by
+1e-6; 52 launches of each bf16 form per step; the bf16 loss on an f32
+run's weights before each step is printed).
 
 The last line is `{"ok": true, "device": {...}}`; any failed phase
 exits non-zero before it. Without a CUDA device, or outside the repo,
@@ -69,6 +74,7 @@ the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -90,8 +96,10 @@ from itermvs_tpu_torch.models.itermvs import (
     CORR_INTERVALS, GROUPS, LEVELS, NUM_INIT_SAMPLES)
 from itermvs_tpu_torch.ops.consistency import (
     MAX_SOURCES, consistency, consistency_plain, launch_consistency, record)
-from itermvs_tpu_torch.ops.sweep import sample_chunks, sweep_premul, sweep_premul_plain
-from itermvs_tpu_torch.ops.sweep_epilogue import corr_epilogue, corr_epilogue_plain
+from itermvs_tpu_torch.ops.sweep import (
+    launch_sweep_premul, sample_chunks, sweep_premul, sweep_premul_plain)
+from itermvs_tpu_torch.ops.sweep_epilogue import (
+    corr_epilogue, corr_epilogue_plain, launch_corr_epilogue)
 from itermvs_tpu_torch.ops.sweep_grad import (
     launch_sweep_grad_ref, launch_sweep_grad_src, sweep_grad_ref, sweep_grad_ref_plain,
     sweep_grad_src, sweep_grad_src_plain)
@@ -352,12 +360,14 @@ def kernel_name(name, dtype):
 def check_kernels(shapes, per="map", dtype=torch.float32):
     """Each forward kernel of `dtype` against its plain version at every
     sweep shape; per shape one JSON line, and per kernel the totals of one
-    depth map (or training step, `per`). Keyed by report name."""
+    depth map (or training step, `per`). Keyed by report name. `ms` times
+    the bare launch into an output allocated beforehand (a small launch
+    through the wrapper waits on the host: `call_ms`)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     k1, k2 = kernel_name("corr_epilogue", dtype), kernel_name("sweep_premul", dtype)
-    per_map = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
-                   "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    per_map = {k: {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "max_abs_err": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
                for k in (k2, k1)}
     for name, b, n, h, w, h1, w1, c, launches in shapes:
         hw = h * w
@@ -377,7 +387,8 @@ def check_kernels(shapes, per="map", dtype=torch.float32):
         nbytes2 = (size * (src.numel() + taps.numel() + ref.numel() + got.numel())
                    + 4 * base.numel())
         ops2 = 2 * got.numel()
-        k2 = {"ms": time_ms(lambda: sweep_premul(src, base, taps, ref, n)),
+        k2 = {"ms": time_ms(lambda: launch_sweep_premul(src, base, taps, ref, got)),
+              "call_ms": time_ms(lambda: sweep_premul(src, base, taps, ref, n)),
               "plain_ms": time_ms(lambda: sweep_premul_plain(src, base, taps, ref, n)),
               "library_ms": None}
         k2["bound_ms"], k2["bound_by"] = bound_ms(nbytes2, ops2)
@@ -399,7 +410,8 @@ def check_kernels(shapes, per="map", dtype=torch.float32):
         err_lib = (lib.T.reshape(GROUPS, b * n, hw).float() - want1).abs().max().item()
         nbytes1 = size * premul.numel() + 4 * got1.numel()
         ops1 = premul.numel() + got1.numel()
-        k1 = {"ms": time_ms(lambda: corr_epilogue(premul, b * n, GROUPS)),
+        k1 = {"ms": time_ms(lambda: launch_corr_epilogue(premul, got1)),
+              "call_ms": time_ms(lambda: corr_epilogue(premul, b * n, GROUPS)),
               "plain_ms": time_ms(lambda: corr_epilogue_plain(premul, b * n, GROUPS)),
               "library_ms": time_ms(lambda: torch.matmul(premul, m4.T))}
         k1["bound_ms"], k1["bound_by"] = bound_ms(nbytes1, ops1)
@@ -409,14 +421,16 @@ def check_kernels(shapes, per="map", dtype=torch.float32):
                 (kernel_name("corr_epilogue", dtype), k1, err1, tol1, nbytes1, ops1)):
             line = {"kernel": kname, "shape": name, "batch": b, "n": n, "hw": hw,
                     "src_hw": [h1, w1], "c": c, f"launches_per_{per}": launches,
-                    "max_abs_err": err, "tol": tol, **rec}
+                    "max_abs_err": err, "tol": tol, **rec,
+                    "share": rec["bound_ms"] / rec["ms"]}
             if kname.startswith("corr_epilogue"):
                 line["library_max_abs_err"] = err_lib
+                line["vs_library"] = rec["ms"] / rec["library_ms"]
             print(json.dumps(line))
             if not err <= tol:
                 raise SystemExit(f"{kname} at {name}: max |kernel - plain| {err} > {tol}")
             tot = per_map[kname]
-            for key in ("ms", "plain_ms", "bound_ms"):
+            for key in ("ms", "call_ms", "plain_ms", "bound_ms"):
                 tot[key] += launches * rec[key]
             if rec["library_ms"] is None:
                 tot["library_ms"] = None
@@ -428,6 +442,98 @@ def check_kernels(shapes, per="map", dtype=torch.float32):
         del src, base, taps, ref, got, premul, got1, want1, lib
         torch.cuda.empty_cache()
     return per_map
+
+
+# The bf16 forward kernels' edge cases, on a small source map.
+FWD_EDGE_MAP = (7, 9)
+
+
+def bf16_fwd_tiles(c, groups=GROUPS):
+    """Rows per block at C channels: K2 bf16 (pixels of one sample, 256
+    threads of C/8 lanes) and K1 bf16 (256 threads of lcm(8, C/G)
+    channels)."""
+    return 256 // (c // 8), 256 * math.lcm(8, c // groups) // c
+
+
+def fwd_edge_inputs(b, n, hw, c, gen, bases="random", dev="cuda"):
+    """bf16 K2 inputs on a FWD_EDGE_MAP source: bases drawn over the map
+    ("random"), on its last row or column ("edges": +1 corners fall off
+    it), or random with every 5th row below 0 and every 5th one past the
+    map ("off_map")."""
+    h1, w1 = FWD_EDGE_MAP
+    src = (torch.rand(b, h1, w1, c, device=dev, generator=gen) * 2 - 1).to(BF16)
+    ref = (torch.rand(b, hw, c, device=dev, generator=gen) * 2 - 1).to(BF16)
+    taps = torch.rand(4, b, n * hw, device=dev, generator=gen).to(BF16)
+    base = torch.randint(0, h1 * w1, (b, n * hw), device=dev, generator=gen)
+    if bases == "edges":
+        r = torch.randint(0, w1 + h1 - 1, base.shape, device=dev, generator=gen)
+        base = torch.where(r < w1, (h1 - 1) * w1 + r, (r - w1) * w1 + w1 - 1)
+    elif bases == "off_map":
+        base[:, ::5] = -1
+        base[:, 1::5] = h1 * w1
+    return src, base.to(torch.int32).contiguous(), taps, ref
+
+
+def hold_fwd_edge(label, src, base, taps, ref, n):
+    """K2 bf16, then K1 bf16 on its output, against their plain versions:
+    K2 bit for bit, NaN in every row whose base is off the map (the plain
+    version runs on those rows' bases moved onto the map); K1 within 1e-6
+    of max|plain|, NaN where its row is. Prints one JSON line."""
+    b, h1, w1, c = src.shape
+    off = (base < 0) | (base >= h1 * w1)
+    got = sweep_premul(src, base, taps, ref, n)
+    want = sweep_premul_plain(src, torch.where(off, 0, base), taps, ref, n)
+    rows_nan = got.float().isnan()
+    if not (torch.equal(rows_nan.all(-1), off) and not rows_nan[~off].any()):
+        raise SystemExit(f"sweep_premul_bf16 at {label}: NaN rows are not the off-map rows")
+    if not torch.equal(got[~off].view(torch.int16), want[~off].view(torch.int16)):
+        raise SystemExit(f"sweep_premul_bf16 at {label}: bits differ from its plain version")
+    premul = got.reshape(-1, 4 * c)
+    got1 = corr_epilogue(premul, b * n, GROUPS)
+    want1 = corr_epilogue_plain(premul, b * n, GROUPS)
+    nan1 = want1.isnan()
+    err = (got1 - want1)[~nan1].abs().max().item()
+    tol = 1e-6 * want1[~nan1].abs().max().item()
+    if not (torch.equal(got1.isnan(), nan1) and err <= tol):
+        raise SystemExit(f"corr_epilogue_bf16 at {label}: max |kernel - plain| {err} > {tol} "
+                         "or NaN elsewhere than the plain version's")
+    print(json.dumps({"edge_case": label, "batch": b, "n": n, "hw": ref.shape[1], "c": c,
+                      "off_map_rows": int(off.sum()), "sweep_premul_bf16": "bit-equal",
+                      "corr_epilogue_bf16_max_abs_err": err, "tol": tol}))
+
+
+def check_fwd_edge_cases():
+    """K2 bf16 and K1 bf16 at their edges, small and cheap: K2 at one
+    pixel per sample, one past a whole block and one short of one, at C =
+    16 and 48; every base on the map's last row or column; bases off the
+    map; C = 8 and 256, the wrapper's limits; then K1 alone at one row,
+    one past a whole block and one short of one, at C = 16, 32 and 48."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    cases = []
+    for c in (16, 48):
+        run = bf16_fwd_tiles(c)[0]
+        for hw in (1, run - 1, run + 1):
+            cases.append((f"ragged C={c} hw={hw}", 2, 2, hw, c, "random"))
+        cases.append((f"edges C={c}", 2, 3, 300, c, "edges"))
+        cases.append((f"off_map C={c}", 2, 3, 300, c, "off_map"))
+    for c in (8, 256):
+        cases.append((f"C={c}", 2, 3, 300, c, "random"))
+        cases.append((f"edges C={c}", 1, 2, 300, c, "edges"))
+    for label, b, n, hw, c, bases in cases:
+        hold_fwd_edge(label, *fwd_edge_inputs(b, n, hw, c, gen, bases), n)
+    for c in (16, 32, 48):
+        tile = bf16_fwd_tiles(c)[1]
+        for rows in (1, tile - 1, tile + 1):
+            premul = (torch.rand(rows, 4 * c, device="cuda", generator=gen) * 2 - 1).to(BF16)
+            got = corr_epilogue(premul, 1, GROUPS)
+            want = corr_epilogue_plain(premul, 1, GROUPS)
+            err = (got - want).abs().max().item()
+            tol = 1e-6 * want.abs().max().item()
+            print(json.dumps({"edge_case": f"K1 ragged C={c} rows={rows}", "c": c,
+                              "corr_epilogue_bf16_max_abs_err": err, "tol": tol}))
+            if not err <= tol:
+                raise SystemExit(f"corr_epilogue_bf16 at {rows} rows, C={c}: {err} > {tol}")
 
 
 def valid_corners(base, h1, w1):
@@ -1204,6 +1310,7 @@ def main():
         # with the same weights in bf16, held against the f32 run's error.
         shapes16 = sweep_shapes(WIDTH, HEIGHT, VIEWS, ITERATION, itemsize=2)
         per_map.update(check_kernels(shapes16, dtype=BF16))
+        check_fwd_edge_cases()
         model16 = load_npz_weights(Pipeline(iteration=ITERATION, dtype=BF16),
                                    pretrained_path("dtu")).cuda()
         counts16, errs16, wall16 = depth_run(model16, samples, gt_depths,
@@ -1259,7 +1366,7 @@ def main():
         report.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": counts[name],
-            "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
+            "max_abs_err": tot["max_abs_err"], "ms": tot["ms"], "call_ms": tot["call_ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": tot["library_ms"], "per": "one depth map"})

@@ -77,6 +77,39 @@ def sweep_premul_plain(src: torch.Tensor, base: torch.Tensor,
     return (vals * t * r).reshape(b, n * hw, 4 * c)
 
 
+def check_kernel_input(src: torch.Tensor, base: torch.Tensor, taps: torch.Tensor,
+                       ref: torch.Tensor) -> None:
+    """Raise ValueError where the kernel of src's dtype does not take these
+    inputs (shapes already checked; src's device aside)."""
+    tensors = (src, base, taps, ref)
+    if any(t.device != src.device for t in tensors):
+        raise ValueError("sweep_premul: inputs on different devices")
+    if (src.dtype not in KERNELS or base.dtype != torch.int32
+            or taps.dtype != src.dtype or ref.dtype != src.dtype):
+        raise ValueError("sweep_premul: needs float32 or bfloat16 src/taps/ref of "
+                         "one dtype, int32 base")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError("sweep_premul: inputs must be contiguous")
+    _, lane = KERNELS[src.dtype]
+    _, h1, w1, c = src.shape
+    if c % lane or c > 256 or src.data_ptr() % 16 or ref.data_ptr() % 16:
+        raise ValueError(f"sweep_premul: needs C % {lane} == 0, C <= 256 and 16-byte "
+                         "aligned src/ref")
+    if src.dtype == torch.bfloat16 and h1 * w1 * c >= 2 ** 31:
+        raise ValueError("sweep_premul: bfloat16 needs H1*W1*C < 2^31 (32-bit offsets)")
+
+
+def launch_sweep_premul(src, base, taps, ref, out) -> None:
+    """K2's bare launch (the kernel of src's dtype) into `out` [B, P, 4C]
+    on the current stream, for checked inputs; counts nothing (the
+    wrapper does)."""
+    b, h1, w1, c = src.shape
+    name = KERNELS[src.dtype][0]
+    kernels.check_launch(name, kernels.function(name)(
+        src.data_ptr(), base.data_ptr(), taps.data_ptr(), ref.data_ptr(), out.data_ptr(),
+        b, out.shape[1], ref.shape[1], h1, w1, c, torch.cuda.current_stream().cuda_stream))
+
+
 def sweep_premul(src: torch.Tensor, base: torch.Tensor, taps: torch.Tensor,
                  ref: torch.Tensor, n: int) -> torch.Tensor:
     """Gather + premultiply for one (view, level) sweep.
@@ -105,26 +138,10 @@ def sweep_premul(src: torch.Tensor, base: torch.Tensor, taps: torch.Tensor,
         return sweep_premul_plain(src, base, taps, ref, n)
     if src.device.type != "cuda":
         raise ValueError(f"sweep_premul: unsupported device {src.device}")
-    tensors = (src, base, taps, ref)
-    if any(t.device != src.device for t in tensors):
-        raise ValueError("sweep_premul: inputs on different devices")
-    if (src.dtype not in KERNELS or base.dtype != torch.int32
-            or taps.dtype != src.dtype or ref.dtype != src.dtype):
-        raise ValueError("sweep_premul: needs float32 or bfloat16 src/taps/ref of "
-                         "one dtype, int32 base")
-    if any(not t.is_contiguous() for t in tensors):
-        raise ValueError("sweep_premul: inputs must be contiguous")
-    name, lane = KERNELS[src.dtype]
-    if c % lane or c > 256 or src.data_ptr() % 16 or ref.data_ptr() % 16:
-        raise ValueError(f"sweep_premul: needs C % {lane} == 0, C <= 256 and "
-                         "16-byte aligned src/ref")
+    check_kernel_input(src, base, taps, ref)
     out = torch.empty((b, p, 4 * c), dtype=src.dtype, device=src.device)
-    fn = kernels.function(name)
     with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        kernels.check_launch(name, fn(
-            src.data_ptr(), base.data_ptr(), taps.data_ptr(), ref.data_ptr(),
-            out.data_ptr(), b, p, hw, h1, w1, c, stream))
+        launch_sweep_premul(src, base, taps, ref, out)
     if src.dtype == torch.float32:
         sweep_premul.launches += 1
     else:

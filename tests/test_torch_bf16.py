@@ -40,6 +40,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import chip_smoke
+
 from itermvs_tpu.data import find_dataset_def
 from itermvs_tpu.engine.checkpoint import load_npz_variables
 from itermvs_tpu.models import Pipeline as JaxPipeline
@@ -238,6 +240,54 @@ def test_sample_chunks_count_the_element_size():
     budget = 2 * 10 * 16 * 4
     assert sample_chunks(1, 5, 10, 4, budget=budget) == [(0, 2), (2, 4), (4, 5)]
     assert sample_chunks(1, 5, 10, 4, budget=budget, itemsize=2) == [(0, 4), (4, 5)]
+
+
+# The bf16 forward kernels' edge cases on the card (chip_smoke
+# check_fwd_edge_cases), with the same inputs made on the CPU: the plain
+# versions the card holds the kernels against, against the JAX package.
+# (Bases off the map are the card's own case: JAX clamps them, the port
+# writes NaN, and the plain version refuses them.)
+_RUN16, _RUN48 = (chip_smoke.bf16_fwd_tiles(c)[0] for c in (16, 48))
+
+
+@pytest.mark.parametrize("b,n,hw,c,bases", [
+    (2, 2, 1, 16, "random"), (2, 2, _RUN16 - 1, 16, "random"), (2, 2, _RUN16 + 1, 16, "random"),
+    (2, 2, _RUN48 - 1, 48, "random"), (2, 2, _RUN48 + 1, 48, "random"),
+    (2, 3, 300, 16, "edges"), (2, 3, 300, 48, "edges"),
+    (2, 3, 300, 8, "random"), (1, 2, 300, 256, "edges")])
+def test_sweep_premul_bf16_edge_cases_equal_jax(b, n, hw, c, bases):
+    gen = torch.Generator().manual_seed(c + hw)
+    src, base, taps, ref = chip_smoke.fwd_edge_inputs(b, n, hw, c, gen, bases, dev="cpu")
+    h1, w1 = chip_smoke.FWD_EDGE_MAP
+    if bases == "edges":
+        on_edge = (base // w1 == h1 - 1) | (base % w1 == w1 - 1)
+        assert bool(on_edge.all())
+    got = sweep_premul(src, base, taps, ref, n)
+    table = pack_corners(jnp.asarray(_np(src)).astype(jnp.bfloat16)).data
+    for i in range(b):
+        vals = jnp.take(table[i].reshape(h1 * w1, 4 * c), jnp.asarray(base[i].numpy()), axis=0)
+        want = jax_sweep_epilogue.premultiply(
+            vals, [jnp.asarray(_np(t[i])).astype(jnp.bfloat16) for t in taps],
+            jnp.asarray(_np(ref[i])).astype(jnp.bfloat16), n)
+        np.testing.assert_array_equal(_np(got[i]), _np(want))
+
+
+@pytest.mark.parametrize("c,rows", [
+    (c, rows) for c in (16, 32, 48)
+    for rows in (1, chip_smoke.bf16_fwd_tiles(c)[1] - 1, chip_smoke.bf16_fwd_tiles(c)[1] + 1)
+] + [(8, 256), (256, 256)])
+def test_corr_epilogue_bf16_edge_rows_match_jax(interpret_mode, rng, c, rows):  # noqa: F811
+    """Ragged row counts against the JAX oracle (the Pallas call blocks
+    only whole 128-row tiles), and C = 8 and 256 (cg = 1 and 32, whose
+    1/cg the Pallas call's bf16 mean matrix holds exactly) against both."""
+    premul_j, premul_t = _bf16(rng.rand(rows, 4 * c).astype(np.float32) * 2 - 1)
+    got = _np(corr_epilogue(premul_t, 1, GROUPS))
+    oracle = _np(jax_sweep_epilogue.corr_epilogue_reference(premul_j, 1, GROUPS))
+    tol = 5e-6 * np.abs(oracle).max()
+    np.testing.assert_allclose(got, oracle, rtol=0, atol=tol)
+    if jax_sweep_epilogue.supports(rows):
+        pallas = _np(jax_sweep_epilogue.corr_epilogue(premul_j, 1, GROUPS))
+        np.testing.assert_allclose(got, pallas, rtol=0, atol=tol)
 
 
 # ---------------------------------------------------------------- models

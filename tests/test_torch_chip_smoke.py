@@ -153,6 +153,34 @@ def test_k4_k5_timing_script_needs_a_card():
     assert '"ms"' not in out.stdout
 
 
+def test_k1_k2_timing_script_needs_a_card():
+    """Without a CUDA device the K1/K2 A/B timing script exits non-zero
+    and prints no timing line."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "itermvs_tpu_torch", "tools", "time_sweep_fwd.py")
+    out = subprocess.run([sys.executable, script, "--tree", root], capture_output=True,
+                         text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert '"ms"' not in out.stdout and "ms_per_" not in out.stdout
+
+
+def test_bf16_forward_edge_inputs_plant_their_cases():
+    """chip_smoke's bf16 forward edge cases: bases on the last row or
+    column, every 5th row below the map and every 5th past it, and block
+    sizes that match the kernels' launch shapes."""
+    gen = torch.Generator().manual_seed(0)
+    h1, w1 = chip_smoke.FWD_EDGE_MAP
+    _, base, taps, ref = chip_smoke.fwd_edge_inputs(2, 3, 40, 16, gen, "edges", dev="cpu")
+    assert base.dtype == torch.int32 and base.shape == (2, 120) and base.is_contiguous()
+    assert taps.dtype == ref.dtype == torch.bfloat16 and taps.shape == (4, 2, 120)
+    assert bool(((base // w1 == h1 - 1) | (base % w1 == w1 - 1)).all())
+    _, base, _, _ = chip_smoke.fwd_edge_inputs(2, 3, 40, 16, gen, "off_map", dev="cpu")
+    off = (base < 0) | (base >= h1 * w1)
+    assert off.sum().item() == 2 * 2 * 24 and bool(off[:, ::5].all() & off[:, 1::5].all())
+    assert [chip_smoke.bf16_fwd_tiles(c) for c in (8, 16, 32, 48, 256)] == [
+        (256, 256), (128, 128), (64, 64), (42, 128), (8, 32)]
+
+
 def test_grad_cases_plant_their_cases():
     """The harder backward inputs: batch 0 piled on one cell, every base on
     the last row or column, batch 0 in the last 8x8 cells; the rest as

@@ -23,6 +23,7 @@ from itermvs_tpu.ops.grid_sample import pack_corners
 from itermvs_tpu.ops.warping import pack_bilinear
 from itermvs_tpu_torch.models.itermvs import GROUPS, chunked_warp_corr
 from itermvs_tpu_torch.ops import sweep
+from itermvs_tpu_torch.ops import sweep_epilogue
 from itermvs_tpu_torch.ops.sweep import sample_chunks, sweep_premul
 from itermvs_tpu_torch.ops.sweep_epilogue import corr_epilogue
 
@@ -131,3 +132,77 @@ def test_wrappers_reject_bad_shapes():
     with pytest.raises(ValueError):
         sweep_premul(torch.zeros(1, 4, 4, 16), torch.zeros(1, 8, dtype=torch.int32),
                      torch.zeros(4, 1, 7), torch.zeros(1, 4, 16), 2)
+
+
+BF16 = torch.bfloat16
+
+
+def _misaligned(shape, dtype):
+    """A contiguous tensor of `shape` whose data starts 2 bytes past a
+    16-byte boundary."""
+    flat = torch.zeros(int(np.prod(shape)) + 8, dtype=dtype)
+    return flat[1:1 + int(np.prod(shape))].view(shape)
+
+
+@pytest.mark.parametrize("c,groups,dtype,ok", [
+    (16, 8, BF16, True), (32, 8, BF16, True), (48, 8, BF16, True), (8, 8, BF16, True),
+    (256, 8, BF16, True), (96, 8, BF16, True),
+    (20, 4, BF16, False),        # C % 8
+    (40, 8, BF16, False),        # cg = 5: lcm(8, 5) > 32 channels a thread
+    (80, 8, BF16, False),        # cg = 10
+    (16, 8, torch.float16, False),
+    (20, 4, torch.float32, True), (40, 8, torch.float32, True)])
+def test_corr_epilogue_kernel_refuses_what_it_does_not_take(c, groups, dtype, ok):
+    """The checks the wrapper makes before a CUDA launch (no fallback):
+    the bf16 kernel takes C % 8 == 0 and lcm(8, C/G) <= 32 (every C the
+    model uses at G = 8), the f32 kernel any C that G divides."""
+    premul = torch.zeros(6, 4 * c, dtype=dtype)
+    if ok:
+        sweep_epilogue.check_kernel_input(premul, groups)
+    else:
+        with pytest.raises(ValueError):
+            sweep_epilogue.check_kernel_input(premul, groups)
+
+
+def test_kernels_refuse_misaligned_or_strided_bf16():
+    with pytest.raises(ValueError, match="16-byte"):
+        sweep_epilogue.check_kernel_input(_misaligned((6, 64), BF16), GROUPS)
+    with pytest.raises(ValueError, match="contiguous"):
+        sweep_epilogue.check_kernel_input(torch.zeros(64, 6, dtype=BF16).T, GROUPS)
+    with pytest.raises(ValueError, match="groups"):
+        sweep_epilogue.check_kernel_input(torch.zeros(6, 64 * 8, dtype=BF16), 64)
+    base = torch.zeros(1, 8, dtype=torch.int32)
+    taps = torch.zeros(4, 1, 8, dtype=BF16)
+    ref = torch.zeros(1, 4, 16, dtype=BF16)
+    with pytest.raises(ValueError, match="16-byte"):
+        sweep.check_kernel_input(_misaligned((1, 4, 4, 16), BF16), base, taps, ref)
+    with pytest.raises(ValueError, match="16-byte"):
+        sweep.check_kernel_input(torch.zeros(1, 4, 4, 16, dtype=BF16), base, taps,
+                                 _misaligned((1, 4, 16), BF16))
+
+
+@pytest.mark.parametrize("c,dtype,ok", [
+    (8, BF16, True), (16, BF16, True), (48, BF16, True), (256, BF16, True),
+    (12, BF16, False), (264, BF16, False), (4, torch.float32, True), (6, torch.float32, False)])
+def test_sweep_premul_kernel_refuses_what_it_does_not_take(c, dtype, ok):
+    src = torch.zeros(2, 3, 5, c, dtype=dtype)
+    args = (src, torch.zeros(2, 8, dtype=torch.int32), torch.zeros(4, 2, 8, dtype=dtype),
+            torch.zeros(2, 4, c, dtype=dtype))
+    if ok:
+        sweep.check_kernel_input(*args)
+    else:
+        with pytest.raises(ValueError):
+            sweep.check_kernel_input(*args)
+
+
+def test_sweep_premul_bf16_kernel_needs_32_bit_offsets():
+    """The bf16 kernel offsets each batch's source map in 32 bits."""
+    def inputs(h1, dtype):
+        return (torch.empty(1, h1, 2 ** 14, 8, dtype=dtype, device="meta"),
+                torch.empty(1, 8, dtype=torch.int32, device="meta"),
+                torch.empty(4, 1, 8, dtype=dtype, device="meta"),
+                torch.empty(1, 4, 8, dtype=dtype, device="meta"))
+    sweep.check_kernel_input(*inputs(2 ** 14 - 1, BF16))
+    sweep.check_kernel_input(*inputs(2 ** 14, torch.float32))
+    with pytest.raises(ValueError, match="2\\^31"):
+        sweep.check_kernel_input(*inputs(2 ** 14, BF16))
