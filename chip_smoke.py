@@ -46,6 +46,30 @@
    device time by kind and idle share; then a validation step and a
    checkpoint saved and restored on the card.
 
+10. Data-parallel training (`parallel/mesh.py`), train_dtu.sh's stage-2
+   step at full width from the DTU weights (`ddp_job` says why not a
+   fresh init) on 4 distinct samples whose
+   masks keep 100/87.5/75/62.5% of the rows: `train_ddp_2rank` runs 3
+   steps on two processes on the one card, joined over gloo (NCCL
+   refuses two ranks on one device), 2 samples each, beside the
+   one-process step on all 4: the first loss within 1e-4 (relative), the
+   parameters after the first step within 1e-3 (relative L2), the two
+   ranks' parameters and BN statistics bit-equal after every step, 52
+   launches of K1, K2, K4, K5 per rank per step; ms per step of the two
+   processes sharing the card. `train_ddp_nccl` runs the synced path
+   (global BN statistics, global loss and metric denominators, summed
+   gradients) as one NCCL rank against the plain step from the same
+   init, 5 steps each, in f32 with the same gates and in bf16, where
+   the loss and parameter bounds lie below bf16's own noise: there the
+   BN statistics (1e-4, relative L2), the launches and finite losses are
+   gated, and the first loss and parameters are printed beside two plain
+   bf16 steps from the init perturbed by 1e-7; ms per step of both forms
+   and one profiled step each (device time by kind).
+11. `--debug_nans` (`engine/profiling.py`): one 1600x1152 depth map with
+   the checks on runs clean (median error < 0.05, 52 launches of K1 and
+   K2), and the same map with a NaN put into one input image raises
+   FloatingPointError naming a module.
+
 bfloat16 (`Pipeline(dtype=torch.bfloat16)`, eval's and train's
 `--precision bfloat16`) runs the bf16 forms of the four sweep kernels:
 after step 6 they are held against their plain versions at the depth
@@ -73,9 +97,11 @@ the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -86,6 +112,7 @@ import torch
 
 from itermvs_tpu_torch import kernels
 from itermvs_tpu_torch.engine.checkpoint import restore_checkpoint, save_checkpoint
+from itermvs_tpu_torch.engine.profiling import maybe_enable_nan_debugging
 from itermvs_tpu_torch.engine.train_loop import (
     forward_loss, init_weights, make_optimizer, to_device_batch, train_step, val_step)
 from itermvs_tpu_torch.eval import run_depth
@@ -103,7 +130,9 @@ from itermvs_tpu_torch.ops.sweep_epilogue import (
 from itermvs_tpu_torch.ops.sweep_grad import (
     launch_sweep_grad_ref, launch_sweep_grad_src, sweep_grad_ref, sweep_grad_ref_plain,
     sweep_grad_src, sweep_grad_src_plain)
-from itermvs_tpu_torch.weights import load_npz_weights, pretrained_path
+from itermvs_tpu_torch.parallel import mesh
+from itermvs_tpu_torch.weights import (
+    load_npz_weights, load_state, npz_state_dict, pretrained_path)
 
 WIDTH, HEIGHT = 1600, 1152
 VIEWS = 5
@@ -992,6 +1021,8 @@ def train_sample(width, height, views, batch, seed):
     views as sources; GT depth the analytic depth (every 2^l-th pixel at
     level l, the loader's INTER_NEAREST pyramid), masks all valid, depth
     range [DEPTH_MIN, DEPTH_MAX]."""
+    if batch > views:
+        raise ValueError(f"a batch of {batch} distinct references needs {batch} views")
     cams, images, depths = render_scene(width, height, views, seed)
     refs = samples_of(cams, images)[:batch]
     gt = np.stack(depths[:batch])
@@ -1048,6 +1079,19 @@ def compare_train_step():
         raise SystemExit(f"train step on the card disagrees with the CPU: {r}")
 
 
+def planned_step_counts(shapes, dtype):
+    """Launches of each kernel in one training step at `shapes` (the
+    sweep kernels of `dtype`: one forward pair per chunk, one backward
+    pair per sweep)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    forward = sum(s[-1] for s in shapes)
+    sweeps = sum(s[-1] // len(sample_chunks(*s[1:3], s[3] * s[4], s[7], itemsize=size))
+                 for s in shapes)
+    return planned_counts(**{kernel_name(k, dtype): n for k, n in (
+        ("sweep_premul", forward), ("corr_epilogue", forward), ("sweep_grad_ref", sweeps),
+        ("sweep_grad_src", sweeps))})
+
+
 def train_full_width(shapes, dtype=torch.float32):
     """The training path at full width (see TRAIN_*) in `dtype`:
     TRAIN_STEPS steps on one batch from a fresh seeded init; the loss must
@@ -1074,13 +1118,7 @@ def train_full_width(shapes, dtype=torch.float32):
         step_s.append(time.perf_counter() - t0)
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    size = torch.tensor([], dtype=dtype).element_size()
-    forward = sum(s[-1] for s in shapes)
-    sweeps = sum(s[-1] // len(sample_chunks(*s[1:3], s[3] * s[4], s[7], itemsize=size))
-                 for s in shapes)
-    planned = planned_counts(**{kernel_name(k, dtype): n * TRAIN_STEPS for k, n in (
-        ("sweep_premul", forward), ("corr_epilogue", forward), ("sweep_grad_ref", sweeps),
-        ("sweep_grad_src", sweeps))})
+    planned = {k: n * TRAIN_STEPS for k, n in planned_step_counts(shapes, dtype).items()}
     last = step_s[-5:]
     rec = {"size": [TRAIN_WIDTH, TRAIN_HEIGHT], "batch": TRAIN_BATCH, "views": TRAIN_VIEWS,
            "iteration": TRAIN_ITERATION, "dtype": str(dtype), "regress": True,
@@ -1186,6 +1224,357 @@ def bf16_tracks_f32(losses32, losses16):
     if not (rec["first_rel"] < 0.02 and rec["last2_mean_excess"] < 0.15):
         raise SystemExit(f"bf16 training does not track f32: {rec}")
     return rec
+
+
+# --------------------------------------------------------- data parallel
+# train_ddp_2rank: train_dtu.sh's stage-2 step over two processes on the
+# one card, joined over gloo (NCCL refuses two ranks on one device).
+DDP_WORLD, DDP_STEPS = 2, 3
+# train_ddp_nccl: one rank over NCCL against the plain step, f32 and bf16.
+NCCL_STEPS = 5
+# Gates of a data-parallel step against the one-process step on the
+# whole batch: the first loss, and the parameters after the first step
+# (relative L2; K5's float4 reductions and the ranks' partial sums move
+# the last bits, and Adam's first step turns a gradient's sign into
+# ±lr); the BN running statistics after it (relative L2), which the
+# first forward alone sets.
+DDP_LOSS_REL, DDP_PARAM_REL, DDP_BN_REL = 1e-4, 1e-3, 1e-4
+# bf16's own noise: the plain bf16 step from the init with every weight
+# scaled by (1 + BF16_NOISE * N(0, 1)), BF16_NOISE_RUNS times.
+BF16_NOISE, BF16_NOISE_RUNS = 1e-7, 2
+
+
+def ddp_sample(width, height, views, batch, seed):
+    """`train_sample` with another valid share in each sample: sample i
+    keeps the rows above (1 − i/(2·batch)) of the height at every level,
+    so each rank's mask count differs from the global batch's."""
+    sample = train_sample(width, height, views, batch, seed)
+    rows = np.arange(height)[None, :, None, None]
+    keep = rows < (height * (1 - np.arange(batch) / (2 * batch)))[:, None, None, None]
+    mask0 = np.broadcast_to(keep, (batch, height, width, 1)).astype(np.float32)
+    sample["mask"] = {f"level_{l}": np.ascontiguousarray(mask0[:, ::2 ** l, ::2 ** l])
+                      for l in range(4)}
+    return sample
+
+
+def tensor_tree(x):
+    """numpy leaves → torch tensors (a job file holds tensors only)."""
+    if isinstance(x, dict):
+        return {k: tensor_tree(v) for k, v in x.items()}
+    return torch.from_numpy(np.array(x))
+
+
+def slice_batch(x, start, n):
+    if isinstance(x, dict):
+        return {k: slice_batch(v, start, n) for k, v in x.items()}
+    return x[start:start + n]
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_steps(job, rank=0, world=1, device="cuda"):
+    """The training runs of `job` on this rank's consecutive slice of its
+    global batch (the whole batch at world 1), each from the job's
+    `state` (rank 0's, broadcast in a process group) with a new Adam;
+    `job["val"]` adds one val step of the first run's model before its
+    steps, `job["profile"]` one more step of each run under
+    torch.profiler after them (`device_time`: busy ms and ms by kind).
+    Records per step: the loss, ms (host clock to a sync), the launch
+    counts, the state_dict and the gradients after the step (on the
+    host)."""
+    dtype = getattr(torch, job["dtype"])
+    per = job["batch"] // world
+    batch = to_device_batch(slice_batch(job["sample"], rank * per, per), device)
+    out = {"runs": []}
+    for run in job["runs"]:
+        model = load_state(Pipeline(iteration=job["iteration"], test=False, dtype=dtype),
+                           job["state"], "job").to(device)
+        if mesh.is_initialized():
+            mesh.broadcast_state_(model)
+        optimizer = make_optimizer(model)
+        if job.get("val") and not out["runs"]:
+            out["val"] = {k: float(v) for k, v in
+                          val_step(model, batch, True, job["iteration"]).items()}
+        steps = []
+        for _ in range(run["steps"]):
+            _sync(device)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = train_step(model, optimizer, batch, job["lr"], run["regress"],
+                              job["iteration"])["loss"].item()
+            _sync(device)
+            steps.append({"loss": loss, "ms": 1e3 * (time.perf_counter() - t0),
+                          "launches": launch_counts(),
+                          "state": {k: v.detach().cpu().clone()
+                                    for k, v in model.state_dict().items()},
+                          "grads": {k: p.grad.detach().cpu().clone()
+                                    for k, p in model.named_parameters()}})
+        out["runs"].append(steps)
+        if job.get("profile"):
+            _, by_cat, busy = device_time(lambda: train_step(
+                model, optimizer, batch, job["lr"], run["regress"], job["iteration"]))
+            out["profile"] = {"device_busy_ms": busy, "by_category_ms": {
+                k: v / 1e3 for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])}}
+    return out
+
+
+def ddp_rank(rank, world, port, backend, device, job_path):
+    """One rank of `run_ranks`, in a process of its own: joins the group
+    through torchrun's variables (every rank on `device`), runs
+    `run_steps` and saves its records beside the job file."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK="0")
+    job = torch.load(job_path, weights_only=True)
+    mesh.initialize_distributed("on", backend=backend, device=device)
+    try:
+        out = run_steps(job, int(rank), int(world), device)
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save(out, f"{job_path}.rank{rank}")
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(job, world, backend, device, timeout=900, env=None):
+    """`run_steps` of `job` on `world` ranks, each a Python process of its
+    own (`ddp_rank`) on `device`, joined over `backend` on localhost.
+    Returns each rank's records; a rank that fails stops all and raises
+    with its output."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "job.pt")
+        torch.save(job, path)
+        port = free_port()
+        code = "import sys, chip_smoke; chip_smoke.ddp_rank(*sys.argv[1:])"
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code, str(r), str(world), str(port), backend, str(device),
+             path], cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+        deadline = time.monotonic() + timeout
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                    break
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for f in logs:
+                f.seek(0)
+            outputs = [f.read() for f in logs]
+            for f in logs:
+                f.close()
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if failed:
+            raise SystemExit("\n".join(
+                f"{backend} rank {r} of {world} failed ({procs[r].returncode}):\n"
+                f"{outputs[r][-3000:]}" for r in failed))
+        return [torch.load(f"{path}.rank{r}", weights_only=True) for r in range(world)]
+
+
+def rel_l2(got, want, keys):
+    """‖got − want‖ / ‖want‖ over the tensors `keys` of two state dicts."""
+    diff = sum(float((got[k].double() - want[k].double()).pow(2).sum()) for k in keys)
+    norm = sum(float(want[k].double().pow(2).sum()) for k in keys)
+    return (diff / norm) ** 0.5
+
+
+def hold_ddp(name, ranks, single, planned, strict=True, extra=None):
+    """Rank records of a data-parallel run (`run_ranks` or `run_steps` in
+    a group) against the one-process run of the same job (`single`):
+    with `strict`, the first loss within DDP_LOSS_REL and the parameters
+    after the first step within DDP_PARAM_REL (relative L2); always the
+    BN running statistics after it within DDP_BN_REL, every rank
+    bit-equal to rank 0 (parameters, BN statistics) after every step,
+    finite losses and `planned` launches per rank per step. Prints one
+    JSON line (with `extra`); SystemExit on a miss."""
+    steps = [r["runs"][0] for r in ranks]
+    want = single["runs"][0]
+    params = [k for k in want[0]["grads"]]
+    rec = {"ranks": len(ranks), "steps": len(steps[0]), "strict": strict, **(extra or {}),
+           "loss_per_step": [s["loss"] for s in steps[0]],
+           "single_process_loss": want[0]["loss"],
+           "loss_rel": abs(steps[0][0]["loss"] - want[0]["loss"]) / abs(want[0]["loss"]),
+           "params_rel_l2": rel_l2(steps[0][0]["state"], want[0]["state"], params),
+           "bn_stats_rel_l2": rel_l2(steps[0][0]["state"], want[0]["state"],
+                                     [k for k in want[0]["state"] if "running" in k]),
+           "ranks_bit_equal": all(
+               torch.equal(s[i]["state"][k], steps[0][i]["state"][k])
+               for s in steps[1:] for i in range(len(s)) for k in s[i]["state"]),
+           "ms_per_step_per_rank": [[s["ms"] for s in r] for r in steps],
+           "launches_per_rank_per_step": [[s["launches"] for s in r] for r in steps],
+           "planned_per_step": planned}
+    print(json.dumps({name: rec}))
+    if strict and not (rec["loss_rel"] <= DDP_LOSS_REL
+                       and rec["params_rel_l2"] <= DDP_PARAM_REL):
+        raise SystemExit(f"{name}: the data-parallel step disagrees with one process: {rec}")
+    if not (rec["bn_stats_rel_l2"] <= DDP_BN_REL and np.isfinite(rec["loss_per_step"]).all()):
+        raise SystemExit(f"{name}: BN statistics or losses off: {rec}")
+    if not rec["ranks_bit_equal"]:
+        raise SystemExit(f"{name}: the ranks' parameters or BN statistics differ")
+    if any(s["launches"] != planned for r in steps for s in r):
+        raise SystemExit(f"{name}: launches per rank per step != {planned}")
+    return rec
+
+
+def ddp_job(sample, dtype, steps, val=False):
+    """A job for `run_steps`: the stage-2 step at TRAIN_*, from the
+    released DTU weights. Not from a fresh init: there the one-process
+    step does not repeat itself on the card to the gates' bounds (two
+    plain f32 runs from seed 0's init 1.1e-3 apart in parameters, 5.4e-5
+    in loss: near-uniform depth probabilities put argmax ties at the
+    mercy of the plain ops' run-to-run noise); from the trained weights
+    two plain runs are 1e-5 apart."""
+    state = npz_state_dict(pretrained_path("dtu"))
+    return {"state": state, "sample": tensor_tree(sample), "batch": TRAIN_BATCH,
+            "iteration": TRAIN_ITERATION, "dtype": str(dtype).removeprefix("torch."),
+            "lr": TRAIN_LR, "runs": [{"regress": True, "steps": steps}], "val": val}
+
+
+def train_ddp_2rank():
+    """train_dtu.sh's stage-2 step over DDP_WORLD processes on the card
+    (gloo), DDP_STEPS steps on 4 distinct samples with different mask
+    counts, against the one-process step on all 4 (`hold_ddp`)."""
+    sample = ddp_sample(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_BATCH, SEED)
+    job = ddp_job(sample, torch.float32, DDP_STEPS)
+    t0 = time.perf_counter()
+    ranks = run_ranks(job, DDP_WORLD, "gloo", "cuda:0")
+    wall = time.perf_counter() - t0
+    single = run_steps(dict(job, runs=[{"regress": True, "steps": 1}]), device="cuda")
+    planned = planned_step_counts(sweep_shapes(
+        TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_ITERATION, TRAIN_BATCH // DDP_WORLD),
+        torch.float32)
+    return hold_ddp("train_ddp_2rank", ranks, single, planned, extra={
+        "timing_note": "two processes sharing one card over gloo: not a scaling figure",
+        "single_process_ms_first_step": single["runs"][0][0]["ms"],
+        "wall_s_with_process_start": wall})
+
+
+@contextlib.contextmanager
+def process_group(backend, device):
+    """A world-1 group in this process, joined as torchrun's rank 0 would."""
+    saved = {k: os.environ.get(k) for k in ("MASTER_ADDR", "MASTER_PORT", "RANK",
+                                            "WORLD_SIZE", "LOCAL_RANK")}
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), RANK="0",
+                      WORLD_SIZE="1", LOCAL_RANK="0")
+    try:
+        mesh.initialize_distributed("on", backend=backend, device=device)
+        yield
+    finally:
+        if mesh.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def perturbed_job(job, seed):
+    """`job` from its state with every weight scaled by
+    (1 + BF16_NOISE * N(0, 1)), N drawn from `seed`."""
+    gen = torch.Generator().manual_seed(seed)
+    state = {k: v * (1 + BF16_NOISE * torch.randn(v.shape, generator=gen))
+             if v.is_floating_point() else v for k, v in job["state"].items()}
+    return dict(job, state=state)
+
+
+def train_ddp_nccl():
+    """The synced path (global BN statistics, global loss and metric
+    denominators, summed gradients) through NCCL on the card: one rank
+    (world 1) against the plain step from the same init, NCCL_STEPS
+    steps each, in f32 with `hold_ddp`'s gates and in bf16, where its
+    loss and parameter bounds lie below bf16's own noise: the same BN
+    arithmetic in another f32 order flips the rounding of some bf16
+    activations, and the argmax windows and the view weights' maximum
+    turn that into changes of the loss. In bf16 the BN statistics,
+    the launches and finite losses are gated, and the first loss and
+    parameters are printed beside the spread of BF16_NOISE_RUNS plain
+    steps from the init perturbed by BF16_NOISE. Prints ms per step of
+    both forms (the mean after the first) and the device time by kind of
+    one profiled step of each: the synced BN's cost."""
+    sample = ddp_sample(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_BATCH, SEED)
+    recs = {}
+    for dtype in (torch.float32, BF16):
+        job = dict(ddp_job(sample, dtype, NCCL_STEPS), profile=True)
+        plain = run_steps(job, device="cuda")
+        with process_group("nccl", "cuda"):
+            synced = run_steps(job, device="cuda")
+        planned = planned_step_counts(sweep_shapes(
+            TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_ITERATION, TRAIN_BATCH,
+            itemsize=dtype.itemsize), dtype)
+        if any(s["launches"] != planned for s in plain["runs"][0]):
+            raise SystemExit(f"train_ddp_nccl: plain launches per step != {planned}")
+        ms = {name: float(np.mean([s["ms"] for s in r["runs"][0][1:]]))
+              for name, r in (("synced", synced), ("plain", plain))}
+        extra = {"dtype": str(dtype), "ms_per_step_synced_bn_nccl": ms["synced"],
+                 "ms_per_step_plain": ms["plain"],
+                 "synced_minus_plain_ms": ms["synced"] - ms["plain"],
+                 "ms_steps_averaged": NCCL_STEPS - 1,
+                 "profile_step": {"synced": synced.get("profile"),
+                                  "plain": plain.get("profile")}}
+        if dtype == BF16:
+            want = plain["runs"][0][0]
+            params = list(want["grads"])
+            noise = []
+            for i in range(BF16_NOISE_RUNS):
+                got = run_steps(dict(perturbed_job(job, SEED + 20 + i), profile=False,
+                                     runs=[{"regress": True, "steps": 1}]),
+                                device="cuda")["runs"][0][0]
+                noise.append({"loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+                              "params_rel_l2": rel_l2(got["state"], want["state"], params)})
+            extra["plain_perturbed_by_1e-7"] = noise
+        recs[str(dtype)] = hold_ddp(f"train_ddp_nccl_{str(dtype).removeprefix('torch.')}",
+                                    [synced], plain, planned, strict=dtype == torch.float32,
+                                    extra=extra)
+    return recs
+
+
+def nan_image(sample, view=1):
+    """`sample` with one pixel of one input image set to NaN."""
+    imgs = np.array(sample["imgs"]["level_0"], copy=True)
+    imgs[0, view, imgs.shape[2] // 2, imgs.shape[3] // 2, 0] = np.nan
+    return dict(sample, imgs={"level_0": imgs})
+
+
+def debug_nans_phase(model, sample, gt_depth, outdir, device="cuda"):
+    """`--debug_nans` (engine/profiling.py) on one depth map: clean on the
+    real map (its median error below 0.05, the kernels launched as
+    planned), then a NaN put into one input image must raise, naming a
+    module. Returns (launch counts of the clean map, record)."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with maybe_enable_nan_debugging(model, True):
+        run_depth(model, [sample], os.path.join(outdir, "clean"), device, log=lambda *_: None)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    depth, _ = read_pfm(os.path.join(outdir, "clean", "depth_est", "00000000.pfm"))
+    err = float(np.median(np.abs(depth[..., 0] - gt_depth)))
+    raised = None
+    try:
+        with maybe_enable_nan_debugging(model, True):
+            run_depth(model, [nan_image(sample)], os.path.join(outdir, "nan"), device,
+                      log=lambda *_: None)
+    except FloatingPointError as e:
+        raised = str(e)
+    rec = {"clean_median_abs_err": err, "clean_finite": bool(np.isfinite(depth).all()),
+           "clean_wall_s": wall, "launches": counts, "nan_raised": raised}
+    print(json.dumps({"debug_nans": rec}))
+    if not (rec["clean_finite"] and err < 0.05):
+        raise SystemExit(f"debug_nans: the clean map failed: {rec}")
+    if raised is None or "module" not in raised:
+        raise SystemExit(f"debug_nans: an injected NaN was not caught: {rec}")
+    return counts, rec
 
 
 def depth_run(model, samples, gt_depths, outdir, tmp, dtype):
@@ -1345,6 +1734,19 @@ def main():
     bf16_tracks_f32(train32["losses"], train16["losses"])
     train_counts.update({k: train_counts16[k] for k in ("sweep_grad_ref_bf16",
                                                         "sweep_grad_src_bf16")})
+
+    # Data-parallel training (two gloo ranks on the card; one NCCL rank in
+    # bf16), then --debug_nans on one depth map.
+    train_ddp_2rank()
+    train_ddp_nccl()
+    model = load_npz_weights(Pipeline(iteration=ITERATION), pretrained_path("dtu")).cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        debug_counts, _ = debug_nans_phase(model, samples[0], gt_depths[0], tmp)
+    per_map_launches = sum(s[-1] for s in shapes)
+    planned = planned_counts(sweep_premul=per_map_launches, corr_epilogue=per_map_launches)
+    if debug_counts != planned:
+        raise SystemExit(f"debug_nans launch counts {debug_counts} != planned {planned}")
+    del model
 
     sources = {"corr_epilogue": ("itermvs_tpu_torch/csrc/corr_epilogue.cu",
                                  "itermvs_tpu/ops/sweep_epilogue.py:61"),

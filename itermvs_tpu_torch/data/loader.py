@@ -8,8 +8,12 @@ with `drop_last`. `set_epoch(epoch, skip_batches)` pins the next
 iteration to `epoch` and skips its first batches, which is how a run
 resumed from a step checkpoint continues on the exact next batch. Each
 iteration advances the epoch by one. Collation stacks numpy arrays as
-the JAX loader does. Loading across several processes of one training
-run (data-parallel sharding) is not here.
+the JAX loader does. `batch_size` is the global batch: in a run of
+`process_count` processes (parallel/mesh.py) each process loads only its
+consecutive `batch_size / process_count` slice of every global batch,
+and short batches are dropped, so the slices partition each global batch
+exactly. A sample is the same whichever process loads it: the datasets'
+per-item randomness is keyed on (seed, epoch, index) (data/base.py).
 """
 from __future__ import annotations
 
@@ -39,30 +43,41 @@ class BatchOrder(torch.utils.data.Sampler):
     to the next epoch with no skip."""
 
     def __init__(self, size: int, batch_size: int, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 0):
+                 drop_last: bool = False, seed: int = 0, process_index: int = 0,
+                 process_count: int = 1):
+        if batch_size % process_count != 0:
+            raise ValueError(
+                f"global batch_size {batch_size} must divide evenly over "
+                f"{process_count} processes")
         self.size = size
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
         self.skip = 0
 
     def batches(self) -> list[list[int]]:
-        """All index batches of the current epoch."""
+        """This process's index batches of the current epoch."""
         order = np.arange(self.size)
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        local = self.batch_size // self.process_count
+        lo = self.process_index * local
         out = []
         for start in range(0, self.size, self.batch_size):
             chunk = order[start:start + self.batch_size]
-            if len(chunk) < self.batch_size and self.drop_last:
+            if len(chunk) < self.batch_size and (self.drop_last or self.process_count > 1):
                 continue
+            if self.process_count > 1:
+                chunk = chunk[lo:lo + local]
             out.append([int(i) for i in chunk])
         return out
 
     def epoch_len(self) -> int:
-        if self.drop_last:
+        if self.drop_last or self.process_count > 1:
             return self.size // self.batch_size
         return (self.size + self.batch_size - 1) // self.batch_size
 
@@ -80,12 +95,16 @@ class BatchOrder(torch.utils.data.Sampler):
 class DataLoader:
     """Iterable over collated batches of `dataset` in `BatchOrder`, with
     `workers` decode processes (spawned; 0 = in this process). `len` is
-    the number of batches of a whole epoch."""
+    the number of batches of a whole epoch. `batch_size` is the global
+    batch; this process yields its slice (`process_index` of
+    `process_count`)."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 0, workers: int = 0):
+                 drop_last: bool = False, seed: int = 0, workers: int = 0,
+                 process_index: int = 0, process_count: int = 1):
         self.dataset = dataset
-        self.order = BatchOrder(len(dataset), batch_size, shuffle, drop_last, seed)
+        self.order = BatchOrder(len(dataset), batch_size, shuffle, drop_last, seed,
+                                process_index, process_count)
         self.loader = torch.utils.data.DataLoader(
             dataset, batch_sampler=self.order, num_workers=workers,
             collate_fn=collate,

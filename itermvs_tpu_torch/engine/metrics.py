@@ -2,13 +2,17 @@
 itermvs_tpu/engine/metrics.py).
 
 Metrics are computed per image over the valid mask, then averaged over
-the images of the batch that have any valid pixel. Functions take
+the images of the batch that have any valid pixel (in a process group,
+of the global batch: both sums of the batch mean are summed over the
+ranks, parallel/mesh.py). Functions take
 [B, H, W, 1] maps and return 0-dim tensors, so a step reads them back
 only when it logs.
 """
 from __future__ import annotations
 
 import torch
+
+from itermvs_tpu_torch.parallel.mesh import all_reduce_sum, is_initialized
 
 
 def _per_image_masked_mean(values, mask):
@@ -26,7 +30,10 @@ def _batch_mean(per_image, has_valid):
     """Average per-image metrics over images that have any valid pixels
     (an image whose mask is empty counts for nothing)."""
     n = has_valid.sum()
-    mean = (per_image * has_valid).sum() / torch.clamp(n, min=1.0)
+    total = (per_image * has_valid).sum()
+    if is_initialized():
+        n, total = all_reduce_sum(torch.stack([n, total])).unbind()
+    mean = total / torch.clamp(n, min=1.0)
     return torch.where(n > 0, mean, torch.zeros_like(mean))
 
 

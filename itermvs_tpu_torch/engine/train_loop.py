@@ -10,6 +10,13 @@ where norm ≥ 2.0, untouched below), not as `clip_grad_norm_`, which
 scales by `2.0 / (norm + 1e-6)` always. `torch.optim.Adam(weight_decay=)`
 adds `wd · param` to the gradient before its moments, as
 `add_decayed_weights` does.
+
+Data-parallel (a process group, parallel/mesh.py): each rank runs the
+step on its slice of the global batch; BatchNorm, the loss and the
+metrics reduce across the ranks inside the forward, and the step sums
+the gradients once after the backward (the JAX psum), so the clip and
+Adam see the global-batch gradient on every rank and every rank ends
+the step with the same parameters.
 """
 from __future__ import annotations
 
@@ -20,6 +27,8 @@ import torch.nn as nn
 
 from itermvs_tpu_torch.engine.metrics import depth_metrics
 from itermvs_tpu_torch.models.losses import full_loss
+from itermvs_tpu_torch.parallel.mesh import (
+    all_reduce_grads_, all_reduce_sum, is_initialized)
 
 CLIP_NORM = 2.0
 
@@ -106,7 +115,9 @@ def forward_loss(model, batch, regress: bool):
 
 def _scalars(loss, outputs, batch, num_iters):
     with torch.no_grad():
-        scalars = {"loss": loss.detach()}
+        loss = loss.detach()
+        # The global loss: the ranks' shares summed (models/losses.py).
+        scalars = {"loss": all_reduce_sum(loss) if is_initialized() else loss}
         scalars.update(depth_metrics(
             [d.detach() for d in outputs["depths"]["combine"]],
             outputs["depths_upsampled"][0].detach(), batch["depth"], batch["mask"],
@@ -116,8 +127,9 @@ def _scalars(loss, outputs, batch, num_iters):
 
 def train_step(model, optimizer, batch, lr: float, regress: bool, num_iters: int):
     """One step: forward in train mode (BN batch statistics, running ones
-    updated), loss, backward, clip, Adam at `lr`. Returns the scalars
-    (0-dim tensors on the device: reading them is the only sync)."""
+    updated), loss, backward, (in a process group) the gradients summed
+    over the ranks, clip, Adam at `lr`. Returns the scalars (0-dim
+    tensors on the device: reading them is the only sync)."""
     model.train()
     for group in optimizer.param_groups:
         group["lr"] = lr
@@ -131,6 +143,8 @@ def train_step(model, optimizer, batch, lr: float, regress: bool, num_iters: int
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if is_initialized():
+        all_reduce_grads_(params)
     clip_by_global_norm_(params)
     optimizer.step()
     return _scalars(loss, outputs, batch, num_iters)

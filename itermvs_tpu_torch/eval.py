@@ -8,7 +8,8 @@ Writes `OUT/{depth_est,confidence}/<view:08d>.pfm` per reference view
 `OUT/mask/*.png` and a PLY named per dataset as eval.py names it. Flags
 keep the names and defaults of the JAX eval.py; `--precision bfloat16`
 runs the model in the JAX package's bfloat16 mode (the maps it writes are
-float32 either way), and `--debug_nans` is not ported yet and refused.
+float32 either way), and `--debug_nans` stops at the first NaN a module of
+the model outputs (engine/profiling.py).
 `--device` (default `cuda`) is the port's own, both steps run on it, and
 a missing card is an error, not a silent run on the CPU.
 
@@ -31,6 +32,7 @@ import torch
 
 from itermvs_tpu_torch.data import find_dataset_def
 from itermvs_tpu_torch.data.base import split_decode_cache_cap
+from itermvs_tpu_torch.engine.profiling import maybe_enable_nan_debugging
 from itermvs_tpu_torch.fusion import filter_depth
 from itermvs_tpu_torch.io import save_pfm
 from itermvs_tpu_torch.models import Pipeline
@@ -62,7 +64,8 @@ parser.add_argument("--precision", default="float32", choices=["float32", "bfloa
                     help="compute precision: float32 = reference parity; "
                          "bfloat16 = fast path (heads stay float32)")
 parser.add_argument("--debug_nans", action="store_true",
-                    help="not ported yet (rejected)")
+                    help="abort with a traceback at the first NaN a module "
+                         "of the model outputs")
 parser.add_argument("--feature_cache", default="auto", choices=["auto", "on", "off"],
                     help="cache FeatureNet outputs per (scan, view) across "
                          "reference views; auto = on for batch-1 eval")
@@ -307,10 +310,11 @@ def save_depth(args, img_wh) -> list[float]:
 
     use_cache = args.feature_cache == "on" or (
         args.feature_cache == "auto" and args.batch_size == 1)
-    return run_depth(model, loader, args.outdir, device,
-                     feature_cache=use_cache,
-                     feature_cache_views=args.feature_cache_views,
-                     result_wire=args.result_wire)
+    with maybe_enable_nan_debugging(model, args.debug_nans):
+        return run_depth(model, loader, args.outdir, device,
+                         feature_cache=use_cache,
+                         feature_cache_views=args.feature_cache_views,
+                         result_wire=args.result_wire)
 
 
 def run_fusion(args, img_wh) -> list[tuple[str, float]]:
@@ -363,8 +367,6 @@ def run_fusion(args, img_wh) -> list[tuple[str, float]]:
 
 def main(argv=None):
     args = parser.parse_args(argv)
-    if args.debug_nans:
-        raise SystemExit("--debug_nans is not ported yet")
     print("argv:", sys.argv[1:] if argv is None else argv)
     for k, v in sorted(vars(args).items()):
         print(f"{k}: {v}")

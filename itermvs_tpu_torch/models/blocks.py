@@ -2,7 +2,8 @@
 
 Convolutions are `Conv2d` / `ConvTranspose2d` (cuDNN on the card), BN is
 `BatchNorm`, an `nn.BatchNorm2d` (eps 1e-5) whose train mode keeps the
-JAX package's (flax's) running statistics. Module and parameter names
+JAX package's (flax's) running statistics, over the global batch when
+the process is one rank of a data-parallel group. Module and parameter names
 follow the reference's torch state_dict (e.g. `conv1.conv.weight`,
 `conv1.bn.running_mean`), which `weights.py` fills from the vendored
 flax checkpoint.
@@ -19,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from itermvs_tpu_torch.parallel.mesh import all_reduce_sum, is_initialized
 
 
 class Conv2d(nn.Conv2d):
@@ -72,21 +75,46 @@ class BatchNorm(nn.BatchNorm2d):
     biased one: running = 0.9·running + 0.1·batch for mean and variance.
     Eval mode is `nn.BatchNorm2d`'s. Statistics, their update and the
     normalisation run in float32 whatever the input's dtype; the output
-    is `dtype`."""
+    is `dtype`.
+
+    In a process group (parallel/mesh.py) a training batch is the global
+    batch, as in the JAX step over a sharded batch: `_global_forward`
+    sums count and channel sums over the ranks for the mean, then the
+    squared deviations from it for the biased variance (two passes: at
+    these counts E[x²]−E[x]² in float32 loses the variance), through a
+    differentiable all-reduce, so the gradient carries the cross-rank
+    term. Without a group it is `F.batch_norm` (cuDNN on the card)."""
 
     def __init__(self, num_features: int, dtype: torch.dtype = torch.float32):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.compute_dtype = dtype
 
+    def _update_running(self, mean, var):
+        with torch.no_grad():
+            self.running_mean.mul_(0.9).add_(0.1 * mean)
+            self.running_var.mul_(0.9).add_(0.1 * var)
+            self.num_batches_tracked.add_(1)
+
+    def _global_forward(self, x):
+        c = x.shape[1]
+        local = torch.cat([x.sum(dim=(0, 2, 3)), x.new_full((1,), x.numel() // c)])
+        total = all_reduce_sum(local)
+        count = total[c]
+        centred = x - (total[:c] / count).view(1, c, 1, 1)
+        var = all_reduce_sum(centred.square().sum(dim=(0, 2, 3))) / count
+        self._update_running(total[:c].detach() / count, var.detach())
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return centred * scale.view(1, c, 1, 1) + self.bias.view(1, c, 1, 1)
+
     def forward(self, x):
         x = x.float()
         if not self.training:
             return super().forward(x).to(self.compute_dtype)
+        if is_initialized():
+            return self._global_forward(x).to(self.compute_dtype)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            self.running_mean.mul_(0.9).add_(0.1 * mean)
-            self.running_var.mul_(0.9).add_(0.1 * var)
-            self.num_batches_tracked.add_(1)
+        self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps).to(self.compute_dtype)
 

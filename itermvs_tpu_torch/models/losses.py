@@ -12,7 +12,11 @@ with per-prediction decay 0.8^(n−i−1):
   5. L1 ×256 on the ×4-upsampled final depth (level-0 GT).
 
 Inputs are the JAX layout, [B, H, W, C]. Every masked mean is sum/count
-with an empty-mask guard (0 when the mask is empty).
+with an empty-mask guard (0 when the mask is empty). In a process group
+(parallel/mesh.py) the count is the global batch's, and each rank's
+loss is its share of the global loss: local sum / global count. The
+ranks' shares, and their gradients, sum to the JAX step's global loss
+and its gradient; the training step sums both over the ranks.
 """
 from __future__ import annotations
 
@@ -20,10 +24,13 @@ import torch
 
 from itermvs_tpu_torch.models.itermvs import NUM_BINS, RADIUS
 from itermvs_tpu_torch.ops.depth_range import depth_normalization
+from itermvs_tpu_torch.parallel.mesh import all_reduce_sum, is_initialized
 
 
 def _masked_mean(x, mask):
     count = mask.sum()
+    if is_initialized():
+        count = all_reduce_sum(count.detach())
     mean = (x * mask).sum() / torch.clamp(count, min=1.0)
     return torch.where(count > 0, mean, torch.zeros_like(mean))
 
@@ -43,7 +50,7 @@ def full_loss(outputs, depths_gt, masks, depth_min, depth_max, regress=True):
       regress: include the windowed-regression and confidence terms
         (stage 2).
 
-    Returns the scalar loss.
+    Returns the scalar loss (in a process group, this rank's share).
     """
     batch = depth_min.shape[0]
     idmin = (1.0 / depth_min).reshape(batch, 1, 1, 1)

@@ -14,9 +14,22 @@ validation pass per epoch; `--mode val` only validates.
 `--precision bfloat16` trains in the JAX package's bfloat16 mode: the
 parameters, the optimizer state and the checkpoints stay float32, and
 the loss is computed in float32. `--device` (default `cuda`) is the
-port's own: a missing card is an error, not a run on the CPU. Not ported
-yet, and rejected: `--distributed on` (one process on one device) and
-`--debug_nans`.
+port's own: a missing card is an error, not a run on the CPU.
+`--debug_nans` stops at the first NaN of the forward or the backward
+(engine/profiling.py).
+
+Data-parallel training runs one process per device under torchrun:
+
+    torchrun --nproc_per_node N -m itermvs_tpu_torch.train ... \
+        --batch_size 4
+
+`--distributed` (auto, on, off: parallel/mesh.py) joins the process
+group (NCCL for CUDA, gloo for the CPU); each rank trains on
+`cuda:LOCAL_RANK` with its slice of every global batch (`--batch_size`
+is the global batch and must divide over the ranks), and the step is
+the JAX package's global-batch step. Every rank starts from rank 0's
+parameters and reads `--resume` / `--loadckpt` itself; rank 0 alone
+writes TensorBoard and the checkpoints, and the others wait at each save.
 """
 from __future__ import annotations
 
@@ -33,12 +46,14 @@ from itermvs_tpu_torch.data.loader import DataLoader
 from itermvs_tpu_torch.engine.checkpoint import (
     latest_checkpoint, restore_checkpoint, save_checkpoint)
 from itermvs_tpu_torch.engine.metrics import DictAverageMeter
+from itermvs_tpu_torch.engine.profiling import maybe_enable_nan_debugging
 from itermvs_tpu_torch.engine.tb_writer import SummaryWriter
 from itermvs_tpu_torch.engine.train_loop import (
     init_weights, lr_for_epoch, make_optimizer, to_device_batch, train_step,
     val_step)
 from itermvs_tpu_torch.eval import resolve_device
 from itermvs_tpu_torch.models import Pipeline
+from itermvs_tpu_torch.parallel import mesh
 from itermvs_tpu_torch.weights import load_weights
 
 parser = argparse.ArgumentParser(
@@ -81,10 +96,13 @@ parser.add_argument("--precision", default="float32", choices=["float32", "bfloa
                          "bfloat16 = fast path (heads, loss, BN statistics and "
                          "parameters stay float32)")
 parser.add_argument("--debug_nans", action="store_true",
-                    help="not ported yet (rejected)")
+                    help="abort with a traceback at the first NaN a module "
+                         "outputs or the backward produces")
 parser.add_argument("--distributed", default="auto", choices=["auto", "on", "off"],
-                    help="multi-process training is not ported yet: auto and "
-                         "off train in one process, on is rejected")
+                    help="join a torch.distributed process group: auto = when "
+                         "the launch has more than one process (torchrun's "
+                         "WORLD_SIZE, SLURM, Open MPI); on = join or fail "
+                         "loudly; off = never join")
 parser.add_argument("--loader_processes", type=int, default=-1,
                     help="decode worker processes for the input pipeline; "
                          "-1 = auto: min(4, cpu_count-1) when the host has "
@@ -93,20 +111,51 @@ parser.add_argument("--device", default="cuda",
                     help="torch device; cuda (default) or cpu")
 
 
-def reject_unported(args) -> None:
-    """Flags of features this port does not have yet exit with a clear
-    error instead of being ignored."""
-    if args.distributed == "on":
-        raise SystemExit("--distributed on is not ported yet: the PyTorch port "
-                         "trains in one process on one device")
-    if args.debug_nans:
-        raise SystemExit("--debug_nans is not ported yet")
+def pad_batch(sample, target: int):
+    """Pad a short batch to `target` samples by repeating the last sample
+    with its validity masks zeroed (the JAX train.py's `pad_batch`).
+
+    Zero-mask padding is metric-exact: full_loss normalizes every term by
+    the total mask count (models/losses.py: _masked_mean) and
+    depth_metrics averages per-image values only over images with any
+    valid pixels (engine/metrics.py: _batch_mean), so padded samples
+    contribute exactly nothing. Returns (sample, real count)."""
+    n = int(np.asarray(sample["depth_min"]).shape[0])
+    if n >= target:
+        return sample, n
+
+    def pad(x, zero=False):
+        x = np.asarray(x)
+        tail = np.repeat(x[-1:], target - n, axis=0)
+        if zero:
+            tail = np.zeros_like(tail)
+        return np.concatenate([x, tail], axis=0)
+
+    out = dict(sample)
+    for key in ("imgs", "proj_matrices", "depth"):
+        out[key] = {k: pad(v) for k, v in sample[key].items()}
+    out["mask"] = {k: pad(v, zero=True) for k, v in sample["mask"].items()}
+    out["depth_min"] = pad(sample["depth_min"])
+    out["depth_max"] = pad(sample["depth_max"])
+    return out, n
 
 
 def main(argv=None):
     args = parser.parse_args(argv)
-    reject_unported(args)
     device = resolve_device(args.device)
+    distributed = mesh.initialize_distributed(args.distributed, device=device)
+    try:
+        run(args, argv, device, distributed)
+    finally:
+        if distributed:
+            torch.distributed.destroy_process_group()
+
+
+def run(args, argv, device, distributed: bool):
+    if distributed and device.type == "cuda":
+        device = mesh.local_device("cuda")
+        torch.cuda.set_device(device)
+    rank, world = mesh.rank(), mesh.world_size()
     if args.resume:
         assert args.mode == "train"
         assert args.loadckpt is None
@@ -119,7 +168,7 @@ def main(argv=None):
         print(f"{k}: {v}")
 
     logger = None
-    if args.mode == "train":
+    if args.mode == "train" and rank == 0:
         os.makedirs(args.logdir, exist_ok=True)
         print("creating new summary file")
         logger = SummaryWriter(args.logdir)
@@ -134,9 +183,12 @@ def main(argv=None):
         ncpu = os.cpu_count() or 1
         workers = min(4, ncpu - 1) if ncpu > 1 else 0
     train_loader = DataLoader(train_dataset, args.batch_size, shuffle=True,
-                              drop_last=True, seed=args.seed, workers=workers)
+                              drop_last=True, seed=args.seed, workers=workers,
+                              process_index=rank, process_count=world)
     val_loader = DataLoader(val_dataset, args.batch_size, shuffle=False,
-                            drop_last=False, workers=workers)
+                            drop_last=False, workers=workers,
+                            process_index=rank, process_count=world)
+    local_batch = args.batch_size // world
 
     model = init_weights(Pipeline(iteration=args.iteration, test=False,
                                   dtype=getattr(torch, args.precision)),
@@ -159,6 +211,8 @@ def main(argv=None):
     elif args.loadckpt:
         print(f"loading model {args.loadckpt}")
         load_weights(model, args.loadckpt)
+    if distributed:
+        mesh.broadcast_state_(model)
     print(f"start at epoch {start_epoch}"
           + (f" (skipping {skip_batches} batches)" if skip_batches else ""))
 
@@ -185,9 +239,19 @@ def main(argv=None):
             "confidence": out["confidence_upsampled"][..., 0].cpu().numpy(),
         }, step_no)
 
+    def save(epoch_idx, step=None):
+        if rank == 0:
+            print("saved", save_checkpoint(args.logdir, epoch_idx, model, optimizer,
+                                           step=step))
+        if distributed:
+            mesh.barrier(device)
+
     def run_validation(epoch_idx, global_step):
         meter = DictAverageMeter()
         for batch_idx, sample in enumerate(val_loader):
+            # A short last batch (one process only) is padded with
+            # mask-zeroed samples, as the JAX loop pads it.
+            sample, _ = pad_batch(sample, local_batch)
             scalars = val_step(model, to_device_batch(sample, device),
                                args.regress, args.iteration)
             scalars = {k: float(v) for k, v in scalars.items()}
@@ -202,48 +266,46 @@ def main(argv=None):
         print("avg_test_scalars:", means)
         return means
 
-    if args.mode == "val":
-        run_validation(start_epoch, 0)
-        return
+    with maybe_enable_nan_debugging(model, args.debug_nans):
+        if args.mode == "val":
+            run_validation(start_epoch, 0)
+            return
 
-    for epoch_idx in range(start_epoch, args.epochs):
-        print(f"Epoch {epoch_idx}:")
-        lr = lr_for_epoch(args.lr, epoch_idx, args.lrepochs)
-        global_step = len(train_loader) * epoch_idx
+        for epoch_idx in range(start_epoch, args.epochs):
+            print(f"Epoch {epoch_idx}:")
+            lr = lr_for_epoch(args.lr, epoch_idx, args.lrepochs)
+            global_step = len(train_loader) * epoch_idx
 
-        # Pin the order to the true epoch (a resumed run regenerates the
-        # same sequence) and skip the batches a step checkpoint covered.
-        train_loader.set_epoch(epoch_idx, skip_batches)
-        first_batch = skip_batches
-        skip_batches = 0
+            # Pin the order to the true epoch (a resumed run regenerates the
+            # same sequence) and skip the batches a step checkpoint covered.
+            train_loader.set_epoch(epoch_idx, skip_batches)
+            first_batch = skip_batches
+            skip_batches = 0
 
-        for batch_idx, sample in enumerate(train_loader, start=first_batch):
-            start = time.time()
-            step_no = len(train_loader) * epoch_idx + batch_idx
-            scalars = train_step(model, optimizer, to_device_batch(sample, device),
-                                 lr, args.regress, args.iteration)
-            if logger is not None and step_no % (50 * args.summary_freq) == 0:
-                log_images(sample, step_no)
-            if step_no % args.summary_freq == 0:
-                scalars = {k: float(v) for k, v in scalars.items()}
-                if logger is not None:
-                    logger.save_scalars("train", scalars, step_no)
-                print(f"Epoch {epoch_idx}/{args.epochs}, "
-                      f"Iter {batch_idx}/{len(train_loader)}, "
-                      f"lr {lr:.6f}, train loss = {scalars['loss']:.3f}, "
-                      f"time = {time.time() - start:.3f}")
-            if (args.save_step_freq > 0
-                    and (batch_idx + 1) % args.save_step_freq == 0
-                    and batch_idx + 1 < len(train_loader)):
-                path = save_checkpoint(args.logdir, epoch_idx, model, optimizer,
-                                       step=batch_idx + 1)
-                print("saved", path)
+            for batch_idx, sample in enumerate(train_loader, start=first_batch):
+                start = time.time()
+                step_no = len(train_loader) * epoch_idx + batch_idx
+                scalars = train_step(model, optimizer, to_device_batch(sample, device),
+                                     lr, args.regress, args.iteration)
+                if logger is not None and step_no % (50 * args.summary_freq) == 0:
+                    log_images(sample, step_no)
+                if step_no % args.summary_freq == 0:
+                    scalars = {k: float(v) for k, v in scalars.items()}
+                    if logger is not None:
+                        logger.save_scalars("train", scalars, step_no)
+                    print(f"Epoch {epoch_idx}/{args.epochs}, "
+                          f"Iter {batch_idx}/{len(train_loader)}, "
+                          f"lr {lr:.6f}, train loss = {scalars['loss']:.3f}, "
+                          f"time = {time.time() - start:.3f}")
+                if (args.save_step_freq > 0
+                        and (batch_idx + 1) % args.save_step_freq == 0
+                        and batch_idx + 1 < len(train_loader)):
+                    save(epoch_idx, step=batch_idx + 1)
 
-        if (epoch_idx + 1) % args.save_freq == 0:
-            path = save_checkpoint(args.logdir, epoch_idx, model, optimizer)
-            print("saved", path)
+            if (epoch_idx + 1) % args.save_freq == 0:
+                save(epoch_idx)
 
-        run_validation(epoch_idx, global_step)
+            run_validation(epoch_idx, global_step)
 
 
 if __name__ == "__main__":

@@ -14,10 +14,15 @@ Each transform is a permutation of elements, so `flax_tree` maps a
 state_dict or its gradients back the same way. Loading is strict: every
 array is used exactly once, and every parameter and buffer of the model
 is set except BN's `num_batches_tracked`, which flax does not carry.
+The reference's own torch checkpoints load as they are
+(`torch_state_dict`, the counterpart of the JAX package's
+engine/torch_import.py): the port's modules carry the reference's names
+and layouts.
 """
 from __future__ import annotations
 
 import os
+import pickle
 
 import numpy as np
 import torch
@@ -187,11 +192,35 @@ def load_npz_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
     return load_state(model, npz_state_dict(path), path)
 
 
+# The reference's FeatureNet has a third lateral its forward never uses
+# (the reference's net.py:25); its checkpoints carry it.
+_DEAD_PREFIX = "feature_net.inner3."
+
+
+def torch_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """The model state_dict of a torch checkpoint: the port trainer's
+    (engine/checkpoint.py) or the reference's released
+    `{epoch, model, optimizer}`, or a bare state_dict; the
+    `nn.DataParallel` prefix `module.` stripped and the dead `inner3`
+    dropped. Read with `weights_only=True`; a pickle that holds other
+    objects than tensors and containers is read in full, with a note."""
+    try:
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        print(f"{path}: not a tensors-only pickle; loading it in full")
+        raw = torch.load(path, map_location="cpu", weights_only=False)
+    state = raw["model"] if "model" in raw else raw
+    out = {}
+    for key, value in state.items():
+        key = key.removeprefix("module.")
+        if not key.startswith(_DEAD_PREFIX):
+            out[key] = value
+    return out
+
+
 def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
     """Strictly load weights into `model` from a vendored `.npz` or from a
-    checkpoint of the port's trainer (a torch file `{"model": state_dict,
-    ...}`, engine/checkpoint.py)."""
+    torch checkpoint (`torch_state_dict`)."""
     if path.endswith(".npz"):
         return load_npz_weights(model, path)
-    state = torch.load(path, map_location="cpu", weights_only=True)["model"]
-    return load_state(model, state, path)
+    return load_state(model, torch_state_dict(path), path)

@@ -303,3 +303,112 @@ def test_sass_tool_needs_the_cuda_toolkit():
                                              PATH="/usr/bin:/bin"))
     assert out.returncode != 0 and "differing_lines" not in out.stdout
     assert "nvcc" in out.stderr
+
+
+def test_ddp_sample_keeps_another_share_in_each_sample():
+    """chip_smoke's data-parallel batch: 4 distinct references whose masks
+    keep 100/87.5/75/62.5% of the rows at every level, each level the
+    loader's every 2^l-th pixel of level 0; a batch needs as many views."""
+    sample = chip_smoke.ddp_sample(160, 128, 5, 4, 0)
+    m0 = sample["mask"]["level_0"]
+    assert m0.shape == (4, 128, 160, 1)
+    assert (m0.mean(axis=(1, 2, 3)) == [1.0, 0.875, 0.75, 0.625]).all()
+    for l in range(1, 4):
+        assert np.array_equal(sample["mask"][f"level_{l}"], m0[:, ::2 ** l, ::2 ** l])
+    imgs = sample["imgs"]["level_0"]
+    assert not any(np.array_equal(imgs[i, 0], imgs[j, 0]) for i in range(4) for j in range(i))
+    with pytest.raises(ValueError, match="needs 4 views"):
+        chip_smoke.train_sample(160, 128, 3, 4, 0)
+
+
+def test_ddp_plan_is_52_launches_per_rank_per_step():
+    for dtype in (torch.float32, torch.bfloat16):
+        shapes = chip_smoke.sweep_shapes(640, 512, 5, 4, 2, itemsize=dtype.itemsize)
+        plan = chip_smoke.planned_step_counts(shapes, dtype)
+        names = [chip_smoke.kernel_name(k, dtype) for k in
+                 ("sweep_premul", "corr_epilogue", "sweep_grad_ref", "sweep_grad_src")]
+        assert plan == chip_smoke.planned_counts(**{k: 52 for k in names})
+
+
+def _record(loss, value, launches=None):
+    state = {"w": torch.full((3,), value), "bn.running_mean": torch.ones(2)}
+    return {"loss": loss, "ms": 1.0, "launches": launches or chip_smoke.planned_counts(),
+            "state": state, "grads": {"w": torch.ones(3)}}
+
+
+def test_hold_ddp_gates():
+    single = {"runs": [[_record(10.0, 1.0)]]}
+    ranks = [{"runs": [[_record(10.0, 1.0)]]} for _ in range(2)]
+    rec = chip_smoke.hold_ddp("t", ranks, single, chip_smoke.planned_counts())
+    assert rec["ranks_bit_equal"] and rec["loss_rel"] == 0 == rec["params_rel_l2"]
+    for bad in ([_record(10.01, 1.0)], [_record(10.0, 1.01)]):
+        with pytest.raises(SystemExit, match="disagrees with one process"):
+            chip_smoke.hold_ddp("t", [{"runs": [bad]}] * 2, single,
+                                chip_smoke.planned_counts())
+    ranks[1] = {"runs": [[_record(10.0, 1.0 + 1e-7)]]}
+    with pytest.raises(SystemExit, match="ranks' parameters"):
+        chip_smoke.hold_ddp("t", ranks, single, chip_smoke.planned_counts())
+    with pytest.raises(SystemExit, match="launches per rank"):
+        chip_smoke.hold_ddp("t", [single, single], single,
+                            chip_smoke.planned_counts(sweep_premul=52))
+
+
+def test_world_one_group_comes_and_goes(monkeypatch):
+    """chip_smoke's in-process group (the NCCL phase's, here over gloo):
+    joined inside, gone after, torchrun's variables as they were."""
+    from itermvs_tpu_torch.parallel import mesh
+
+    monkeypatch.setenv("MASTER_ADDR", "before")
+    monkeypatch.delenv("RANK", raising=False)
+    with chip_smoke.process_group("gloo", "cpu"):
+        assert mesh.is_initialized() and mesh.world_size() == 1
+        assert os.environ["MASTER_ADDR"] == "127.0.0.1"
+    assert not mesh.is_initialized()
+    assert os.environ["MASTER_ADDR"] == "before" and "RANK" not in os.environ
+
+
+def test_a_failing_rank_stops_the_run():
+    job = {"dtype": "no_such_dtype"}
+    with pytest.raises(SystemExit, match=r"gloo rank \d of 2 failed"):
+        chip_smoke.run_ranks(job, 2, "gloo", "cpu", timeout=300,
+                             env=dict(os.environ, OMP_NUM_THREADS="1"))
+
+
+def test_debug_nans_phase_on_the_cpu(tmp_path):
+    """chip_smoke's --debug_nans phase at 512x384: clean on the plane
+    scene's first map, and the image with one NaN pixel is caught."""
+    cams, images, gts = chip_smoke.render_scene(512, 384, 3, 0)
+    sample = chip_smoke.samples_of(cams, images)[0]
+    bad = chip_smoke.nan_image(sample)
+    assert np.isnan(bad["imgs"]["level_0"]).sum() == 1
+    assert not np.isnan(sample["imgs"]["level_0"]).any()
+    model = load_npz_weights(Pipeline(iteration=4), pretrained_path("dtu"))
+    counts, rec = chip_smoke.debug_nans_phase(model, sample, gts[0], str(tmp_path), "cpu")
+    assert counts == chip_smoke.planned_counts()          # CPU: the plain versions
+    assert rec["clean_median_abs_err"] < 0.05
+    assert rec["nan_raised"].startswith("NaN in the output of module feature_net.")
+
+
+def test_hold_ddp_outside_strict_gates_the_statistics_only():
+    """bf16 (`strict=False`): loss and parameters printed, not gated; the
+    BN statistics and finite losses still gated."""
+    single = {"runs": [[_record(10.0, 1.0)]]}
+    off = {"runs": [[_record(11.0, 1.1)]]}
+    assert not chip_smoke.hold_ddp("t", [off], single, chip_smoke.planned_counts(),
+                                   strict=False)["strict"]
+    stats = _record(10.0, 1.0)
+    stats["state"]["bn.running_mean"] = torch.full((2,), 1.001)
+    with pytest.raises(SystemExit, match="BN statistics or losses off"):
+        chip_smoke.hold_ddp("t", [{"runs": [[stats]]}], single, chip_smoke.planned_counts(),
+                            strict=False)
+    with pytest.raises(SystemExit, match="BN statistics or losses off"):
+        chip_smoke.hold_ddp("t", [{"runs": [[_record(float("nan"), 1.0)]]}], single,
+                            chip_smoke.planned_counts(), strict=False)
+
+
+def test_perturbed_job_scales_the_weights_only():
+    state = {"w": torch.ones(1000), "n": torch.tensor(3)}
+    got = chip_smoke.perturbed_job({"state": state, "x": 1}, 0)
+    assert got["x"] == 1 and torch.equal(got["state"]["n"], state["n"])
+    rel = got["state"]["w"] - 1
+    assert 0 < rel.abs().max() < 1e-6 and 0.5e-7 < rel.std() < 2e-7

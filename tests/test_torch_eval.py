@@ -86,7 +86,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "itermvs_tpu_torch.ops.sweep", "itermvs_tpu_torch.weights",
             "itermvs_tpu_torch.train", "itermvs_tpu_torch.ops.sweep_grad",
             "itermvs_tpu_torch.engine.train_loop", "itermvs_tpu_torch.data.loader",
-            "itermvs_tpu_torch.data.dtu"} <= set(modules)
+            "itermvs_tpu_torch.data.dtu", "itermvs_tpu_torch.parallel",
+            "itermvs_tpu_torch.parallel.mesh",
+            "itermvs_tpu_torch.engine.profiling"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"

@@ -1,5 +1,6 @@
-"""The port's eval CLI: its flags against the JAX eval.py's, and a
-`--precision bfloat16` run end to end on the CPU.
+"""The port's eval CLI: its flags against the JAX eval.py's, `--debug_nans`
+(128×96, 3 views, iteration 2: the same PFMs bit for bit, and a NaN
+weight caught), and a `--precision bfloat16` run end to end on the CPU.
 
 The bf16 run is the textured plane scene of tests/test_bf16_mode.py
 (384×288, 4 views, the vendored DTU weights): its depth maps, written as
@@ -13,9 +14,11 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from itermvs_tpu_torch import eval as port_eval
 from itermvs_tpu_torch.io import read_pfm, read_ply
+from itermvs_tpu_torch.weights import npz_state_dict, pretrained_path
 from tests.synthetic_scene import Z0, build_scene_dir, make_cameras, render_view
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -41,13 +44,41 @@ def test_eval_flags_match_jax_eval(jax_eval):
     assert choices(port_eval.parser) == choices(jax_eval.parser) == ["float32", "bfloat16"]
 
 
+def _eval(scene, out, *flags):
+    return subprocess.run(
+        [sys.executable, "-m", "itermvs_tpu_torch.eval", "--dataset=custom", "--batch_size=1",
+         "--n_views", "3", "--img_wh", "128", "96", f"--testpath={scene}", f"--outdir={out}",
+         "--iteration", "2", "--device", "cpu", *flags],
+        capture_output=True, text=True, cwd=REPO, timeout=600,
+        env=dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2"))
+
+
 def test_eval_accepts_model_and_refuses_debug_nans(tmp_path):
+    """`--model` parses; `--debug_nans` (once refused, hence the name)
+    writes the same PFMs as a run without it, and stops at the module
+    whose output first holds a NaN (here from a NaN weight)."""
     args = port_eval.parser.parse_args(["--model", "IterMVS", "--precision", "bfloat16"])
     assert args.model == "IterMVS" and args.precision == "bfloat16"
-    with pytest.raises(SystemExit, match="--debug_nans is not ported yet"):
-        port_eval.main(["--debug_nans", "--device", "cpu", "--dataset", "custom",
-                        "--testpath", str(tmp_path), "--outdir", str(tmp_path / "out")])
-    assert not (tmp_path / "out").exists()
+    scene = str(tmp_path / "scene")
+    os.makedirs(scene)
+    build_scene_dir(scene, num_views=3, width=128, height=96, write_gt_depth=False)
+    for out, flags in (("plain", ()), ("checked", ("--debug_nans",))):
+        result = _eval(scene, tmp_path / out, *flags)
+        assert result.returncode == 0, result.stdout[-2000:] + result.stderr[-3000:]
+    for v in range(3):
+        for kind in ("depth_est", "confidence"):
+            want, _ = read_pfm(str(tmp_path / "plain" / kind / f"{v:08d}.pfm"))
+            got, _ = read_pfm(str(tmp_path / "checked" / kind / f"{v:08d}.pfm"))
+            assert np.array_equal(got, want), (kind, v)
+
+    sd = npz_state_dict(pretrained_path("dtu"))
+    sd["feature_net.conv1.conv.weight"][0, 0, 0, 0] = float("nan")
+    torch.save({"epoch": 0, "model": sd}, tmp_path / "nan.ckpt")
+    result = _eval(scene, tmp_path / "nan", "--debug_nans", "--loadckpt",
+                   str(tmp_path / "nan.ckpt"))
+    assert result.returncode != 0
+    assert ("FloatingPointError: NaN in the output of module feature_net.conv1.conv "
+            "(Conv2d)") in result.stderr, result.stderr[-3000:]
 
 
 def test_eval_cli_runs_in_bfloat16(tmp_path):
