@@ -44,7 +44,11 @@
    fall, and each of the four sweep kernels must launch 52 times per
    step; ms per step, steps/s, peak memory and one profiled step's
    device time by kind and idle share; then a validation step and a
-   checkpoint saved and restored on the card.
+   checkpoint saved and restored on the card; then the backward kernels
+   on that step's own sweeps (`capture_sweeps`: every (view, level)
+   sweep's src, ref, base, taps and grad_corr), 10 launches each held
+   against the float64 plain versions, K4 bit-equal launch to launch,
+   their bare ms per shape printed beside the `sweep_inputs` times.
 
 10. Data-parallel training (`parallel/mesh.py`), train_dtu.sh's stage-2
    step at full width from the DTU weights (`ddp_job` says why not a
@@ -84,8 +88,10 @@ each forward form per map; maps/s, device time by kind, idle share);
 after step 7 all four are held at the training step's shapes and on the
 pile-up, edge and one-corner bases (sweep_grad_ref_bf16 and
 sweep_grad_src_bf16 within one bf16 step of |plain| plus 1e-5 of
-max|plain|, 10 launches each); after step 9 the same 10 training steps
-run in bf16 (loss finite and falling, the first within 2% of the f32
+max|plain|, 10 launches each; each line with the share of their blocks
+whose source window would fit a shared-memory budget,
+`window_fit_share`); after step 9 the same 10 training steps run in
+bf16 (loss finite and falling, the first within 2% of the f32
 run's, the mean of the last two no more than 15% above f32's, each
 dtype's averaged over its run and two runs from the init perturbed by
 1e-6; 52 launches of each bf16 form per step; the bf16 loss on an f32
@@ -119,6 +125,7 @@ from itermvs_tpu_torch.eval import run_depth
 from itermvs_tpu_torch.fusion import MemoryViews, consistency_matrices, fuse_views
 from itermvs_tpu_torch.io import read_pfm, read_ply
 from itermvs_tpu_torch.models import Pipeline
+from itermvs_tpu_torch.models import itermvs as itermvs_model
 from itermvs_tpu_torch.models.itermvs import (
     CORR_INTERVALS, GROUPS, LEVELS, NUM_INIT_SAMPLES)
 from itermvs_tpu_torch.ops.consistency import (
@@ -128,8 +135,8 @@ from itermvs_tpu_torch.ops.sweep import (
 from itermvs_tpu_torch.ops.sweep_epilogue import (
     corr_epilogue, corr_epilogue_plain, launch_corr_epilogue)
 from itermvs_tpu_torch.ops.sweep_grad import (
-    launch_sweep_grad_ref, launch_sweep_grad_src, sweep_grad_ref, sweep_grad_ref_plain,
-    sweep_grad_src, sweep_grad_src_plain)
+    SweepCorr, launch_sweep_grad_ref, launch_sweep_grad_src, sweep_grad_ref,
+    sweep_grad_ref_plain, sweep_grad_src, sweep_grad_src_plain)
 from itermvs_tpu_torch.parallel import mesh
 from itermvs_tpu_torch.weights import (
     load_npz_weights, load_state, npz_state_dict, pretrained_path)
@@ -605,6 +612,67 @@ def repeats_equal(launch, out):
     return torch.equal(first, out)
 
 
+# The source window a block of a bf16 backward kernel would keep in shared
+# memory: a block's source cells, copied in (K4) or summed into (K5) there.
+# Both forms measured slower than the kernels as they are (PERF.md §6), so
+# neither kernel has one; chip_smoke prints what such windows would span on
+# every input. Per kernel: the channels of a thread's lane and the bytes a
+# window cell takes per channel; the budget they were measured at.
+WINDOW_LANES = {"sweep_grad_ref_bf16": (8, 2), "sweep_grad_src_bf16": (4, 4)}
+WINDOW_BUDGET = 32 * 1024
+
+
+def record_pixels(c, lane):
+    """The pixels of a block of the backward kernels (RecordTiles in
+    csrc/sweep_records.cuh, RowTiles in csrc/grad_rows.cuh): a power of
+    two, at most 32, with at most 256 threads of C/lane lanes."""
+    pt = 1
+    while 2 * pt <= 32 and 2 * pt * (c // lane) <= 256:
+        pt *= 2
+    return pt
+
+
+def block_windows(base, b, n, hw, pt, h1, w1, taps=None):
+    """Window cells per block [b * ceil(hw / pt)]: the box of the base
+    cells (y, x) of the block's rows (samples 0..n-1 of pixels
+    pt*t..pt*t+pt-1 of one batch) whose base lies on the map and, where
+    `taps` [4, b, n*hw] is given, with a tap that is not zero (a row whose
+    taps are all zero adds nothing: the sweep clamps off-image samples to
+    an edge cell with zero taps), grown by one row and one column for the
+    +1 corners, clipped to the map; 0 for a block without such rows."""
+    tiles = -(-hw // pt)
+    base = base.reshape(b, n, hw).long()
+    keep = (base >= 0) & (base < h1 * w1)
+    if taps is not None:
+        keep &= (taps.reshape(4, b, n, hw) != 0).any(dim=0)
+    pad = tiles * pt - hw
+    base = torch.nn.functional.pad(base, (0, pad)).reshape(b, n, tiles, pt)
+    keep = torch.nn.functional.pad(keep, (0, pad)).reshape(b, n, tiles, pt)
+    y, x = base // w1, base % w1
+    big = h1 * w1
+
+    def lo(v):
+        return torch.where(keep, v, big).amin(dim=(1, 3))
+
+    def hi(v):
+        return torch.where(keep, v, -1).amax(dim=(1, 3))
+
+    y0, x0, y1, x1 = lo(y), lo(x), hi(y), hi(x)
+    h = (y1 + 1).clamp(max=h1 - 1) - y0 + 1
+    w = (x1 + 1).clamp(max=w1 - 1) - x0 + 1
+    return torch.where(y1 >= 0, h * w, 0).reshape(-1)
+
+
+def window_fit_shares(base, taps, b, n, hw, h1, w1, c):
+    """{bf16 backward kernel: the share of its blocks whose window has rows
+    and fits WINDOW_BUDGET} for one set of inputs."""
+    out = {}
+    for kname, (lane, nbytes) in WINDOW_LANES.items():
+        cells = block_windows(base, b, n, hw, record_pixels(c, lane), h1, w1, taps)
+        out[kname] = float(((cells > 0) & (cells * c * nbytes <= WINDOW_BUDGET)).float().mean())
+    return out
+
+
 def check_grad_kernels(shapes, rounds=5, reps=20, dtype=torch.float32):
     """K4 sweep_grad_ref and K5 sweep_grad_src (their forms for features
     of `dtype`; keyed by report name) against their plain versions at
@@ -680,8 +748,12 @@ def check_grad_kernels(shapes, rounds=5, reps=20, dtype=torch.float32):
                     "src_hw": [h1, w1], "c": c, "launches_per_step": launches,
                     "max_abs_err": err, "max_rel_err": err / scale, "tol_rel": 1e-5,
                     "share_of_bound": rec["bound_ms"] / rec["ms"], **rec}
+            if names[kname] in WINDOW_LANES:
+                line["window_fit_share"] = window_fit_shares(base, taps, b, n, h * w, h1, w1,
+                                                             c)[names[kname]]
             print(json.dumps(line))
             tot = per_step[names[kname]]
+            tot.setdefault("ms_by_shape", {})[name] = rec["ms"]
             for key in ("ms", "call_ms", "plain_ms", "bound_ms"):
                 tot[key] += launches * rec[key]
             tot["max_rel_err"] = max(tot["max_rel_err"], err / scale)
@@ -711,6 +783,8 @@ def check_grad_kernels(shapes, rounds=5, reps=20, dtype=torch.float32):
                 torch.unique(base[0], return_counts=True)[1].max()),
                 "launches": GRAD_CASE_LAUNCHES, "max_rel_err": {}, "min_rel_err": {},
                 "plain_f32_rel_err": {}, "ms": {}, "repeats_bit_equal": {}}
+            if dtype == BF16:
+                rec["window_fit_share"] = window_fit_shares(base, taps, b, n, h * w, h1, w1, c)
             for kname, run in bare.items():
                 errs = []
                 for _ in range(GRAD_CASE_LAUNCHES):
@@ -1079,26 +1153,125 @@ def compare_train_step():
         raise SystemExit(f"train step on the card disagrees with the CPU: {r}")
 
 
+def sweeps_of(shapes, dtype):
+    """{shape name: its sweeps in one pass} for sweep kernels of `dtype`
+    (a shape's forward kernels launch once per chunk of a sweep)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    return {s[0]: s[-1] // len(sample_chunks(*s[1:3], s[3] * s[4], s[7], itemsize=size))
+            for s in shapes}
+
+
 def planned_step_counts(shapes, dtype):
     """Launches of each kernel in one training step at `shapes` (the
     sweep kernels of `dtype`: one forward pair per chunk, one backward
     pair per sweep)."""
-    size = torch.tensor([], dtype=dtype).element_size()
     forward = sum(s[-1] for s in shapes)
-    sweeps = sum(s[-1] // len(sample_chunks(*s[1:3], s[3] * s[4], s[7], itemsize=size))
-                 for s in shapes)
+    sweeps = sum(sweeps_of(shapes, dtype).values())
     return planned_counts(**{kernel_name(k, dtype): n for k, n in (
         ("sweep_premul", forward), ("corr_epilogue", forward), ("sweep_grad_ref", sweeps),
         ("sweep_grad_src", sweeps))})
 
 
-def train_full_width(shapes, dtype=torch.float32):
+def capture_sweeps(model, batch, iteration):
+    """One stage-2 training forward and backward of `model` on the device
+    batch `batch` (no optimizer step; the parameters' gradients are
+    cleared after it), with every sweep's backward inputs captured: a list
+    in call order of (src, ref, base [B, n*HW], taps [4, B, n*HW],
+    grad_corr [B, n, G, HW]) as `SweepCorr` hands them to K4 and K5.
+    `SweepCorr.apply` is wrapped for this call only."""
+    captured = []
+
+    class Capture:
+        @staticmethod
+        def apply(src, ref, flat_idx, taps, groups):
+            out = SweepCorr.apply(src, ref, flat_idx, taps, groups)
+            b, n, hw = flat_idx.shape
+            rec = [src.detach(), ref.detach(), flat_idx.reshape(b, n * hw).contiguous(),
+                   taps.reshape(4, b, n * hw).contiguous(), None]
+            out.register_hook(lambda g: rec.__setitem__(4, g.detach().contiguous()))
+            captured.append(rec)
+            return out
+
+    model.train()
+    itermvs_model.SweepCorr = Capture
+    try:
+        loss, _ = forward_loss(model, batch, True)
+        loss.backward()
+    finally:
+        itermvs_model.SweepCorr = SweepCorr
+    model.zero_grad(set_to_none=True)
+    if any(r[4] is None for r in captured):
+        raise SystemExit("a captured sweep got no gradient")
+    return [tuple(r) for r in captured]
+
+
+def check_real_sweeps(captures, shapes, dtype, synthetic_ms=None):
+    """K4 and K5 of `dtype` on the sweeps of one training step
+    (`capture_sweeps`), grouped by the sweep shapes of `shapes`: per
+    capture GRAD_CASE_LAUNCHES bare launches of each kernel, every one
+    held against the plain version in float64 (rounded once to `dtype`),
+    K4 bit-equal launch to launch. One JSON line per shape: the captures,
+    the largest error, each kernel's bare ms (mean over the captures of 5
+    launches each) beside `synthetic_ms` ({kernel: {shape: ms}} on
+    `sweep_inputs`) and, in bf16, `window_fit_shares`. Returns {shape:
+    that line}."""
+    names = {k: kernel_name(k, dtype) for k in ("sweep_grad_ref", "sweep_grad_src")}
+    out = {}
+    for name, b, n, h, w, h1, w1, c, _ in shapes:
+        hw = h * w
+        mine = [t for t in captures if tuple(t[0].shape) == (b, h1, w1, c)
+                and tuple(t[4].shape) == (b, n, GROUPS, hw)]
+        rec = {"real_sweeps": name, "dtype": str(dtype), "captures": len(mine),
+               "launches_each": GRAD_CASE_LAUNCHES, "max_rel_err": {}, "ms": {},
+               "sweep_inputs_ms": {}}
+        ms = {k: [] for k in names}
+        shares = []
+        for src, ref, base, taps, grad in mine:
+            d_ref = torch.empty(b, hw, c, device=src.device, dtype=dtype)
+            d_src = torch.empty(b, h1, w1, c, device=src.device, dtype=dtype)
+            scratch = None if dtype == torch.float32 else torch.empty(d_src.shape,
+                                                                      device=src.device)
+            outs = {"sweep_grad_ref": d_ref, "sweep_grad_src": d_src}
+            bare = grad_launchers(src, base, taps, ref, grad, d_ref, d_src, scratch)
+            exact = {"sweep_grad_ref": sweep_grad_ref_plain(
+                         src.double(), base, taps.double(), grad.double()).to(dtype),
+                     "sweep_grad_src": sweep_grad_src_plain(
+                         ref.double(), base, taps.double(), grad.double(), h1, w1).to(dtype)}
+            for kname, run in bare.items():
+                for _ in range(GRAD_CASE_LAUNCHES):
+                    run()
+                    err, scale = hold_grad(kname, outs[kname], exact[kname],
+                                           f"{name}, real sweep")
+                    rec["max_rel_err"][kname] = max(rec["max_rel_err"].get(kname, 0.0),
+                                                    err / max(scale, 1e-30))
+                if kname == "sweep_grad_ref" and not repeats_equal(run, d_ref):
+                    raise SystemExit(f"{names[kname]} at {name}, real sweep: two launches "
+                                     "on the same inputs differ")
+                ms[kname].append(time_ms(run, reps=5))
+            if dtype == BF16:
+                shares.append(window_fit_shares(base, taps, b, n, hw, h1, w1, c))
+            del d_ref, d_src, scratch, outs, bare, exact
+        for kname in names:
+            rec["ms"][names[kname]] = sum(ms[kname]) / max(len(ms[kname]), 1)
+            if synthetic_ms is not None:
+                rec["sweep_inputs_ms"][names[kname]] = synthetic_ms[names[kname]].get(name)
+        if shares:
+            rec["window_fit_share"] = {k: sum(sh[k] for sh in shares) / len(shares)
+                                       for k in WINDOW_LANES}
+        print(json.dumps(rec))
+        out[name] = rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
     """The training path at full width (see TRAIN_*) in `dtype`:
     TRAIN_STEPS steps on one batch from a fresh seeded init; the loss must
     be finite and fall and each sweep kernel of `dtype` launch 52 times
-    per step. Then one profiled step, a validation step and a checkpoint
-    round trip on the card. Returns (launch counts of the timed steps,
-    record)."""
+    per step. Then one profiled step, a validation step, a checkpoint
+    round trip on the card and `check_real_sweeps` on one more step's
+    sweeps (`synthetic_ms`: the `sweep_inputs` times printed beside).
+    Returns (launch counts of the timed steps, record)."""
     t0 = time.perf_counter()
     sample = train_sample(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_BATCH, SEED)
     batch = to_device_batch(sample, "cuda")
@@ -1165,6 +1338,14 @@ def train_full_width(shapes, dtype=torch.float32):
         raise SystemExit(f"validation step not finite: {val}")
     if position != (0, TRAIN_STEPS) or not (same_model and same_opt):
         raise SystemExit(f"checkpoint round trip failed: {rec['checkpoint']}")
+
+    # K4 and K5 on this step's own sweeps.
+    captures = capture_sweeps(model, batch, TRAIN_ITERATION)
+    want = sweeps_of(shapes, dtype)
+    rec["real_sweeps"] = check_real_sweeps(captures, shapes, dtype, synthetic_ms)
+    got = {k: v["captures"] for k, v in rec["real_sweeps"].items()}
+    if got != want or len(captures) != sum(want.values()):
+        raise SystemExit(f"captured sweeps {got} of {len(captures)} != planned {want}")
     return counts, rec
 
 
@@ -1729,8 +1910,9 @@ def main():
     per_step = check_grad_kernels(train_shapes)
     per_step.update(check_grad_kernels(train_shapes16, dtype=BF16))
     compare_train_step()
-    train_counts, train32 = train_full_width(train_shapes)
-    train_counts16, train16 = train_full_width(train_shapes16, BF16)
+    synthetic_ms = {k: v["ms_by_shape"] for k, v in per_step.items()}
+    train_counts, train32 = train_full_width(train_shapes, synthetic_ms=synthetic_ms)
+    train_counts16, train16 = train_full_width(train_shapes16, BF16, synthetic_ms)
     bf16_tracks_f32(train32["losses"], train16["losses"])
     train_counts.update({k: train_counts16[k] for k in ("sweep_grad_ref_bf16",
                                                         "sweep_grad_src_bf16")})

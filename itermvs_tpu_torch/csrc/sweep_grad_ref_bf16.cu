@@ -6,60 +6,74 @@
 // bfloat16 mode (bfloat16 tables and taps, float32 correlation), i.e. the
 // transpose of K2 sweep_premul followed by K1 corr_epilogue. With g' =
 // grad_corr[b, s, grp(ch), pix] / (C/G), float32:
-//     d_ref[b, pix, ch] = bf16( sum_s sum_k tap_k[b, s, pix]
-//                               * src[b, y_k, x_k, ch] * g' )
+//     d_ref[b, pix, ch] = bf16( sum_s g' * sum_k tap_k[b, s, pix]
+//                                          * src[b, y_k, x_k, ch] )
 // over corners k = (y, x), (y, x+1), (y+1, x), (y+1, x+1) of the base
-// index base[b, s*HW + pix] = y*W1 + x, summed in float32 and rounded to
-// bfloat16 once, as the plain version (ops/sweep_grad.py
-// `sweep_grad_ref_plain`) does. A +1 corner past the image edge adds
-// nothing. Entry point: itermvs_sweep_grad_ref_bf16 (the float32 form is
-// csrc/sweep_grad_ref.cu).
+// index base[b, s*HW + pix] = y*W1 + x, summed in float32 in the plain
+// version's order (ops/sweep_grad.py `sweep_grad_ref_plain`: the corners,
+// then g', then the samples) and rounded to bfloat16 once. A +1 corner
+// past the image edge adds nothing. Entry point:
+// itermvs_sweep_grad_ref_bf16 (the float32 form is csrc/sweep_grad_ref.cu).
 //
-// What bounds it on an H100: memory, as in float32: per (sample, pixel)
-// one index, 4 taps (bfloat16 here) and G float32 gradient words, ~9
-// flops per channel over the 4 corners.
+// What bounds it on an H100: its bytes would (per (sample, pixel) one
+// index, 4 bfloat16 taps and G float32 gradient words; 0.371 ms per
+// 640x512, batch 4 training step), but the float32 kernel's design, which
+// this one had, spent its time elsewhere: without its corner gathers it
+// still took 88% of its time. Each thread divided its 8 gradient words by
+// C/G and split the index for every sample, the lanes of a pixel read
+// words of different groups from one shared-memory bank, and at the init
+// sweep 48 KB of staged records held 4 blocks on an SM.
 //
-// Design: the float32 kernel's (csrc/sweep_grad_ref.cu), with 16-byte lanes
-// of 8 bfloat16 values in place of float4. A block takes `pt` consecutive
-// pixels of one batch and walks the samples in chunks; for each chunk it
-// stages every row's index, taps (converted to float32) and gradient words
-// in shared memory (sweep_records.cuh). Then one thread per (pixel, 8-value
-// lane) walks the chunk's samples in order, gathers the 4 corners of each
-// as one 16-byte load each, sums in float32 registers and writes its 8
-// values of d_ref once, rounded: no atomics, the same bits every launch. A
-// base index outside [0, H1*W1) makes the pixel's d_ref NaN.
+// Design: a block takes `pt` consecutive pixels of one batch and stages
+// the rows of a chunk of samples in shared memory with grad_rows.cuh,
+// which splits each index into (y, x) and divides each gradient word once
+// per row, pads each field so the lanes' words fall in different banks,
+// and keeps a chunk within 24 KB. One thread per (pixel, 8-value lane)
+// walks the chunk's samples in order, gathers the 4 corners of each as one
+// 16-byte load each (from L1, which holds a block's source cells: a copy
+// of them in shared memory was measured slower), sums tap * src over the
+// corners, multiplies by g' and adds into float32 registers, and writes
+// its 8 values of d_ref once, rounded: no atomics, the same bits every
+// launch. At most 51 registers a thread (48 used, 4 bytes spilled): where
+// C = 16 a block has 64 threads and the registers decide how many an SM
+// holds. A base
+// index outside [0, H1*W1) makes the pixel's d_ref NaN. Measured on
+// "NVIDIA H100 80GB HBM3, 700.00 W" (tools/time_sweep_grad.py --dtype
+// bfloat16): 1.47 ms per training step (1.25 of device time), against
+// 1.62-1.79 (1.54-1.56) for the float32 kernel's design in the same run;
+// on the sweeps of a real step (`--captures`) 1.32 against 1.72-1.78.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include "bf16_lanes.cuh"
-#include "sweep_records.cuh"
+#include "grad_rows.cuh"
 
 namespace {
 
-__global__ void sweep_grad_ref_bf16_kernel(const uint4* __restrict__ src,
-                                           const int* __restrict__ base,
-                                           const __nv_bfloat16* __restrict__ taps,
-                                           const float* __restrict__ grad,
-                                           uint4* __restrict__ d_ref,
-                                           int batch, int n, int hw, int h1, int w1,
-                                           int c8, int groups, int pt, int chunk) {
-  extern __shared__ float rec[];
-  const int fields = 5 + groups;
+// Shared memory for the staged rows, bytes.
+constexpr int kRowBytes = 24 * 1024;
+
+__global__ void __launch_bounds__(256, 5) sweep_grad_ref_bf16_kernel(
+    const uint4* __restrict__ src, const int* __restrict__ base,
+    const __nv_bfloat16* __restrict__ taps, const float* __restrict__ grad,
+    uint4* __restrict__ d_ref, int batch, int n, int hw, int h1, int w1, int c8, int groups,
+    int pt, int chunk) {
+  extern __shared__ float row[];
+  const int fields = kRowGrad + groups;
+  const int pitch = pt + 4;            // words of a field (grad_rows.cuh)
   const int tiles = (hw + pt - 1) / pt;
   const int b = blockIdx.x / tiles;
   const int pix0 = (blockIdx.x - b * tiles) * pt;
   const int npix = min(pt, hw - pix0);
-  const int cells = h1 * w1;
   const long long plane = static_cast<long long>(batch) * n * hw;   // one corner's taps
   const int cc = threadIdx.x % c8;     // 8-value lane within the channels
   const int q = threadIdx.x / c8;      // pixel within the block
   const int cg = 8 * c8 / groups;
-  const float cg_f = static_cast<float>(cg);
   int gf[8];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) gf[j] = (5 + (8 * cc + j) / cg) * pt;
-  const uint4* src_b = src + static_cast<long long>(b) * cells * c8 + cc;
+  for (int j = 0; j < 8; ++j) gf[j] = (kRowGrad + (8 * cc + j) / cg) * pitch;
+  const uint4* src_b = src + static_cast<long long>(b) * h1 * w1 * c8 + cc;
 
   float acc[8];
 #pragma unroll
@@ -67,34 +81,37 @@ __global__ void sweep_grad_ref_bf16_kernel(const uint4* __restrict__ src,
   bool fault = false;
   for (int s0 = 0; s0 < n; s0 += chunk) {
     const int ns = min(chunk, n - s0);
-    stage_records(rec, base, taps, grad, b, n, hw, groups, plane, pix0, npix, pt, s0, ns);
+    stage_rows(row, base, taps, grad, b, n, hw, h1, w1, groups, static_cast<float>(cg), plane,
+               pix0, npix, pt, s0, ns);
     __syncthreads();
     if (q < npix) {
 #pragma unroll 2
       for (int u = 0; u < ns; ++u) {
-        const float* r = rec + u * fields * pt + q;
-        const int idx = __float_as_int(r[0]);
-        if (idx < 0 || idx >= cells) {
+        const float* f = row + u * fields * pitch + q;
+        const int y = __float_as_int(f[kRowY * pitch]);
+        if (y < 0) {
           fault = true;
           continue;
         }
-        float g[8];
+        const int x = __float_as_int(f[kRowX * pitch]);
+        // sum_k tap_k * src[corner k], then times g': the plain version's order.
+        float s[8];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) g[j] = r[gf[j]] / cg_f;
-        const int y = idx / w1;
-        const int x = idx - y * w1;
+        for (int j = 0; j < 8; ++j) s[j] = 0.f;
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const int yk = y + (k >> 1);
           const int xk = x + (k & 1);
           if (yk < h1 && xk < w1) {
-            const float t = r[(1 + k) * pt];
+            const float t = f[(kRowTap + k) * pitch];
             float v[8];
             bf16x8_to_float(src_b[static_cast<long long>(yk * w1 + xk) * c8], v);
 #pragma unroll
-            for (int j = 0; j < 8; ++j) acc[j] += t * v[j] * g[j];
+            for (int j = 0; j < 8; ++j) s[j] += t * v[j];
           }
         }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[j] += s[j] * f[gf[j]];
       }
     }
     __syncthreads();
@@ -121,7 +138,7 @@ extern "C" int itermvs_sweep_grad_ref_bf16(const void* src, const int* base,
                                            void* stream) {
   if (static_cast<long long>(batch) * hw <= 0) return 0;
   const int c8 = c / 8;
-  const RecordTiles t(n, c8, groups);
+  const RowTiles t(n, c8, groups, kRowBytes);
   const long long blocks = static_cast<long long>(batch) * ((hw + t.pt - 1) / t.pt);
   sweep_grad_ref_bf16_kernel<<<static_cast<unsigned>(blocks), t.pt * c8, t.smem_bytes(),
                                static_cast<cudaStream_t>(stream)>>>(

@@ -13,25 +13,41 @@
 // past the image edge is dropped. Entry point:
 // itermvs_sweep_grad_src_bf16 (the float32 form is csrc/sweep_grad_src.cu).
 //
-// What bounds it on an H100: as in float32, the float4 reductions the L2
-// serves (see csrc/sweep_grad_src.cu); the streams are read once.
+// What bounds it on an H100: not its bytes (0.371 ms per 640x512, batch 4
+// training step) but the float4 reductions the L2 serves, ~0.43 G per step
+// (csrc/sweep_grad_src.cu), and the latency of short blocks: without its
+// reductions the kernel still took ~70% of its time. The scratch this
+// form sums into costs a zero fill and a rounding pass, ~0.3 ms per step.
 //
-// Design: the float32 kernel's (csrc/sweep_grad_src.cu), the same float4
-// lanes of 4 channels, with bfloat16 loads: a block stages the per-row
-// streams of `pt` pixels in shared memory (sweep_records.cuh, taps
-// converted to float32), one thread per (pixel, 4-channel lane) reads its 4
-// reference values once (8 bytes) and walks the samples in order, summing
-// runs of consecutive samples on one base cell in float32 registers, and
-// each run goes into its up to 4 corners with one float4 vector reduction
-// (red.global.add.v4.f32) per corner into a float32 scratch map that the
-// launcher zero-fills. bfloat16 atomics would accumulate in bfloat16, so
-// they are not used. A second kernel then rounds the scratch to bfloat16
-// into d_src, 8 values a thread. A first form with lanes of 8 channels (two
-// reductions per corner, 125 registers a thread against 70) took 1.9 times
-// the float32 kernel's time at every shape. The order in which runs of
-// different threads arrive changes from run to run, so the scratch's last
-// bits do, and now and then a rounded value. A base index outside [0,
-// H1*W1) adds NaN to its lane of the batch's first cell.
+// Design: the float32 kernel's, with one change. A block stages the
+// per-row streams of `pt` pixels in shared memory (sweep_records.cuh,
+// taps converted to float32); one thread per (pixel, 4-channel lane) reads
+// its 4 reference values once (8 bytes), walks the samples in order and
+// sums runs of consecutive samples on one base cell in float32 registers,
+// which also keeps a pile-up accurate. Each run goes to its up to 4
+// corners with one float4 vector reduction (red.global.add.v4.f32) per
+// corner into a float32 scratch map that the launcher zero-fills, and a
+// second kernel rounds the scratch to bfloat16 into d_src, 8 values a
+// thread (bfloat16 atomics would accumulate in bfloat16). The change:
+// before a run goes out, the runs of neighbouring pixels that end at the
+// same sample merge in registers through warp shuffles where their corners
+// meet (flush_runs): one reduction where there were two. In the sweep's
+// regular pattern that halves the reductions where the source map has the
+// reference grid's resolution or half of it (the init sweep, levels 2
+// and 3); at level 1 (twice the resolution) no corners meet. A source
+// window in shared memory, merging all of a block's runs there before they
+// reach the L2, was built and measured slower in both forms: summed with
+// shared float atomics (compare-and-swap loops on this card, no faster per
+// value than a float4 reduction) 8.5 ms per step, and in lock step without
+// atomics 5.6 ms, against 3.6 without either. All-zero sums are
+// skipped (exact: the scratch starts at +0). The order in which reductions
+// land changes from run to run, so the scratch's last bits do, and now and
+// then a rounded value. A base index outside [0, H1*W1) adds NaN to its
+// lane of the batch's first cell. Measured on "NVIDIA H100 80GB HBM3,
+// 700.00 W" (tools/time_sweep_grad.py --dtype bfloat16): 3.26 ms per
+// training step, against 3.62 without the merge and 3.26-3.30 for the
+// float32 kernel; on the sweeps of a real step (`--captures`) 3.09
+// against 3.15.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -41,27 +57,69 @@
 
 namespace {
 
-// One float4 reduction per corner of base cell `cell` on the map.
-__device__ __forceinline__ void add_corners(float4* dst, int cell, const float4* a, int h1,
-                                            int w1, int c4) {
+// One float4 reduction into cell (y, x) where it lies on the map; an
+// all-zero sum is skipped (exact: the scratch starts at +0).
+__device__ __forceinline__ void add_corner(float4* dst, int y, int x, const float4 v, int h1,
+                                           int w1, int c4) {
+  if (y < h1 && x < w1 && (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f))
+    atomicAdd(dst + static_cast<long long>(y * w1 + x) * c4, v);
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 shfl4(float4 v, int lane) {
+  return make_float4(__shfl_sync(0xffffffffu, v.x, lane), __shfl_sync(0xffffffffu, v.y, lane),
+                     __shfl_sync(0xffffffffu, v.z, lane), __shfl_sync(0xffffffffu, v.w, lane));
+}
+
+// Warp-wide: every thread passes the cell of the run it ends now (-1: none)
+// and the run's corner sums. Before they go to the scratch, the runs of
+// neighbouring pixels (the same lane, `c4` threads apart in the warp) that
+// end together merge where their corners meet: an odd pixel on its even
+// left neighbour's cell hands it all 4 corners; a pixel one cell right of
+// its left neighbour, on the same map row, hands it its left column (the
+// neighbour's right column). A pixel that hands over all takes nothing, so
+// nothing is handed on twice.
+__device__ __forceinline__ void flush_runs(float4* dst, int cell, const float4* a, int q,
+                                           int h1, int w1, int c4) {
+  if (!__any_sync(0xffffffffu, cell >= 0)) return;
+  const int lane = threadIdx.x & 31;
+  const bool has_l = lane >= c4, has_ll = lane >= 2 * c4, has_r = lane + c4 < 32;
+  const int cell_l = __shfl_sync(0xffffffffu, cell, has_l ? lane - c4 : lane);
+  const int cell_ll = __shfl_sync(0xffffffffu, cell, has_ll ? lane - 2 * c4 : lane);
+  const int cell_r = __shfl_sync(0xffffffffu, cell, has_r ? lane + c4 : lane);
+  float4 ar[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) ar[k] = shfl4(a[k], has_r ? lane + c4 : lane);
   if (cell < 0) return;
   const int y = cell / w1;
   const int x = cell - y * w1;
+  const bool gives_all = (q & 1) && has_l && cell_l == cell;
+  const bool left_gives_all = !(q & 1) && has_ll && cell_l >= 0 && cell_ll == cell_l;
+  const bool takes_all = !(q & 1) && has_r && cell_r == cell;
+  const bool gives_col = has_l && !left_gives_all && cell_l >= 0 && x > 0 &&
+                         cell_l == cell - 1;
+  const bool takes_col = has_r && !gives_all && cell_r >= 0 && x + 1 < w1 &&
+                         cell_r == cell + 1;
+  if (gives_all) return;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const int yk = y + (k >> 1);
-    const int xk = x + (k & 1);
-    if (yk < h1 && xk < w1) atomicAdd(dst + static_cast<long long>(yk * w1 + xk) * c4, a[k]);
+    float4 v = gives_col && !(k & 1) ? make_float4(0.f, 0.f, 0.f, 0.f) : a[k];
+    if (takes_all) v = add4(v, ar[k]);
+    if (takes_col && (k & 1)) v = add4(v, ar[k - 1]);
+    add_corner(dst, y + (k >> 1), x + (k & 1), v, h1, w1, c4);
   }
 }
 
-__global__ void sweep_grad_src_bf16_kernel(const uint2* __restrict__ ref,
-                                           const int* __restrict__ base,
-                                           const __nv_bfloat16* __restrict__ taps,
-                                           const float* __restrict__ grad,
-                                           float4* __restrict__ scratch, int batch, int n,
-                                           int hw, int h1, int w1, int c4, int groups,
-                                           int pt, int chunk) {
+// At most 64 registers a thread (80 unbounded, 20 bytes spilled): 4 blocks
+// of 256 threads an SM in place of 3; 1.5-2.5% faster per training step.
+__global__ void __launch_bounds__(256, 4) sweep_grad_src_bf16_kernel(
+    const uint2* __restrict__ ref, const int* __restrict__ base,
+    const __nv_bfloat16* __restrict__ taps, const float* __restrict__ grad,
+    float4* __restrict__ scratch, int batch, int n, int hw, int h1, int w1, int c4,
+    int groups, int pt, int chunk) {
   extern __shared__ float rec[];
   const int fields = 5 + groups;
   const int tiles = (hw + pt - 1) / pt;
@@ -83,39 +141,40 @@ __global__ void sweep_grad_src_bf16_kernel(const uint2* __restrict__ ref,
 
   int cur = -1;        // base cell of the run being summed
   float4 a[4];         // the run's sum per corner
+#pragma unroll
+  for (int k = 0; k < 4; ++k) a[k] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int s0 = 0; s0 < n; s0 += chunk) {
     const int ns = min(chunk, n - s0);
     stage_records(rec, base, taps, grad, b, n, hw, groups, plane, pix0, npix, pt, s0, ns);
     __syncthreads();
-    if (q < npix) {
-      for (int u = 0; u < ns; ++u) {
-        const float* rc = rec + u * fields * pt + q;
-        const int idx = __float_as_int(rc[0]);
-        if (idx < 0 || idx >= cells) {
-          atomicAdd(dst, make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F));
-          continue;
-        }
-        const float4 rg = make_float4(r.x * (rc[gf[0]] / cg_f), r.y * (rc[gf[1]] / cg_f),
-                                      r.z * (rc[gf[2]] / cg_f), r.w * (rc[gf[3]] / cg_f));
-        if (idx != cur) {
-          add_corners(dst, cur, a, h1, w1, c4);
-          cur = idx;
+    for (int u = 0; u < ns; ++u) {
+      const float* rc = rec + u * fields * pt + q;
+      const int idx = q < npix ? __float_as_int(rc[0]) : -1;
+      const bool row = idx >= 0 && idx < cells;
+      if (q < npix && !row)
+        atomicAdd(dst, make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F));
+      const bool ends = row && idx != cur;
+      flush_runs(dst, ends ? cur : -1, a, q, h1, w1, c4);
+      if (!row) continue;
+      if (ends) {
+        cur = idx;
 #pragma unroll
-          for (int k = 0; k < 4; ++k) a[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-        }
+        for (int k = 0; k < 4; ++k) a[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      const float4 rg = make_float4(r.x * (rc[gf[0]] / cg_f), r.y * (rc[gf[1]] / cg_f),
+                                    r.z * (rc[gf[2]] / cg_f), r.w * (rc[gf[3]] / cg_f));
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float t = rc[(1 + k) * pt];
-          a[k].x += t * rg.x;
-          a[k].y += t * rg.y;
-          a[k].z += t * rg.z;
-          a[k].w += t * rg.w;
-        }
+      for (int k = 0; k < 4; ++k) {
+        const float t = rc[(1 + k) * pt];
+        a[k].x += t * rg.x;
+        a[k].y += t * rg.y;
+        a[k].z += t * rg.z;
+        a[k].w += t * rg.w;
       }
     }
     __syncthreads();
   }
-  if (q < npix) add_corners(dst, cur, a, h1, w1, c4);
+  flush_runs(dst, cur, a, q, h1, w1, c4);
 }
 
 // d_src = bf16(scratch), 8 values a thread.

@@ -142,13 +142,15 @@ def test_k3_timing_script_needs_a_card():
     assert out.returncode != 0 and "kernel_ms" not in out.stdout
 
 
-def test_k4_k5_timing_script_needs_a_card():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_k5_timing_script_needs_a_card(dtype):
     """Without a CUDA device the K4/K5 A/B timing script exits non-zero
-    and prints no timing line."""
+    and prints no timing line, in either dtype."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     script = os.path.join(root, "itermvs_tpu_torch", "tools", "time_sweep_grad.py")
-    out = subprocess.run([sys.executable, script, "--tree", root], capture_output=True,
-                         text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    out = subprocess.run([sys.executable, script, "--tree", root, "--dtype", dtype],
+                         capture_output=True, text=True,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode != 0 and "ms_per_step" not in out.stdout
     assert '"ms"' not in out.stdout
 
@@ -412,3 +414,112 @@ def test_perturbed_job_scales_the_weights_only():
     assert got["x"] == 1 and torch.equal(got["state"]["n"], state["n"])
     rel = got["state"]["w"] - 1
     assert 0 < rel.abs().max() < 1e-6 and 0.5e-7 < rel.std() < 2e-7
+
+
+def _window_loop(base, taps, b, n, hw, pt, h1, w1):
+    """Window cells per block, one row at a time."""
+    out = []
+    for bb in range(b):
+        for p0 in range(0, hw, pt):
+            ys, xs = [], []
+            for s in range(n):
+                for p in range(p0, min(p0 + pt, hw)):
+                    row = s * hw + p
+                    idx = int(base[bb, row])
+                    if not 0 <= idx < h1 * w1:
+                        continue
+                    if taps is not None and not any(float(taps[k, bb, row]) != 0
+                                                    for k in range(4)):
+                        continue
+                    ys.append(idx // w1)
+                    xs.append(idx % w1)
+            if not ys:
+                out.append(0)
+                continue
+            h = min(max(ys) + 1, h1 - 1) - min(ys) + 1
+            w = min(max(xs) + 1, w1 - 1) - min(xs) + 1
+            out.append(h * w)
+    return out
+
+
+@pytest.mark.parametrize("with_taps", [False, True])
+def test_block_windows_match_a_loop(with_taps):
+    """chip_smoke.block_windows, the plain mirror of the kernels' window,
+    agrees with a loop over rows: clustered and scattered bases, bases
+    off the map, taps all zero on some rows, a ragged last block."""
+    gen = torch.Generator().manual_seed(5)
+    b, n, hw, pt, h1, w1 = 3, 5, 37, 8, 9, 11
+    base = torch.randint(-3, h1 * w1 + 3, (b, n * hw), generator=gen).to(torch.int32)
+    base[1] = (4 * w1 + 5 + torch.randint(0, 3, (n * hw,), generator=gen)).to(torch.int32)
+    base[2, :hw] = h1 * w1 - 1                    # the last cell: both +1 corners clipped
+    taps = torch.rand(4, b, n * hw, generator=gen)
+    taps[:, torch.rand(b, n * hw, generator=gen) < 0.3] = 0
+    taps[0, 0, 3] = float("nan")                  # a NaN tap adds
+    taps = taps if with_taps else None
+    got = chip_smoke.block_windows(base, b, n, hw, pt, h1, w1, taps)
+    assert got.tolist() == _window_loop(base, taps, b, n, hw, pt, h1, w1)
+    assert got.shape == (b * 5,) and 0 < got.max() <= h1 * w1
+
+
+def test_record_pixels_follow_the_kernels_block_shape():
+    """chip_smoke's copy of the backward kernels' block width (RecordTiles
+    and RowTiles): 32 pixels where 32 fit in 256 threads of C/lane lanes,
+    else 16."""
+    assert [chip_smoke.record_pixels(c, 4) for c in (16, 32, 48)] == [32, 32, 16]
+    assert [chip_smoke.record_pixels(c, 8) for c in (16, 32, 48)] == [32, 32, 32]
+    assert set(chip_smoke.WINDOW_LANES) == {"sweep_grad_ref_bf16", "sweep_grad_src_bf16"}
+
+
+@pytest.mark.parametrize("shape", [0, 1])
+def test_grad_cases_span_small_and_large_windows(shape):
+    """At the training step's init and level-1 shapes, pile_up and
+    one_corner keep every block of batch 0 within a 32 KB source window
+    for both bf16 backward kernels and edges none; the sweep's own inputs
+    fit as well, but for K4's blocks that straddle two reference rows at
+    init."""
+    name, b, n, h, w, h1, w1, c, _ = chip_smoke.sweep_shapes(640, 512, 5, 4, 4)[shape]
+    gen = torch.Generator().manual_seed(0)
+    cases = chip_smoke.grad_cases(b, n, h, w, h1, w1, c, gen, "cpu", torch.bfloat16)
+    want = {"pile_up": 1.0, "one_corner": 1.0, "edges": 0.0}
+    for case, (_, base, taps, _, _) in cases.items():
+        shares = chip_smoke.window_fit_shares(base[:1], taps[:, :1], 1, n, h * w, h1, w1, c)
+        assert set(shares) == set(chip_smoke.WINDOW_LANES)
+        assert all(v == want[case] for v in shares.values()), (name, case, shares)
+    _, base, taps, _ = chip_smoke.sweep_inputs(b, n, h, w, h1, w1, c, gen, "cpu",
+                                               torch.bfloat16)
+    shares = chip_smoke.window_fit_shares(base, taps, b, n, h * w, h1, w1, c)
+    assert shares["sweep_grad_src_bf16"] == 1.0 and shares["sweep_grad_ref_bf16"] > 0.75
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_capture_sweeps_returns_one_tuple_per_sweep(dtype):
+    """chip_smoke.capture_sweeps on the small training step: one (src,
+    ref, base, taps, grad_corr) per sweep, as many of each shape as
+    sweep_shapes plans, in the kernels' dtypes; SweepCorr is restored."""
+    from itermvs_tpu_torch.engine.train_loop import init_weights, to_device_batch
+    from itermvs_tpu_torch.models import itermvs
+    from itermvs_tpu_torch.ops.sweep_grad import SweepCorr
+    cfg = chip_smoke.SMALL_TRAIN
+    sample = chip_smoke.train_sample(cfg["width"], cfg["height"], cfg["views"],
+                                     cfg["batch"], 0)
+    model = init_weights(Pipeline(iteration=cfg["iteration"], test=False, dtype=dtype), 0)
+    caps = chip_smoke.capture_sweeps(model, to_device_batch(sample, "cpu"),
+                                     cfg["iteration"])
+    assert itermvs.SweepCorr is SweepCorr
+    assert all(p.grad is None for p in model.parameters())
+    shapes = chip_smoke.sweep_shapes(cfg["width"], cfg["height"], cfg["views"],
+                                     cfg["iteration"], cfg["batch"],
+                                     itemsize=torch.tensor([], dtype=dtype).element_size())
+    planned = chip_smoke.sweeps_of(shapes, dtype)
+    assert len(caps) == sum(planned.values()) == 14
+    for name, b, n, h, w, h1, w1, c, _ in shapes:
+        mine = [t for t in caps if tuple(t[4].shape) == (b, n, chip_smoke.GROUPS, h * w)
+                and tuple(t[0].shape) == (b, h1, w1, c)]
+        assert len(mine) == planned[name], name
+        for src, ref, base, taps, grad in mine:
+            assert ref.shape == (b, h * w, c) and base.shape == (b, n * h * w)
+            assert taps.shape == (4, b, n * h * w)
+            assert src.dtype == ref.dtype == taps.dtype == dtype
+            assert base.dtype == torch.int32 and grad.dtype == torch.float32
+            assert all(t.is_contiguous() for t in (src, ref, base, taps, grad))
+            assert bool(torch.isfinite(grad).all()) and bool(grad.abs().sum() > 0)
