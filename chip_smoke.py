@@ -16,9 +16,12 @@
 4. Runs the port's eval core loop (`itermvs_tpu_torch.eval.run_depth`)
    with the vendored DTU weights and the feature cache on a 5-view
    textured-plane scene made in memory at 1600x1152, one depth map per
-   reference view, float32, 4 GRU iterations; reads the PFMs back and
-   checks them against the scene's analytic depth; checks that each
-   kernel launched as often as the chunk plan predicts.
+   reference view, float32, 4 GRU iterations, fed as page-locked tensors
+   (as save_depth's loader delivers them on a card); reads the PFMs back
+   and checks them against the scene's analytic depth; checks that each
+   kernel launched as often as the chunk plan predicts; prints per map
+   the host ms of run_depth's `dispatch` (uploads and eager launches)
+   and `finalize` (wait, dequantization, writer handoff).
 5. Fuses those 5 depth maps (`itermvs_tpu_torch.fusion.fuse_views`,
    each view against the other 4) into a PLY, reads it back and checks
    it against the plane, checks the mask PNGs and that
@@ -26,7 +29,19 @@
    scene's analytic depth maps, where most pixels must survive.
 6. Two more timed depth passes over the same maps (maps/s), then
    profiles them once more with torch.profiler: device time by kernel
-   and by kind, and the device's idle share.
+   and by kind, kernels launched per map, the device's idle share, and
+   the device time and launches per map of the model's labelled
+   plain-torch chains (`CHAINS`) beside their byte bounds. Then
+   `eval_pipeline`: the 5 maps through one run_depth call against one
+   call per map, twice (differing pixels no more than between the two
+   one-per-call runs), all with cuDNN's deterministic algorithms (two
+   more one-per-call runs show the default algorithms' run-to-run
+   spread), and `match` and the forward run under torch's sync debug
+   mode, which raises at any host sync; and `input_uint8`:
+   raw uint8 level_0 planes, normalised on the card, equal to the host's
+   float32 planes bit for bit, and the maps from them held against the
+   float32 input's under the same rule (maps/s and host→device bytes per
+   map of both forms).
 7. Holds the sweep kernels, forward (sweep_premul, corr_epilogue) and
    backward (sweep_grad_ref, sweep_grad_src), against their plain
    versions on the card at the four sweep shapes of a training step at
@@ -43,7 +58,8 @@
    on one in-memory DTU-layout batch of the plane scene: the loss must
    fall, and each of the four sweep kernels must launch 52 times per
    step; ms per step, steps/s, peak memory and one profiled step's
-   device time by kind and idle share; then a validation step and a
+   device time by kind, idle share and the labelled chains' forward
+   device time and launches; then a validation step and a
    checkpoint saved and restored on the card; then the backward kernels
    on that step's own sweeps (`capture_sweeps`: every (view, level)
    sweep's src, ref, base, taps and grad_corr), 10 launches each held
@@ -84,7 +100,8 @@ edges (`check_fwd_edge_cases`: ragged row counts, bases on the map's
 last row or column and off it, where both write NaN, C = 8 and 256),
 then the same 5 depth maps run in bf16 (each map's median error < 0.05
 and within max(1.15 f32, f32 + 0.01) of the f32 run's; 52 launches of
-each forward form per map; maps/s, device time by kind, idle share);
+each forward form per map; maps/s, device time by kind, idle share, the
+chains) and `eval_pipeline` in bf16;
 after step 7 all four are held at the training step's shapes and on the
 pile-up, edge and one-corner bases (sweep_grad_ref_bf16 and
 sweep_grad_src_bf16 within one bf16 step of |plain| plus 1e-5 of
@@ -112,6 +129,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -262,14 +280,15 @@ def render_scene(width, height, views, seed):
     return cams, images, depths
 
 
-def samples_of(cams, images):
+def samples_of(cams, images, uint8=False):
     """One batch-1 sample per reference view of a rendered scene, in the
-    loader's layout (uint8 images scaled to [-1, 1] as the loader does;
-    only level_0 images, which is all the model reads)."""
+    loader's layout (uint8 images scaled to [-1, 1] as the loader does,
+    or with `uint8` left raw, as its `uint8_level0=True` gives them; only
+    level_0 images, which is all the model reads)."""
     views = len(cams)
     imgs, projs = [], []
     for (K, E), u8 in zip(cams, images):
-        imgs.append(2.0 * u8.astype(np.float32) / 255.0 - 1.0)
+        imgs.append(u8 if uint8 else 2.0 * u8.astype(np.float32) / 255.0 - 1.0)
         pyr = {}
         for level in range(4):
             k = K.copy()
@@ -292,6 +311,60 @@ def samples_of(cams, images):
             "view_ids": np.array([vids], np.int32),
         })
     return samples
+
+
+def pinned(samples):
+    """`samples` as save_depth's loader delivers them on a card: every
+    array the model reads a page-locked tensor, so that run_depth's
+    uploads are asynchronous."""
+    def pin(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).pin_memory()
+
+    return [dict(s, imgs={k: pin(v) for k, v in s["imgs"].items()},
+                 proj_matrices={k: pin(v) for k, v in s["proj_matrices"].items()},
+                 depth_min=pin(s["depth_min"]), depth_max=pin(s["depth_max"]))
+            for s in samples]
+
+
+def h2d_bytes_per_map(samples, feature_cache=True):
+    """Host→device bytes per map of run_depth over `samples`: the level-1..3
+    projections and depth range of every map, and the level_0 image of
+    each view the first time it is met (every view of every map without
+    the feature cache)."""
+    seen, total = set(), 0
+    for s in samples:
+        level0 = s["imgs"]["level_0"]
+        per_view = level0[0, 0].nbytes
+        for i, vid in enumerate(np.asarray(s["view_ids"]).reshape(-1)):
+            if not feature_cache or (s["scan"][0], int(vid)) not in seen:
+                seen.add((s["scan"][0], int(vid)))
+                total += per_view
+        total += sum(v.nbytes for k, v in s["proj_matrices"].items() if k != "level_0")
+        total += s["depth_min"].nbytes + s["depth_max"].nbytes
+    return total / len(samples)
+
+
+def pfm_diff(got_dir, want_dir, views):
+    """Per view, the largest |Δ| of depth and of confidence between two
+    runs' PFMs and the count of pixels where either differs."""
+    recs = []
+    for v in range(views):
+        maps = {}
+        for kind in ("depth_est", "confidence"):
+            got, _ = read_pfm(os.path.join(got_dir, kind, f"{v:08d}.pfm"))
+            want, _ = read_pfm(os.path.join(want_dir, kind, f"{v:08d}.pfm"))
+            if got.shape != want.shape:
+                raise SystemExit(f"view {v} {kind}: shapes {got.shape} != {want.shape}")
+            maps[kind] = (got, want)
+        differs = np.zeros(maps["depth_est"][0].shape, bool)
+        rec = {"view": v}
+        for kind, (got, want) in maps.items():
+            delta = np.abs(got.astype(np.float64) - want)
+            rec[f"max_abs_d{kind.split('_')[0]}"] = float(np.nanmax(delta))
+            differs |= got != want
+        rec["differing_pixels"] = int(differs.sum())
+        recs.append(rec)
+    return recs
 
 
 # --------------------------------------------------------------- kernels
@@ -1043,19 +1116,33 @@ def _category(name):
     return "other"
 
 
-def device_time(fn):
-    """Run `fn` under torch.profiler: ({kernel name: (calls, us)},
-    {category: us}, busy ms) of the device events (kernels and copies)."""
-    from torch.autograd import DeviceType
+def trace_events(fn):
+    """Run `fn` under torch.profiler (host and device); its events."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return prof.events()
+
+
+def _annotations(events):
+    """Names of the record_function ranges among `events`. The profiler
+    also lays each range out on the device as an event of that name; it
+    spans the range's kernels and is no work of its own."""
+    return {e.name for e in events if e.is_user_annotation}
+
+
+def device_summary(events):
+    """({kernel name: (calls, us)}, {category: us}, busy ms) of the device
+    events (kernels and copies) among `events`."""
+    from torch.autograd import DeviceType
+
+    ranges = _annotations(events)
     by_name, by_cat = {}, {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name in ranges:
             continue
         us = e.time_range.elapsed_us()
         calls, total = by_name.get(e.name, (0, 0.0))
@@ -1065,23 +1152,92 @@ def device_time(fn):
     return by_name, by_cat, sum(by_cat.values()) / 1e3
 
 
+def device_time(fn):
+    """Run `fn` under torch.profiler: ({kernel name: (calls, us)},
+    {category: us}, busy ms) of the device events (kernels and copies)."""
+    return device_summary(trace_events(fn))
+
+
+# The plain-torch chains that the model runs under record_function
+# labels (models/itermvs.py).
+CHAINS = ("depth_readout", "fused_sweep_taps", "convex_upsample")
+
+
+def chain_time(events):
+    """{label: {"device_ms", "launches"}} of each of CHAINS: the kernels
+    that ran inside the label's device-side ranges. One stream runs the
+    model, so a range holds exactly the kernels launched inside it."""
+    from torch.autograd import DeviceType
+
+    ranges = _annotations(events)
+    spans = {k: [] for k in CHAINS}
+    kernels = []
+    for e in events:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name in spans:
+            spans[e.name].append((e.time_range.start, e.time_range.end))
+        elif e.name not in ranges and _category(e.name) != "memcpy":
+            kernels.append((e.time_range.start, e.time_range.end))
+    out = {}
+    for label, windows in spans.items():
+        inside = [t1 - t0 for t0, t1 in kernels
+                  if any(a <= t0 and t1 <= b for a, b in windows)]
+        out[label] = {"device_ms": sum(inside) / 1e3, "launches": len(inside)}
+    return out
+
+
+def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=False):
+    """{label: ms} of CHAINS' forward over one map (or one training step's
+    forward): each input read once and each output written once, over
+    PEAK_BYTES_PER_S. depth_readout (1 + iteration calls) reads the
+    256-bin logits in the compute dtype and writes the depth, and in
+    training the probability the loss reads; fused_sweep_taps (one call
+    per sweep) reads the depth samples and writes the int32 base index
+    and 4 taps in the table dtype per (source, sample, pixel);
+    convex_upsample reads the 144 mask logits and the coarse depth and
+    writes the full-resolution depth. Their operations per byte are
+    below one, so bytes bound all three."""
+    p4 = batch * (height // 4) * (width // 4)
+    p8 = batch * (height // 8) * (width // 8)
+    sources = views - 1
+    readout = p4 * (256 * itemsize + 4 + (256 * 4 if train else 0))
+    taps = lambda n, p: n * p * 4 + sources * n * p * (4 + 4 * itemsize)
+    upsample = p4 * (144 * itemsize + 4) + 16 * p4 * 4
+    nbytes = {"depth_readout": (1 + iteration) * readout,
+              "fused_sweep_taps": taps(NUM_INIT_SAMPLES, p8)
+              + iteration * taps(sum(len(v) for v in CORR_INTERVALS.values()), p4),
+              "convex_upsample": upsample}
+    return {k: 1e3 * v / PEAK_BYTES_PER_S for k, v in nbytes.items()}
+
+
 def profile_maps(model, samples, outdir, unprofiled_wall):
     """Device time by kernel over the same maps as the timed run
-    (torch.profiler, kernel and copy events only). The idle share is
-    taken against the timed run's own wall time, since tracing slows the
-    host."""
-    by_name, by_cat, busy_ms = device_time(
+    (torch.profiler, kernel and copy events only), the kernels launched
+    per map, and the labelled chains' device time and launches per map
+    beside their byte bounds. The idle share is taken against the timed
+    run's own wall time, since tracing slows the host."""
+    events = trace_events(
         lambda: run_depth(model, samples, outdir, "cuda", log=lambda *_: None))
+    by_name, by_cat, busy_ms = device_summary(events)
     if not busy_ms:
         print(json.dumps({"profile": "device time not measured"}))
         return
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     maps = len(samples)
+    kernels = sum(c for k, (c, _) in by_name.items() if _category(k) != "memcpy")
+    itemsize = torch.finfo(model.compute_dtype).bits // 8
+    bounds = chain_bound_ms(WIDTH, HEIGHT, VIEWS, ITERATION, itemsize=itemsize)
     print(json.dumps({
         "profile_maps": maps, "dtype": str(model.compute_dtype),
         "device_busy_ms_per_map": busy_ms / maps,
         "wall_ms_per_map_unprofiled": unprofiled_wall * 1e3 / maps,
         "device_idle_share": max(0.0, 1 - busy_ms / (unprofiled_wall * 1e3)),
+        "kernels_per_map": kernels / maps,
+        "chains_per_map": {k: {"device_ms": v["device_ms"] / maps,
+                               "launches": v["launches"] / maps,
+                               "bound_ms": bounds[k]}
+                           for k, v in chain_time(events).items()},
         "by_category_ms_per_map": {k: v / 1e3 / maps for k, v in
                                    sorted(by_cat.items(), key=lambda kv: -kv[1])},
         "top_ms_per_map": [{"name": k[:90], "calls_per_map": c / maps,
@@ -1300,13 +1456,18 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
            "steps_per_s_last5": len(last) / sum(last), "peak_mem_gib": peak / 2 ** 30,
            "batch_setup_s": setup_s, "launches": counts, "planned_launches": planned}
 
-    by_name, by_cat, busy_ms = device_time(
+    events = trace_events(
         lambda: train_step(model, optimizer, batch, TRAIN_LR, True, TRAIN_ITERATION))
+    by_name, by_cat, busy_ms = device_summary(events)
     wall_ms = 1e3 * sorted(last)[len(last) // 2]
     if busy_ms:
+        bounds = chain_bound_ms(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_ITERATION,
+                                TRAIN_BATCH, torch.finfo(dtype).bits // 8, train=True)
         rec["profile_step"] = {
             "device_busy_ms": busy_ms, "wall_ms_unprofiled_median": wall_ms,
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "chains_forward": {k: dict(v, bound_ms=bounds[k])
+                               for k, v in chain_time(events).items()},
             "by_category_ms": {k: v / 1e3 for k, v in
                                sorted(by_cat.items(), key=lambda kv: -kv[1])},
             "top_ms": [{"name": k[:90], "calls": c, "device_ms": t / 1e3} for k, (c, t)
@@ -1767,8 +1928,9 @@ def depth_run(model, samples, gt_depths, outdir, tmp, dtype):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    host = []
     t0 = time.perf_counter()
-    secs = run_depth(model, samples, outdir, "cuda")
+    secs = run_depth(model, samples, outdir, "cuda", host_secs=host)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
@@ -1787,12 +1949,147 @@ def depth_run(model, samples, gt_depths, outdir, tmp, dtype):
                      "median_confidence": float(np.median(conf))})
     print(json.dumps({"dtype": str(dtype), "maps": len(samples), "wall_s": wall,
                       "maps_per_s": len(samples) / wall, "per_map_s": secs,
+                      "host_dispatch_ms": [1e3 * d for d, _ in host],
+                      "host_finalize_ms": [1e3 * f for _, f in host],
                       "warmup_s": warm, "peak_mem_gib": peak / 2 ** 30,
                       "launches": counts, "depth_check": errs}))
     bad = [e for e in errs if not e["median_abs_err_vs_gt"] < 0.05]
     if bad:
         raise SystemExit(f"depth check failed ({dtype}): {bad}")
     return counts, errs, wall
+
+
+def dispatch_is_async(model, sample):
+    """One map through the cached path (`extract` per view, `match`) and
+    one through the full forward, each with torch's sync debug mode set
+    to raise at any synchronising call; then whether the card was still
+    busy when the host returned. Returns the record."""
+    dev = lambda x: torch.as_tensor(x).to("cuda", non_blocking=True)
+    projs = {k: dev(v) for k, v in sample["proj_matrices"].items() if k != "level_0"}
+    dmin, dmax = dev(sample["depth_min"]), dev(sample["depth_max"])
+    level0 = sample["imgs"]["level_0"]
+    rec = {}
+    paths = {"match": lambda: model.match([model.extract(dev(level0[:, i]))
+                                           for i in range(level0.shape[1])],
+                                          projs, dmin, dmax),
+             "forward": lambda: model({"level_0": dev(level0)}, projs, dmin, dmax)}
+    with torch.inference_mode():
+        for name, run in paths.items():
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                run()
+                done = torch.cuda.Event()
+                done.record()
+            except RuntimeError:
+                raise SystemExit(f"eval_pipeline: {name} synchronises the host:\n"
+                                 f"{traceback.format_exc()}")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            rec[f"{name}_busy_at_return"] = not done.query()
+            torch.cuda.synchronize()
+    return rec
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to its deterministic algorithms within the block.
+    In float32 the algorithms cuDNN picks for this model by default are
+    not bit-deterministic on the card (two forwards of one input differ),
+    which would hide what a comparison of two eval loops looks for."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def eval_pipeline(model, samples, tmp, dtype):
+    """run_depth's one-batch pipeline held against one map per call: the
+    5 maps through one run_depth call, then twice through one call per
+    map; the pipelined PFMs may differ in no more pixels than the two
+    one-per-call runs differ in (0 where the path is deterministic). The
+    held runs use cuDNN's deterministic algorithms; two one-per-call runs
+    with cuDNN's default choice show its own spread (`default_cudnn`).
+    Also checks that `match` and the forward make no host sync. Prints
+    one JSON line; returns (the one-per-call noise in pixels, record)."""
+    def out(key):
+        return os.path.join(tmp, f"pipeline_{dtype}_{key}")
+
+    def one_per_call(key):
+        t0 = time.perf_counter()
+        for s in samples:
+            run_depth(model, [s], out(key), "cuda", log=lambda *_: None)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    default_s = [one_per_call("default_a"), one_per_call("default_b")]
+    default = pfm_diff(out("default_b"), out("default_a"), len(samples))
+    with deterministic_cudnn():
+        t0 = time.perf_counter()
+        run_depth(model, samples, out("all"), "cuda", log=lambda *_: None)
+        torch.cuda.synchronize()
+        all_s = time.perf_counter() - t0
+        one_s = [one_per_call("one_a"), one_per_call("one_b")]
+    vs_one = pfm_diff(out("all"), out("one_a"), len(samples))
+    noise = pfm_diff(out("one_b"), out("one_a"), len(samples))
+    differing = sum(r["differing_pixels"] for r in vs_one)
+    allowed = sum(r["differing_pixels"] for r in noise)
+    rec = {"dtype": str(dtype), "maps": len(samples), "pipelined_s": all_s,
+           "one_per_call_s": one_s, "vs_one_per_call": vs_one,
+           "differing_pixels": differing, "one_per_call_noise_pixels": allowed,
+           "default_cudnn": {"one_per_call_s": default_s, "run_to_run": default,
+                             "differing_pixels": sum(r["differing_pixels"] for r in default)},
+           "no_host_sync": dispatch_is_async(model, samples[0])}
+    print(json.dumps({"eval_pipeline": rec}))
+    if differing > allowed:
+        raise SystemExit(f"eval_pipeline ({dtype}): {differing} pixels differ from one "
+                         f"map per call, beyond the {allowed} of two such runs")
+    return allowed, rec
+
+
+def input_uint8(model, samples, samples_u8, noise, tmp):
+    """`--input_uint8` on the card: Pipeline._normalize of each raw uint8
+    level_0 plane equals the host's float32 plane bit for bit, and the 5
+    maps from uint8 input differ from the float32 input's in no more
+    pixels than `noise` (both with cuDNN's deterministic algorithms).
+    Prints maps/s and host→device bytes per map of both forms (the
+    feature cache uploads each view once)."""
+    planes_equal = all(
+        torch.equal(Pipeline._normalize(u["imgs"]["level_0"].cuda()).cpu(),
+                    torch.as_tensor(f["imgs"]["level_0"]))
+        for u, f in zip(samples_u8, samples))
+    rates = {}
+    with deterministic_cudnn():
+        for form, batch in (("float32", samples), ("uint8", samples_u8)):
+            run_depth(model, batch[:1], os.path.join(tmp, f"warm_{form}"), "cuda",
+                      log=lambda *_: None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_depth(model, batch, os.path.join(tmp, f"input_{form}"), "cuda",
+                      log=lambda *_: None)
+            torch.cuda.synchronize()
+            rates[form] = len(batch) / (time.perf_counter() - t0)
+    vs_f32 = pfm_diff(os.path.join(tmp, "input_uint8"), os.path.join(tmp, "input_float32"),
+                      len(samples))
+    differing = sum(r["differing_pixels"] for r in vs_f32)
+    rec = {"planes_bit_equal": planes_equal, "maps_per_s": rates,
+           "h2d_bytes_per_map": {"float32": h2d_bytes_per_map(samples),
+                                 "uint8": h2d_bytes_per_map(samples_u8)},
+           "h2d_bytes_per_map_uncached": {
+               "float32": h2d_bytes_per_map(samples, feature_cache=False),
+               "uint8": h2d_bytes_per_map(samples_u8, feature_cache=False)},
+           "vs_float32_input": vs_f32, "differing_pixels": differing,
+           "one_per_call_noise_pixels": noise}
+    print(json.dumps({"input_uint8": rec}))
+    if not planes_equal:
+        raise SystemExit("input_uint8: the card's normalised uint8 plane is not the "
+                         "host's float32 plane")
+    if differing > noise:
+        raise SystemExit(f"input_uint8: {differing} pixels differ from the float32 "
+                         f"input's maps, beyond {noise}")
+    return rec
 
 
 def main():
@@ -1824,7 +2121,9 @@ def main():
 
     t0 = time.perf_counter()
     cams, images, gt_depths = render_scene(WIDTH, HEIGHT, VIEWS, SEED)
-    samples = samples_of(cams, images)
+    # Page-locked, as save_depth's loader delivers batches on a card.
+    samples = pinned(samples_of(cams, images))
+    samples_u8 = pinned(samples_of(cams, images, uint8=True))
     print(json.dumps({"scene_seconds": time.perf_counter() - t0,
                       "size": [WIDTH, HEIGHT], "views": VIEWS}))
     expected = sum(s[-1] for s in shapes) * len(samples)
@@ -1873,6 +2172,8 @@ def main():
         print(json.dumps({"repeat_maps_per_s": repeats}))
 
         profile_maps(model, samples, os.path.join(tmp, "prof"), wall)
+        noise, _ = eval_pipeline(model, samples, tmp, torch.float32)
+        input_uint8(model, samples, samples_u8, noise, tmp)
         del model
         torch.cuda.empty_cache()
 
@@ -1895,6 +2196,7 @@ def main():
         if bad:
             raise SystemExit(f"bf16 depth error beyond max(1.15 f32, f32 + 0.01): {bad}")
         profile_maps(model16, samples, os.path.join(tmp, "prof_bf16"), wall16)
+        eval_pipeline(model16, samples, tmp, BF16)
         del model16
         torch.cuda.empty_cache()
     counts.update({k: counts16[k] for k in ("sweep_premul_bf16", "corr_epilogue_bf16")})

@@ -218,12 +218,13 @@ def _write_outputs(outdir, filename, depth_est, confidence):
     for kind, image in (("depth_est", depth_est), ("confidence", confidence)):
         path = os.path.join(outdir, filename.format(kind, ".pfm"))
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        save_pfm(path, image.astype(np.float32))
+        save_pfm(path, image)
 
 
 def run_depth(model: Pipeline, samples, outdir: str, device, *,
               feature_cache: bool = True, feature_cache_views: int = 16,
-              result_wire: str = "uint16", log=print) -> list[float]:
+              result_wire: str = "uint16", log=print,
+              host_secs: list | None = None) -> list[float]:
     """Depth + confidence PFMs for every batch of `samples`.
 
     `samples` yields dicts in the loader's batched layout (arrays or
@@ -231,8 +232,25 @@ def run_depth(model: Pipeline, samples, outdir: str, device, *,
     With `feature_cache`, batch-1 samples carrying `scan` and `view_ids`
     run FeatureNet once per (scan, view), LRU-bounded to
     `feature_cache_views` views; outputs equal the uncached forward.
-    Returns the wall seconds of each batch (the first includes warm-up).
+
+    A one-batch software pipeline, as the JAX eval.py's: `dispatch`
+    uploads batch i+1, launches its forward and its device→host copies
+    before `finalize` waits for batch i's copies and hands its PFMs to
+    the writer threads, so the card computes through the fetch, the
+    dequantization and the handoff. On CUDA the copies land in
+    page-locked memory without blocking, and `finalize` waits on the
+    batch's own event; on the CPU they are plain synchronous copies. If
+    a batch fails, the batch before it is still finalized and written
+    before the error propagates; every write is awaited before return.
+
+    Returns the wall seconds of each batch, from the end of the previous
+    batch's `finalize` (the first from the loop's start, warm-up
+    included) to the end of its own: they sum to the loop's wall time.
+    `host_secs`, when given, receives one (dispatch, finalize) pair of
+    host seconds per batch.
     """
+    device = torch.device(device)
+    cuda = device.type == "cuda"
     cache: OrderedDict = OrderedDict()
     batch_secs = []
     total = len(samples) if hasattr(samples, "__len__") else "?"
@@ -255,31 +273,66 @@ def run_depth(model: Pipeline, samples, outdir: str, device, *,
             feats.append(cache[key])
         return feats
 
+    def to_host(x):
+        # A fresh page-locked buffer per batch: the f32 wire hands views
+        # of it to the writer threads, which may still read the last one.
+        if not cuda:
+            return x
+        return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(
+            x, non_blocking=True)
+
+    def dispatch(sample):
+        t0 = time.perf_counter()
+        projs = {k: dev(v) for k, v in sample["proj_matrices"].items()
+                 if k != "level_0"}
+        dmin, dmax = dev(sample["depth_min"]), dev(sample["depth_max"])
+        if (feature_cache and "view_ids" in sample
+                and len(sample["filename"]) == 1):
+            out = model.match(features(sample), projs, dmin, dmax)
+        else:
+            out = model({"level_0": dev(sample["imgs"]["level_0"])},
+                        projs, dmin, dmax)
+        depths, confs = out["depths_upsampled"], out["confidence_upsampled"]
+        wire = (quantize_results(depths, confs) if result_wire == "uint16"
+                else (depths[..., 0], confs[..., 0]))
+        host = [to_host(x) for x in wire]
+        done = None
+        if cuda:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+        return sample, host, done, time.perf_counter() - t0
+
+    futures, last = [], time.perf_counter()
+
+    def finalize(batch_idx, sample, host, done, dispatch_s):
+        nonlocal last
+        t0 = time.perf_counter()
+        if done is not None:
+            done.synchronize()
+        arrays = [x.numpy() for x in host]
+        depths, confs = (dequantize_results(*arrays) if result_wire == "uint16"
+                         else arrays)
+        for filename, depth_est, confidence in zip(sample["filename"], depths, confs):
+            futures.append(writer.submit(_write_outputs, outdir, filename,
+                                         depth_est, confidence))
+        now = time.perf_counter()
+        batch_secs.append(now - last)
+        last = now
+        log(f"Iter {batch_idx}/{total}, time = {batch_secs[-1]:.3f}")
+        if host_secs is not None:
+            host_secs.append((dispatch_s, now - t0))
+
     with ThreadPoolExecutor(max_workers=2) as writer, torch.inference_mode():
-        futures = []
-        for batch_idx, sample in enumerate(samples):
-            start = time.perf_counter()
-            projs = {k: dev(v) for k, v in sample["proj_matrices"].items()
-                     if k != "level_0"}
-            dmin, dmax = dev(sample["depth_min"]), dev(sample["depth_max"])
-            if (feature_cache and "view_ids" in sample
-                    and len(sample["filename"]) == 1):
-                out = model.match(features(sample), projs, dmin, dmax)
-            else:
-                out = model({"level_0": dev(sample["imgs"]["level_0"])},
-                            projs, dmin, dmax)
-            depths, confs = out["depths_upsampled"], out["confidence_upsampled"]
-            if result_wire == "uint16":
-                wire = [x.cpu().numpy() for x in quantize_results(depths, confs)]
-                depths, confs = dequantize_results(*wire)
-            else:
-                depths = depths[..., 0].cpu().numpy()
-                confs = confs[..., 0].cpu().numpy()
-            batch_secs.append(time.perf_counter() - start)
-            log(f"Iter {batch_idx}/{total}, time = {batch_secs[-1]:.3f}")
-            for filename, depth_est, confidence in zip(sample["filename"], depths, confs):
-                futures.append(writer.submit(_write_outputs, outdir, filename,
-                                             depth_est, confidence))
+        pending = None
+        try:
+            for batch_idx, sample in enumerate(samples):
+                launched = (batch_idx, *dispatch(sample))
+                previous, pending = pending, launched
+                if previous is not None:
+                    finalize(*previous)
+        finally:
+            if pending is not None:
+                finalize(*pending)
         for fut in futures:
             fut.result()
     return batch_secs
@@ -304,6 +357,7 @@ def save_depth(args, img_wh) -> list[float]:
     workers = min(4, ncpu - 1) if ncpu > 1 else 0
     loader = torch.utils.data.DataLoader(
         dataset, batch_size=args.batch_size, shuffle=False, num_workers=workers,
+        pin_memory=device.type == "cuda",
         multiprocessing_context="spawn" if workers else None,
         worker_init_fn=(functools.partial(_init_loader_worker, workers=workers)
                         if workers else None))

@@ -59,12 +59,15 @@ def save_pfm(path: str, image: np.ndarray, scale: float = 1.0) -> None:
     else:
         raise ValueError(f"bad PFM image shape {image.shape}")
 
-    flipped = np.flipud(image)
+    # One contiguous bottom-up copy: `tofile` on the negatively strided
+    # flipped view writes element by element and holds the GIL
+    # throughout, against the threads that launch the model's kernels.
+    bottom_up = np.ascontiguousarray(image[::-1])
     with open(path, "wb") as f:
         f.write(b"PF\n" if color else b"Pf\n")
         f.write(f"{image.shape[1]} {image.shape[0]}\n".encode("utf-8"))
         # Little-endian is flagged with a negative scale.
-        byteorder = flipped.dtype.byteorder
+        byteorder = bottom_up.dtype.byteorder
         little = byteorder == "<" or (byteorder == "=" and sys.byteorder == "little")
         f.write((f"{-scale if little else scale:f}\n").encode("utf-8"))
-        flipped.tofile(f)
+        bottom_up.tofile(f)

@@ -28,18 +28,25 @@ taps (the source features and `fused_sweep_taps(table_dtype=...)`); the
 sweep's correlation, the outputs of CorrNet and PixelViewWeight, the head
 logits, every softmax, the windowed expectation, the convex upsampling
 weights and every depth and confidence map stay float32.
+
+Three plain-torch chains run under `torch.profiler.record_function`
+labels, so that a profile can sum their device time: `fused_sweep_taps`,
+`depth_readout` (the 256-bin softmax and the windowed expectation) and
+`convex_upsample` (the 9-tap mask softmax and the ×4 convex upsample).
+A label only marks a range; it adds no sync and changes no result.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+from torch.profiler import record_function
 
 from itermvs_tpu_torch.models.blocks import ConvGRU, ConvReLU, conv, conv_transpose
 from itermvs_tpu_torch.ops.depth_range import depth_unnormalization
 from itermvs_tpu_torch.ops.resize import resize_bilinear, upsample_bilinear
 from itermvs_tpu_torch.ops.sweep_grad import SweepCorr
 from itermvs_tpu_torch.ops.upsample import convex_upsample
-from itermvs_tpu_torch.ops.warping import fused_sweep_taps
+from itermvs_tpu_torch.ops.warping import device_constant, fused_sweep_taps
 
 NUM_BINS = 256          # output probability bins over normalized inverse depth
 RADIUS = 4              # windowed-expectation half width
@@ -172,9 +179,10 @@ class Evaluation(nn.Module):
         reads, is `init_depth` of the score.)
         """
         b, n, h, w = depth_samples.shape
-        flat_idx, taps = fused_sweep_taps(
-            rel_projs[:, :, None], depth_samples, (0,) * n,
-            (tuple(src_features[0].shape[1:3]),), src_features[0].dtype)
+        with record_function("fused_sweep_taps"):
+            flat_idx, taps = fused_sweep_taps(
+                rel_projs[:, :, None], depth_samples, (0,) * n,
+                (tuple(src_features[0].shape[1:3]),), src_features[0].dtype)
         corr = torch.stack([
             chunked_warp_corr(src, ref_feature, flat_idx[:, v], taps[:, :, v])
             for v, src in enumerate(src_features)], dim=1)
@@ -221,9 +229,10 @@ class Evaluation(nn.Module):
         src_hws = tuple(tuple(src_features[k][0].shape[1:3]) for k in LEVELS)
         counts = [len(CORR_INTERVALS[k]) for k in LEVELS]
         level_of_sample = sum(([i] * c for i, c in enumerate(counts)), [])
-        flat_idx, taps = fused_sweep_taps(rel_stack, depth_samples,
-                                          level_of_sample, src_hws,
-                                          src_features["level1"][0].dtype)
+        with record_function("fused_sweep_taps"):
+            flat_idx, taps = fused_sweep_taps(rel_stack, depth_samples,
+                                              level_of_sample, src_hws,
+                                              src_features["level1"][0].dtype)
         scores = []
         off = 0
         for i, key in enumerate(LEVELS):
@@ -266,8 +275,10 @@ class Update(nn.Module):
     def depth(self, hidden):
         """(normalized depth [B, 1, H, W], probability [B, 256, H, W]) from
         the 256-bin depth head."""
-        probability = torch.softmax(self.depth_head(hidden).float(), dim=1)
-        return windowed_expectation(probability), probability
+        logits = self.depth_head(hidden)
+        with record_function("depth_readout"):
+            probability = torch.softmax(logits.float(), dim=1)
+            return windowed_expectation(probability), probability
 
     def confidence(self, hidden):
         """Confidence logits [B, 1, H, W], float32."""
@@ -297,8 +308,9 @@ class IterMVS(nn.Module):
     def _upsample_weights(self, ref_level2):
         """Convex-upsample tap weights [B, 9, 4, 4, H4, W4], float32."""
         b, _, h, w = ref_level2.shape
-        x = self.upsample(ref_level2).float().reshape(b, 9, 4, 4, h, w)
-        return torch.softmax(x, dim=1)
+        x = self.upsample(ref_level2)
+        with record_function("convex_upsample"):
+            return torch.softmax(x.float().reshape(b, 9, 4, 4, h, w), dim=1)
 
     def forward(self, ref_features, src_features, rel_projs, depth_min, depth_max):
         """Args:
@@ -357,9 +369,9 @@ class IterMVS(nn.Module):
             confidences.append(self.update.confidence(hidden))
             normalized_depth = normalized_depth.detach()
 
-        intervals = torch.tensor(
-            sum((CORR_INTERVALS[k] for k in LEVELS), ()), dtype=torch.float32,
-            device=idmin.device).reshape(1, -1, 1, 1) * INTERVAL_SCALE
+        intervals = device_constant(
+            sum((CORR_INTERVALS[k] for k in LEVELS), ()), torch.float32,
+            idmin.device).reshape(1, -1, 1, 1) * INTERVAL_SCALE
 
         for it in range(self.iteration):
             s = torch.clamp(normalized_depth + intervals, 0.0, 1.0)
@@ -381,7 +393,8 @@ class IterMVS(nn.Module):
                 if not last:
                     normalized_depth = normalized_depth.detach()
 
-        up = convex_upsample(normalized_depth, upsample_weights, scale=4)
+        with record_function("convex_upsample"):
+            up = convex_upsample(normalized_depth, upsample_weights, scale=4)
         depth_upsampled = depth_unnormalization(up, idmin_b, idmax_b)
         confidence = torch.sigmoid(logits)
         confidence_upsampled = upsample_bilinear(confidence, 4)

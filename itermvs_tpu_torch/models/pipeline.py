@@ -60,10 +60,14 @@ class Pipeline(nn.Module):
 
     @staticmethod
     def _normalize(x: torch.Tensor) -> torch.Tensor:
-        """uint8 images → [-1, 1] float32, the loader's `2·x/255 − 1`;
-        float inputs pass through as float32."""
+        """uint8 images → [-1, 1] float32, the loader's `2·x/255 − 1` bit
+        for bit; float inputs pass through as float32.
+
+        The divisor is a tensor on `x`'s device: CUDA turns a division by
+        a Python scalar into a product with its reciprocal, which is one
+        bit off the loader's quotient for 111 of the 256 values."""
         if x.dtype == torch.uint8:
-            return 2.0 * x.float() / 255.0 - 1.0
+            return torch.div(2.0 * x.float(), torch.full((), 255.0, device=x.device)) - 1.0
         return x.float()
 
     def extract(self, imgs: torch.Tensor) -> dict:

@@ -24,6 +24,20 @@ from __future__ import annotations
 import torch
 
 
+def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """`torch.tensor(values, dtype=dtype)` on `device` without a host sync.
+
+    `torch.tensor(..., device=cuda)` copies from pageable memory and then
+    waits for the stream, which would stall the host in the middle of a
+    forward (the eval loop dispatches the next map while the card still
+    runs this one). On CUDA the values go through page-locked memory with
+    a non-blocking copy instead; on the CPU this is `torch.tensor`."""
+    host = torch.tensor(values, dtype=dtype)
+    if torch.device(device).type == "cuda":
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True)
+
+
 def invert_projection(proj: torch.Tensor) -> torch.Tensor:
     """Analytic inverse of [..., 4, 4] projections with last row [0,0,0,1].
 
@@ -129,7 +143,7 @@ def fused_sweep_taps(rel_projs: torch.Tensor, depth_samples: torch.Tensor,
     rot_xyz = (rot[..., None, :, 0] * gx + rot[..., None, :, 1] * gy
                + rot[..., None, :, 2])
 
-    level = torch.as_tensor(list(level_of_sample), device=dev)
+    level = device_constant(list(level_of_sample), torch.int64, dev)
     rot_s = rot_xyz[:, :, level]                                  # [B,V,N,HW,3]
     trans_s = trans[:, :, level][:, :, :, None, :]                # [B,V,N,1,3]
     proj_xyz = rot_s * depth_samples.reshape(b, 1, n, h * w, 1) + trans_s
@@ -145,8 +159,8 @@ def fused_sweep_taps(rel_projs: torch.Tensor, depth_samples: torch.Tensor,
     px = (px / pz).detach()                                       # [B,V,N,HW]
     py = (py / pz).detach()
 
-    sizes = torch.as_tensor([src_hws[l] for l in level_of_sample],
-                            dtype=f32, device=dev)                # [N, 2]
+    sizes = device_constant([src_hws[l] for l in level_of_sample],
+                            f32, dev)                             # [N, 2]
     size_y = sizes[:, 0].reshape(1, 1, n, 1)
     size_x = sizes[:, 1].reshape(1, 1, n, 1)
     bx, wx_a, wx_b = axis_taps(px, size_x)

@@ -523,3 +523,111 @@ def test_capture_sweeps_returns_one_tuple_per_sweep(dtype):
             assert base.dtype == torch.int32 and grad.dtype == torch.float32
             assert all(t.is_contiguous() for t in (src, ref, base, taps, grad))
             assert bool(torch.isfinite(grad).all()) and bool(grad.abs().sum() > 0)
+
+
+def test_uint8_samples_normalise_to_the_float32_samples_plane():
+    """chip_smoke's `input_uint8` samples: raw level_0 planes that
+    Pipeline._normalize turns into the float32 samples' planes bit for
+    bit, at a quarter of their host→device bytes."""
+    cams, images, _ = chip_smoke.render_scene(64, 48, 3, 0)
+    f32 = chip_smoke.samples_of(cams, images)
+    u8 = chip_smoke.samples_of(cams, images, uint8=True)
+    for a, b in zip(f32, u8):
+        assert b["imgs"]["level_0"].dtype == np.uint8
+        got = Pipeline._normalize(torch.from_numpy(b["imgs"]["level_0"]))
+        assert np.array_equal(got.numpy(), a["imgs"]["level_0"])
+        assert all(np.array_equal(a["proj_matrices"][k], b["proj_matrices"][k])
+                   for k in a["proj_matrices"])
+    image = 64 * 48 * 3
+    other = sum(v.nbytes for k, v in f32[0]["proj_matrices"].items() if k != "level_0") + 8
+    assert chip_smoke.h2d_bytes_per_map(f32) == image * 4 + other      # 3 views, 3 maps
+    assert chip_smoke.h2d_bytes_per_map(u8) == image + other
+    assert chip_smoke.h2d_bytes_per_map(u8, feature_cache=False) == 3 * image + other
+
+
+def test_pfm_diff_counts_a_planted_difference(tmp_path):
+    from itermvs_tpu_torch.io import save_pfm
+
+    rng = np.random.RandomState(0)
+    for run in ("a", "b"):
+        for kind in ("depth_est", "confidence"):
+            os.makedirs(tmp_path / run / kind)
+    for v in range(2):
+        depth, conf = rng.rand(6, 5).astype(np.float32), rng.rand(6, 5).astype(np.float32)
+        for run in ("a", "b"):
+            if run == "b" and v == 1:
+                depth[2, 3] += 0.25
+                conf[0, 0] += 0.5
+                conf[2, 3] += 0.125
+            save_pfm(str(tmp_path / run / "depth_est" / f"{v:08d}.pfm"), depth)
+            save_pfm(str(tmp_path / run / "confidence" / f"{v:08d}.pfm"), conf)
+    same, planted = chip_smoke.pfm_diff(str(tmp_path / "b"), str(tmp_path / "a"), 2)
+    assert same == {"view": 0, "max_abs_ddepth": 0.0, "max_abs_dconfidence": 0.0,
+                    "differing_pixels": 0}
+    assert planted["differing_pixels"] == 2
+    assert planted["max_abs_ddepth"] == pytest.approx(0.25, abs=1e-6)
+    assert planted["max_abs_dconfidence"] == pytest.approx(0.5, abs=1e-6)
+
+
+class _Event:
+    """The fields of a torch.profiler event that chip_smoke reads."""
+
+    class _Range:
+        def __init__(self, start, end):
+            self.start, self.end = start, end
+
+        def elapsed_us(self):
+            return self.end - self.start
+
+    def __init__(self, name, start, end, device="cuda", annotation=False):
+        from torch.autograd import DeviceType
+
+        self.name, self.is_user_annotation = name, annotation
+        self.device_type = DeviceType.CUDA if device == "cuda" else DeviceType.CPU
+        self.time_range = self._Range(start, end)
+
+
+def test_chain_time_takes_the_kernels_inside_each_labelled_range():
+    """Kernels inside a label's device-side span count for it; the spans
+    themselves (and the host-side ranges) are no device work."""
+    events = [
+        _Event("fused_sweep_taps", 0, 50, "cpu", annotation=True),
+        _Event("depth_readout", 0, 50, "cpu", annotation=True),
+        _Event("fused_sweep_taps", 10, 30),                # device span
+        _Event("elementwise_a", 10, 20), _Event("elementwise_b", 22, 30),
+        _Event("Memcpy HtoD (Pinned -> Device)", 12, 13),
+        _Event("conv_xmma", 31, 60),
+        _Event("depth_readout", 61, 70), _Event("softmax", 61, 70),
+        _Event("depth_readout", 80, 90), _Event("softmax", 80, 85),
+    ]
+    chains = chip_smoke.chain_time(events)
+    assert chains == {"depth_readout": {"device_ms": 0.014, "launches": 2},
+                      "fused_sweep_taps": {"device_ms": 0.018, "launches": 2},
+                      "convex_upsample": {"device_ms": 0.0, "launches": 0}}
+    by_name, by_cat, busy = chip_smoke.device_summary(events)
+    assert "fused_sweep_taps" not in by_name and "depth_readout" not in by_name
+    assert busy == pytest.approx((10 + 8 + 1 + 29 + 9 + 5) / 1e3)
+    assert by_cat["convolution"] == 29 and by_cat["memcpy"] == 1
+
+
+def test_chain_bounds_count_each_input_and_output_once():
+    bounds = chip_smoke.chain_bound_ms(1600, 1152, 5, 4)
+    p4 = 288 * 400
+    assert bounds["depth_readout"] == pytest.approx(
+        1e3 * 5 * p4 * (256 * 4 + 4) / chip_smoke.PEAK_BYTES_PER_S)
+    assert bounds["convex_upsample"] == pytest.approx(
+        1e3 * p4 * (144 * 4 + 4 + 16 * 4) / chip_smoke.PEAK_BYTES_PER_S)
+    train = chip_smoke.chain_bound_ms(640, 512, 5, 4, 4, itemsize=2, train=True)
+    assert train["depth_readout"] == pytest.approx(
+        1e3 * 5 * 4 * 128 * 160 * (256 * 2 + 4 + 256 * 4) / chip_smoke.PEAK_BYTES_PER_S)
+
+
+def test_eval_timing_script_needs_a_card():
+    """Without a CUDA device the eval A/B timing script exits non-zero
+    and prints no timing line."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "itermvs_tpu_torch", "tools", "time_eval.py")
+    out = subprocess.run([sys.executable, script, "--tree", root], capture_output=True,
+                         text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert "maps_per_s" not in out.stdout

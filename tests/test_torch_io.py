@@ -6,10 +6,21 @@ import pytest
 from itermvs_tpu import io as jax_io
 from itermvs_tpu_torch import io as port_io
 
+# Views the PFM writers take that are not C-contiguous.
+PFM_VIEWS = {
+    "channel_of_hw3": lambda rng: rng.randn(5, 7, 3).astype(np.float32)[..., 1],
+    "transposed_wh": lambda rng: rng.randn(7, 5).astype(np.float32).T,
+    "hw1_of_hw3": lambda rng: rng.randn(5, 7, 3).astype(np.float32)[..., 2:],
+}
 
-@pytest.mark.parametrize("shape", [(5, 7), (5, 7, 1), (4, 6, 3)])
+
+@pytest.mark.parametrize("shape", [(5, 7), (5, 7, 1), (4, 6, 3), *PFM_VIEWS])
 def test_pfm_roundtrips_across_packages(tmp_path, rng, shape):
-    img = rng.randn(*shape).astype(np.float32)
+    if isinstance(shape, tuple):
+        img = rng.randn(*shape).astype(np.float32)
+    else:
+        img = PFM_VIEWS[shape](rng)
+        assert not img.flags.c_contiguous
     port_io.save_pfm(str(tmp_path / "port.pfm"), img)
     jax_io.save_pfm(str(tmp_path / "jax.pfm"), img)
     assert (tmp_path / "port.pfm").read_bytes() == (tmp_path / "jax.pfm").read_bytes()
