@@ -12,14 +12,24 @@
    report line carries, and at the K3_EDGE_CASES), and times kernel
    (`ms`: sweep_premul and corr_epilogue launched bare into outputs
    allocated beforehand, `call_ms` through their wrappers), plain version
-   and (for corr_epilogue) one PyTorch call of the same function.
+   and (for corr_epilogue) one PyTorch call of the same function. Then
+   K8 sweep_taps at the map's two sweeps (the init sweep at 200x144 with
+   32 samples, the iteration sweep at 400x288 with 10 samples over 3
+   levels, and that sweep with planted edges: behind the camera, NaN and
+   huge depths, a source moved off the map), bit for bit against
+   fused_sweep_taps' plain version, and K6 depth_readout on seeded
+   [1, 256, 288, 400] logits with planted edge bins, exact ties and
+   near-ties: the same argmax on every pixel, depth and probability within
+   1e-6 (`check_sweep_taps`, `check_readout`; bare `ms`, wrapper
+   `call_ms`, plain ms, bound and share per kernel).
 4. Runs the port's eval core loop (`itermvs_tpu_torch.eval.run_depth`)
    with the vendored DTU weights and the feature cache on a 5-view
    textured-plane scene made in memory at 1600x1152, one depth map per
    reference view, float32, 4 GRU iterations, fed as page-locked tensors
    (as save_depth's loader delivers them on a card); reads the PFMs back
    and checks them against the scene's analytic depth; checks that each
-   kernel launched as often as the chunk plan predicts; prints per map
+   kernel launched as often as the chunk plan predicts (K6 and K8 5 times
+   per map); prints per map
    the host ms of run_depth's `dispatch` (uploads and eager launches)
    and `finalize` (wait, dequantization, writer handoff).
 5. Fuses those 5 depth maps (`itermvs_tpu_torch.fusion.fuse_views`,
@@ -49,7 +59,11 @@
    and through their wrappers); holds the backward kernels on pile-up,
    edge and one-corner bases too, and K4 bit for bit against a second
    launch; checks that a base index outside the source map shows as NaN
-   in both.
+   in both. Then K8 at the step's two sweeps and K6 (training form, which
+   writes the probability) and K7 depth_readout_grad at [4, 256, 128,
+   160], in both dtypes: K7 on K6's own outputs with seeded gradients of
+   the probability and the depth (and of the depth alone), against the
+   plain formula in float64 (1e-5 of max, bf16 plus one bf16 step).
 8. One train step of the port (`engine.train_loop`) on the card against
    the same step on the CPU (plain versions) at 160x128, batch 2, 3
    views, 2 iterations, the DTU weights: loss and gradients.
@@ -57,7 +71,7 @@
    views, 4 GRU iterations, stage 2 (regress), from a fresh seeded init,
    on one in-memory DTU-layout batch of the plane scene: the loss must
    fall, and each of the four sweep kernels must launch 52 times per
-   step; ms per step, steps/s, peak memory and one profiled step's
+   step, K6, K7 and K8 5 times each; ms per step, steps/s, peak memory and one profiled step's
    device time by kind, idle share and the labelled chains' forward
    device time and launches; then a validation step and a
    checkpoint saved and restored on the card; then the backward kernels
@@ -145,9 +159,13 @@ from itermvs_tpu_torch.io import read_pfm, read_ply
 from itermvs_tpu_torch.models import Pipeline
 from itermvs_tpu_torch.models import itermvs as itermvs_model
 from itermvs_tpu_torch.models.itermvs import (
-    CORR_INTERVALS, GROUPS, LEVELS, NUM_INIT_SAMPLES)
+    CORR_INTERVALS, GROUPS, INTERVAL_SCALE, LEVELS, NUM_INIT_SAMPLES, initial_depth_samples)
 from itermvs_tpu_torch.ops.consistency import (
     MAX_SOURCES, consistency, consistency_plain, launch_consistency, record)
+from itermvs_tpu_torch.ops.depth_range import depth_unnormalization
+from itermvs_tpu_torch.ops.depth_readout import (
+    NUM_BINS, depth_readout, depth_readout_grad, depth_readout_grad_plain,
+    depth_readout_plain, launch_depth_readout, launch_depth_readout_grad)
 from itermvs_tpu_torch.ops.sweep import (
     launch_sweep_premul, sample_chunks, sweep_premul, sweep_premul_plain)
 from itermvs_tpu_torch.ops.sweep_epilogue import (
@@ -155,6 +173,9 @@ from itermvs_tpu_torch.ops.sweep_epilogue import (
 from itermvs_tpu_torch.ops.sweep_grad import (
     SweepCorr, launch_sweep_grad_ref, launch_sweep_grad_src, sweep_grad_ref,
     sweep_grad_ref_plain, sweep_grad_src, sweep_grad_src_plain)
+from itermvs_tpu_torch.ops.warping import (
+    fused_sweep_taps, fused_sweep_taps_plain, launch_sweep_taps, relative_projection,
+    sample_table)
 from itermvs_tpu_torch.parallel import mesh
 from itermvs_tpu_torch.weights import (
     load_npz_weights, load_state, npz_state_dict, pretrained_path)
@@ -280,23 +301,27 @@ def render_scene(width, height, views, seed):
     return cams, images, depths
 
 
+def projection_pyramid(K, E):
+    """{"level_l": K_l·E} for l = 0..3, K's first two rows scaled by
+    0.5^l, as the loader makes them."""
+    pyr = {}
+    for level in range(4):
+        k = K.copy()
+        k[:2] *= 0.5 ** level
+        p = E.copy()
+        p[:3, :4] = k @ E[:3, :4]
+        pyr[f"level_{level}"] = p
+    return pyr
+
+
 def samples_of(cams, images, uint8=False):
     """One batch-1 sample per reference view of a rendered scene, in the
     loader's layout (uint8 images scaled to [-1, 1] as the loader does,
     or with `uint8` left raw, as its `uint8_level0=True` gives them; only
     level_0 images, which is all the model reads)."""
     views = len(cams)
-    imgs, projs = [], []
-    for (K, E), u8 in zip(cams, images):
-        imgs.append(u8 if uint8 else 2.0 * u8.astype(np.float32) / 255.0 - 1.0)
-        pyr = {}
-        for level in range(4):
-            k = K.copy()
-            k[:2] *= 0.5 ** level
-            p = E.copy()
-            p[:3, :4] = k @ E[:3, :4]
-            pyr[f"level_{level}"] = p
-        projs.append(pyr)
+    imgs = [u8 if uint8 else 2.0 * u8.astype(np.float32) / 255.0 - 1.0 for u8 in images]
+    projs = [projection_pyramid(K, E) for K, E in cams]
     samples = []
     for ref in range(views):
         vids = [ref] + [v for v in range(views) if v != ref]
@@ -643,6 +668,256 @@ def check_fwd_edge_cases():
                               "corr_epilogue_bf16_max_abs_err": err, "tol": tol}))
             if not err <= tol:
                 raise SystemExit(f"corr_epilogue_bf16 at {rows} rows, C={c}: {err} > {tol}")
+
+
+# ------------------------------------------ K6, K7, K8: readout and taps
+# The plain versions of K6 and K8 run on the card as PyTorch runs them:
+# K8 must be bit-equal (flat_idx and taps), K6 must pick the same argmax
+# on every pixel and come within READOUT_TOL of the depth and the
+# probability (it sums exp(l - max) in PyTorch's order; the window's 9
+# terms may be summed in another order than torch's reduction).
+READOUT_TOL = 1e-6
+# Operations per element, as the plain versions count them: K6 per bin
+# the max compare, subtract, exp and sum (3 more for p in training); K7
+# per bin g_k, its product with p and the sum, then p (g - dot); K8 per
+# (view, sample, pixel) the grid scale, rot . (x, y, 1), the projection,
+# the divides, both axes' taps and the 4 products.
+K6_OPS_PER_BIN, K6_TRAIN_OPS_PER_BIN, K7_OPS_PER_BIN, K8_OPS = 4, 7, 6, 45
+
+
+def level_projections(cams, batch, level):
+    """[batch, V, 4, 4] projections at pyramid level `level`
+    (`projection_pyramid`), each batch entry with its own reference view
+    b first, then the others."""
+    pyrs = [projection_pyramid(K, E) for K, E in cams]
+    order = [[ref] + [v for v in range(len(cams)) if v != ref] for ref in range(batch)]
+    return torch.from_numpy(np.stack([np.stack([pyrs[v][f"level_{level}"] for v in vids])
+                                      for vids in order])).cuda()
+
+
+def taps_cases(width, height, views, batch, gen):
+    """K8's inputs at the two sweeps of one forward pass at width x
+    height, from the plane scene's cameras: (name, rel_projs [B, V-1, L,
+    4, 4], depth samples [B, N, h, w], level_of_sample, src_hws, launches
+    per pass). `init`: 32 inverse-depth samples (a broadcast view, as the
+    model passes them) on the 1/8 grid over level 3; `iter`: 10 samples
+    around a seeded normalized depth on the 1/4 grid over levels 1-3;
+    `edges`: `iter` with planted samples behind the camera (z < 0 and
+    0 < z <= 1e-2), NaN and huge depths, and the second source moved 50
+    times as far, so that samples land off the map and at floor = -1."""
+    cams = make_cameras(views, width, height, np.random.RandomState(SEED))
+    rel = {l: relative_projection(p[:, 1:], p[:, :1]) for l in (1, 2, 3)
+           for p in (level_projections(cams, batch, l),)}
+    idmin = torch.full((batch,), 1.0 / DEPTH_MIN, device="cuda")
+    idmax = torch.full((batch,), 1.0 / DEPTH_MAX, device="cuda")
+    h4, w4 = height // 4, width // 4
+    init = initial_depth_samples(idmin, idmax, h4 // 2, w4 // 2)
+    intervals = torch.tensor(sum((CORR_INTERVALS[k] for k in LEVELS), ()),
+                             device="cuda").reshape(1, -1, 1, 1) * INTERVAL_SCALE
+    norm = torch.rand(batch, 1, h4, w4, device="cuda", generator=gen)
+    samples = depth_unnormalization(torch.clamp(norm + intervals, 0.0, 1.0),
+                                    idmin.reshape(-1, 1, 1, 1), idmax.reshape(-1, 1, 1, 1))
+    edges = samples.clone()
+    edges[:, :, 0] = -1.0
+    edges[:, :, 1, : w4 // 2] = 0.005
+    edges[:, :, 2, 0] = float("nan")
+    edges[:, :, 3, 0] = 1e30
+    rel_edges = torch.stack([rel[l] for l in (1, 2, 3)], dim=2).clone()
+    rel_edges[:, 1, :, :3, 3] *= 50.0
+    srcs = ((height // 2, width // 2), (h4, w4), (height // 8, width // 8))
+    counts = [len(CORR_INTERVALS[k]) for k in LEVELS]
+    level_of_sample = tuple(sum(([i] * c for i, c in enumerate(counts)), []))
+    iteration_rel = torch.stack([rel[l] for l in (1, 2, 3)], dim=2)
+    return [("init", rel[3][:, :, None].contiguous(), init, (0,) * NUM_INIT_SAMPLES,
+             (srcs[2],), 1),
+            ("iter", iteration_rel, samples, level_of_sample, srcs, None),
+            ("edges", rel_edges, edges, level_of_sample, srcs, 0)]
+
+
+def bits(t):
+    """The bits of a float tensor, as integers of its width."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def check_sweep_taps(width, height, views, batch, iteration, dtype, per):
+    """K8 (the form for tables of `dtype`) against its plain version on the
+    card, bit for bit, on `taps_cases` at width x height; times the bare
+    launch (`ms`, outputs allocated beforehand), the wrapper (`call_ms`)
+    and the plain version, with the byte bound. One JSON line per case;
+    returns the totals of one pass ({report name: ...}, `iteration`
+    launches of the `iter` case and one of `init`)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    kname = kernel_name("sweep_taps", dtype)
+    size = torch.tensor([], dtype=dtype).element_size()
+    tot = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+           "library_ms": None, "bytes": 0.0, "ops": 0.0}
+    for name, rel, depth, levels, srcs, launches in taps_cases(width, height, views, batch,
+                                                               gen):
+        launches = iteration if launches is None else launches
+        b, n, h, w = depth.shape
+        v = rel.shape[1]
+        want_idx, want_taps = fused_sweep_taps_plain(rel, depth, levels, srcs, dtype)
+        got_idx, got_taps = fused_sweep_taps(rel, depth, levels, srcs, dtype)
+        if not (torch.equal(got_idx, want_idx) and torch.equal(bits(got_taps), bits(want_taps))):
+            bad = int((got_idx != want_idx).sum()) + int((bits(got_taps) != bits(want_taps)).sum())
+            raise SystemExit(f"{kname} at {name}: {bad} values differ from its plain version")
+        table = sample_table(levels, srcs, h, w)
+        wsum = want_taps.float().sum(dim=0)
+        # The init sweep's samples are a broadcast view: its storage is read.
+        nbytes = (depth.untyped_storage().nbytes() + 4 * rel.numel()
+                  + want_idx.numel() * (4 + 4 * size))
+        ops = K8_OPS * want_idx.numel()
+        rec = {"ms": time_ms(lambda: launch_sweep_taps(rel, depth, table, got_idx, got_taps)),
+               "call_ms": time_ms(lambda: fused_sweep_taps(rel, depth, levels, srcs, dtype)),
+               "plain_ms": time_ms(lambda: fused_sweep_taps_plain(rel, depth, levels, srcs,
+                                                                  dtype)),
+               "library_ms": None}
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops)
+        print(json.dumps({"kernel": kname, "shape": name, "batch": b, "views": v, "n": n,
+                          "hw": [h, w], "src_hw": list(srcs), f"launches_per_{per}": launches,
+                          "bit_equal": True, "outputs_all_taps_zero": int((wsum == 0).sum()),
+                          "outputs_partial_taps": int(((wsum > 0) & (wsum < 0.999)).sum()),
+                          **rec, "share": rec["bound_ms"] / rec["ms"]}))
+        for key in ("ms", "call_ms", "plain_ms", "bound_ms"):
+            tot[key] += launches * rec[key]
+        tot["bytes"] += launches * nbytes
+        tot["ops"] += launches * ops
+        del want_idx, want_taps, got_idx, got_taps
+    torch.cuda.empty_cache()
+    return {kname: tot}
+
+
+# Per dtype the near-tie pair of logits: exp(lo - hi) rounds to 1 in
+# float32, so both bins reach p's maximum, though hi > lo.
+NEAR_TIES = {torch.float32: (0.125, 0.125 + 2.0 ** -26),
+             torch.bfloat16: (2.0 ** -20, 2.0 ** -20 * (1 + 2.0 ** -7))}
+
+
+def readout_logits(b, h, w, gen, dtype, dev="cuda"):
+    """Seeded depth-head logits [b, 256, h, w] in `dtype`: noise plus a
+    peak at a random bin per pixel, with planted rows: row 0 the argmax at
+    bins 0-4 and 251-255 (clipped windows), row 1 exact ties of the
+    maximum (every bin equal on even columns, bins 7 and 200 equal on odd
+    ones), row 2 near-ties (NEAR_TIES at bins 30 and 40 over -5
+    elsewhere; on even columns the larger logit at the later bin, where
+    the first bin wins on p)."""
+    k = torch.arange(NUM_BINS, device=dev, dtype=torch.float32).reshape(1, -1, 1, 1)
+    centre = torch.rand(b, 1, h, w, device=dev, generator=gen) * (NUM_BINS - 1)
+    x = (torch.randn(b, NUM_BINS, h, w, device=dev, generator=gen) * 1.5
+         + 10.0 * torch.exp(-(k - centre) ** 2 / 18.0))
+    cols = torch.arange(w, device=dev)
+    edge = torch.tensor([0, 1, 2, 3, 4, 251, 252, 253, 254, 255], device=dev)[cols % 10]
+    row0 = x[:, :, 0, :]
+    row0.scatter_add_(1, edge.reshape(1, 1, w).expand(b, 1, w),
+                      torch.full((b, 1, w), 40.0, device=dev))
+    x[:, :, 1, 0::2] = 0.0
+    x[:, 7, 1, 1::2] = 50.0
+    x[:, 200, 1, 1::2] = 50.0
+    lo, hi = NEAR_TIES[dtype]
+    x[:, :, 2, :] = -5.0
+    x[:, 30, 2, 0::2], x[:, 40, 2, 0::2] = lo, hi
+    x[:, 30, 2, 1::2], x[:, 40, 2, 1::2] = hi, lo
+    return x.to(dtype).contiguous()
+
+
+def check_readout(b, h, w, dtype, launches, per, train):
+    """K6 (and, with `train`, K7) of `dtype`'s logits against their plain
+    versions on the card at [b, 256, h, w] on `readout_logits`: K6 the
+    same argmax on every pixel and READOUT_TOL on the depth and the
+    probability; the eval form (no probability) the same depth bits as
+    the training form. K7 on K6's own outputs with a seeded gradient of
+    the probability and of the depth, and with the depth's alone, against
+    the plain formula in float64 (`hold_grad`: 1e-5 of max|plain|, for
+    bf16 plus one bf16 step of |plain|). Times the bare launches (`ms`),
+    the wrappers (`call_ms`, K7 with the probability's gradient as the
+    loss hands it back, an NHWC-strided view) and the plain versions;
+    one JSON line per kernel, whose totals (times `launches`) it
+    returns."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    size = torch.tensor([], dtype=dtype).element_size()
+    pixels = b * h * w
+    logits = readout_logits(b, h, w, gen, dtype)
+    f32 = dict(device="cuda", dtype=torch.float32)
+    depth, prob = torch.empty(b, 1, h, w, **f32), torch.empty(b, NUM_BINS, h, w, **f32)
+    index = torch.empty(b, 1, h, w, device="cuda", dtype=torch.int32)
+    mass, regress = torch.empty_like(depth), torch.empty_like(depth)
+    launch_depth_readout(logits, depth, prob, index, mass, regress)
+    want = depth_readout_plain(logits)
+    d_err = (depth - want[0]).abs().max().item()
+    p_err = (prob - want[1]).abs().max().item()
+    same_argmax = torch.equal(index.long(), want[2])
+    eval_depth = torch.empty_like(depth)
+    launch_depth_readout(logits, eval_depth)
+    torch.cuda.synchronize()
+    planted = {"row0_argmax": index[:, 0, 0, :10].tolist(),
+               "row2_near_tie_argmax": index[0, 0, 2, :2].tolist()}
+    kname = kernel_name("depth_readout", dtype)
+    ops = (K6_TRAIN_OPS_PER_BIN if train else K6_OPS_PER_BIN) * NUM_BINS * pixels
+    nbytes = pixels * (NUM_BINS * size + 4 + ((NUM_BINS * 4 + 12) if train else 0))
+    if train:
+        run = lambda: launch_depth_readout(logits, depth, prob, index, mass, regress)
+    else:
+        run = lambda: launch_depth_readout(logits, eval_depth)
+    k6 = {"ms": time_ms(run),
+          "call_ms": time_ms(lambda: depth_readout(logits, train)),
+          "plain_ms": time_ms(lambda: depth_readout_plain(logits)), "library_ms": None}
+    k6["bound_ms"], k6["bound_by"] = bound_ms(nbytes, ops)
+    print(json.dumps({"kernel": kname, "shape": [b, NUM_BINS, h, w], "form":
+                      "training (writes p)" if train else "eval (no p)",
+                      f"launches_per_{per}": launches, "same_argmax": same_argmax,
+                      "max_abs_err": d_err, "prob_max_abs_err": p_err, "tol": READOUT_TOL,
+                      "eval_form_depth_bit_equal": torch.equal(bits(eval_depth), bits(depth)),
+                      **planted, **k6, "share": k6["bound_ms"] / k6["ms"]}))
+    if not same_argmax:
+        raise SystemExit(f"{kname}: argmax differs from the plain version at "
+                         f"{int((index.long() != want[2]).sum())} pixels")
+    if not (d_err <= READOUT_TOL and p_err <= READOUT_TOL):
+        raise SystemExit(f"{kname}: |depth| err {d_err}, |p| err {p_err} > {READOUT_TOL}")
+    if not torch.equal(bits(eval_depth), bits(depth)):
+        raise SystemExit(f"{kname}: the eval form's depth differs from the training form's")
+    out = {kname: {**{key: launches * k6[key] for key in ("ms", "call_ms", "plain_ms",
+                                                          "bound_ms")},
+                   "max_abs_err": max(d_err, p_err), "library_ms": None,
+                   "bytes": launches * nbytes, "ops": launches * ops}}
+    if not train:
+        return out
+
+    gname = kernel_name("depth_readout_grad", dtype)
+    d_prob = torch.randn(b, h, w, NUM_BINS, device="cuda", generator=gen).permute(0, 3, 1, 2)
+    d_depth = torch.randn(b, 1, h, w, device="cuda", generator=gen)
+    d_logits = torch.empty(b, NUM_BINS, h, w, device="cuda", dtype=dtype)
+    dense = d_prob.contiguous()
+    errs, abs_errs = [], []
+    for label, dp in (("both gradients", dense), ("depth gradient only", None)):
+        launch_depth_readout_grad(prob, dp, d_depth, index, mass, regress, d_logits)
+        exact = depth_readout_grad_plain(
+            prob.double(), index, mass.double(), regress.double(),
+            None if dp is None else dp.double(), d_depth.double(), torch.float64).to(dtype)
+        err, scale = hold_grad(gname, d_logits, exact, label)
+        abs_errs.append(err)
+        errs.append(err / max(scale, 1e-30))
+        del exact
+    nbytes = pixels * (NUM_BINS * (8 + size) + 16)
+    ops = K7_OPS_PER_BIN * NUM_BINS * pixels
+    k7 = {"ms": time_ms(lambda: launch_depth_readout_grad(prob, dense, d_depth, index, mass,
+                                                          regress, d_logits)),
+          "call_ms": time_ms(lambda: depth_readout_grad(prob, index, mass, regress, d_prob,
+                                                        d_depth, dtype)),
+          "plain_ms": time_ms(lambda: depth_readout_grad_plain(
+              prob, index, mass, regress, d_prob, d_depth, dtype)), "library_ms": None}
+    k7["bound_ms"], k7["bound_by"] = bound_ms(nbytes, ops)
+    print(json.dumps({"kernel": gname, "shape": [b, NUM_BINS, h, w],
+                      f"launches_per_{per}": launches, "max_rel_err": errs,
+                      **k7, "share": k7["bound_ms"] / k7["ms"]}))
+    out[gname] = {**{key: launches * k7[key] for key in ("ms", "call_ms", "plain_ms",
+                                                         "bound_ms")},
+                  "max_abs_err": max(abs_errs), "max_rel_err": max(errs), "library_ms": None,
+                  "bytes": launches * nbytes, "ops": launches * ops, "launches": launches}
+    del logits, prob, d_prob, dense, d_logits
+    torch.cuda.empty_cache()
+    return out
 
 
 def valid_corners(base, h1, w1):
@@ -1070,18 +1345,27 @@ def fuse_scene(views, outdir, device):
 
 # ------------------------------------------------------------ end to end
 SWEEP_KERNELS = (sweep_premul, corr_epilogue, sweep_grad_ref, sweep_grad_src)
+# Every counted wrapper by its kernel's report name (without `_bf16`).
+COUNTERS = {"sweep_premul": sweep_premul, "corr_epilogue": corr_epilogue,
+            "sweep_grad_ref": sweep_grad_ref, "sweep_grad_src": sweep_grad_src,
+            "depth_readout": depth_readout, "depth_readout_grad": depth_readout_grad,
+            "sweep_taps": fused_sweep_taps}
 # Every kernel's report name, float32 forms first.
 KERNEL_NAMES = ("sweep_premul", "corr_epilogue", "fusion_consistency", "sweep_grad_ref",
-                "sweep_grad_src", "sweep_premul_bf16", "corr_epilogue_bf16",
-                "sweep_grad_ref_bf16", "sweep_grad_src_bf16")
+                "sweep_grad_src", "depth_readout", "depth_readout_grad", "sweep_taps",
+                "sweep_premul_bf16", "corr_epilogue_bf16", "sweep_grad_ref_bf16",
+                "sweep_grad_src_bf16", "depth_readout_bf16", "depth_readout_grad_bf16",
+                "sweep_taps_bf16")
+# The templated kernels (one source, both dtypes), longest name first.
+TEMPLATED = ("depth_readout_grad", "depth_readout", "sweep_taps")
 
 
 def launch_counts():
-    """{report name: launches} of all nine kernels."""
+    """{report name: launches} of all fifteen kernels."""
     counts = {"fusion_consistency": consistency.launches}
-    for fn in SWEEP_KERNELS:
-        counts[fn.__name__] = fn.launches
-        counts[f"{fn.__name__}_bf16"] = fn.launches_bf16
+    for name, fn in COUNTERS.items():
+        counts[name] = fn.launches
+        counts[f"{name}_bf16"] = fn.launches_bf16
     return {k: counts[k] for k in KERNEL_NAMES}
 
 
@@ -1090,15 +1374,30 @@ def planned_counts(**launches):
     return {k: launches.get(k, 0) for k in KERNEL_NAMES}
 
 
+def planned_map_counts(shapes, dtype, maps=1, iteration=ITERATION):
+    """Launches of each kernel over `maps` depth maps at `shapes` in
+    `dtype`: the forward sweep kernels once per chunk, K6 once per
+    prediction (1 + iteration) and K8 once per sweep (1 + iteration)."""
+    forward = sum(s[-1] for s in shapes) * maps
+    return planned_counts(**{kernel_name(k, dtype): n for k, n in (
+        ("sweep_premul", forward), ("corr_epilogue", forward),
+        ("depth_readout", (1 + iteration) * maps), ("sweep_taps", (1 + iteration) * maps))})
+
+
 def reset_launch_counts():
     consistency.launches = 0
-    for fn in SWEEP_KERNELS:
+    for fn in COUNTERS.values():
         fn.launches = fn.launches_bf16 = 0
 
 
 def _category(name):
     if "round_to_bf16" in name:           # sweep_grad_src_bf16's rounding pass
         return "sweep_grad_src_bf16"
+    for k in TEMPLATED:
+        if f"{k}_kernel<__nv_bfloat16>" in name:
+            return f"{k}_bf16"
+        if f"{k}_kernel<" in name:
+            return k
     for fn in SWEEP_KERNELS:
         if f"{fn.__name__}_bf16" in name:
             return f"{fn.__name__}_bf16"
@@ -1317,15 +1616,17 @@ def sweeps_of(shapes, dtype):
             for s in shapes}
 
 
-def planned_step_counts(shapes, dtype):
+def planned_step_counts(shapes, dtype, iteration=TRAIN_ITERATION):
     """Launches of each kernel in one training step at `shapes` (the
-    sweep kernels of `dtype`: one forward pair per chunk, one backward
-    pair per sweep)."""
+    kernels of `dtype`: one forward sweep pair per chunk, one backward
+    pair per sweep; K6, K7 and K8 once per prediction or sweep, 1 +
+    iteration)."""
     forward = sum(s[-1] for s in shapes)
     sweeps = sum(sweeps_of(shapes, dtype).values())
     return planned_counts(**{kernel_name(k, dtype): n for k, n in (
         ("sweep_premul", forward), ("corr_epilogue", forward), ("sweep_grad_ref", sweeps),
-        ("sweep_grad_src", sweeps))})
+        ("sweep_grad_src", sweeps), ("depth_readout", 1 + iteration),
+        ("depth_readout_grad", 1 + iteration), ("sweep_taps", 1 + iteration))})
 
 
 def capture_sweeps(model, batch, iteration):
@@ -2115,6 +2416,11 @@ def main():
     model = load_npz_weights(Pipeline(iteration=ITERATION), pretrained_path("dtu")).cuda()
     shapes = sweep_shapes(WIDTH, HEIGHT, VIEWS, ITERATION)
     per_map = check_kernels(shapes)
+    # K8 at the two sweeps of a map and K6 (eval form) at its 5
+    # predictions, then (after the bf16 maps) both in bf16.
+    per_map.update(check_sweep_taps(WIDTH, HEIGHT, VIEWS, 1, ITERATION, torch.float32, "map"))
+    per_map.update(check_readout(1, HEIGHT // 4, WIDTH // 4, torch.float32, 1 + ITERATION,
+                                 "map", train=False))
     # K3 at DTU's 10 sources, and at the 4 of the main path's fusion (the
     # shape its reported time and bound are taken at).
     k3 = check_consistency(WIDTH, HEIGHT, (DTU_SOURCES, VIEWS - 1))[VIEWS - 1]
@@ -2126,12 +2432,11 @@ def main():
     samples_u8 = pinned(samples_of(cams, images, uint8=True))
     print(json.dumps({"scene_seconds": time.perf_counter() - t0,
                       "size": [WIDTH, HEIGHT], "views": VIEWS}))
-    expected = sum(s[-1] for s in shapes) * len(samples)
 
     with tempfile.TemporaryDirectory() as tmp:
         outdir = os.path.join(tmp, "out")
         counts, errs, wall = depth_run(model, samples, gt_depths, outdir, tmp, torch.float32)
-        planned = planned_counts(sweep_premul=expected, corr_epilogue=expected)
+        planned = planned_map_counts(shapes, torch.float32, len(samples))
         if counts != planned:
             raise SystemExit(f"launch counts {counts} != planned {planned}")
 
@@ -2181,13 +2486,15 @@ def main():
         # with the same weights in bf16, held against the f32 run's error.
         shapes16 = sweep_shapes(WIDTH, HEIGHT, VIEWS, ITERATION, itemsize=2)
         per_map.update(check_kernels(shapes16, dtype=BF16))
+        per_map.update(check_sweep_taps(WIDTH, HEIGHT, VIEWS, 1, ITERATION, BF16, "map"))
+        per_map.update(check_readout(1, HEIGHT // 4, WIDTH // 4, BF16, 1 + ITERATION, "map",
+                                     train=False))
         check_fwd_edge_cases()
         model16 = load_npz_weights(Pipeline(iteration=ITERATION, dtype=BF16),
                                    pretrained_path("dtu")).cuda()
         counts16, errs16, wall16 = depth_run(model16, samples, gt_depths,
                                              os.path.join(tmp, "out_bf16"), tmp, BF16)
-        expected16 = sum(s[-1] for s in shapes16) * len(samples)
-        planned = planned_counts(sweep_premul_bf16=expected16, corr_epilogue_bf16=expected16)
+        planned = planned_map_counts(shapes16, BF16, len(samples))
         if counts16 != planned:
             raise SystemExit(f"bf16 launch counts {counts16} != planned {planned}")
         bad = [(e16, e32) for e16, e32 in zip(errs16, errs)
@@ -2199,7 +2506,8 @@ def main():
         eval_pipeline(model16, samples, tmp, BF16)
         del model16
         torch.cuda.empty_cache()
-    counts.update({k: counts16[k] for k in ("sweep_premul_bf16", "corr_epilogue_bf16")})
+    counts.update({k: counts16[k] for k in ("sweep_premul_bf16", "corr_epilogue_bf16",
+                                            "depth_readout_bf16", "sweep_taps_bf16")})
 
     # Training: the backward kernels at the step's shapes, a small step
     # against the CPU, then the full-width run, in f32 and in bf16.
@@ -2211,13 +2519,20 @@ def main():
     check_kernels(train_shapes16, per="step", dtype=BF16)
     per_step = check_grad_kernels(train_shapes)
     per_step.update(check_grad_kernels(train_shapes16, dtype=BF16))
+    readout_step = {}
+    for dtype in (torch.float32, BF16):
+        check_sweep_taps(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_BATCH, TRAIN_ITERATION,
+                         dtype, "step")
+        readout_step.update(check_readout(TRAIN_BATCH, TRAIN_HEIGHT // 4, TRAIN_WIDTH // 4,
+                                          dtype, 1 + TRAIN_ITERATION, "step", train=True))
     compare_train_step()
     synthetic_ms = {k: v["ms_by_shape"] for k, v in per_step.items()}
     train_counts, train32 = train_full_width(train_shapes, synthetic_ms=synthetic_ms)
     train_counts16, train16 = train_full_width(train_shapes16, BF16, synthetic_ms)
     bf16_tracks_f32(train32["losses"], train16["losses"])
     train_counts.update({k: train_counts16[k] for k in ("sweep_grad_ref_bf16",
-                                                        "sweep_grad_src_bf16")})
+                                                        "sweep_grad_src_bf16",
+                                                        "depth_readout_grad_bf16")})
 
     # Data-parallel training (two gloo ranks on the card; one NCCL rank in
     # bf16), then --debug_nans on one depth map.
@@ -2226,8 +2541,7 @@ def main():
     model = load_npz_weights(Pipeline(iteration=ITERATION), pretrained_path("dtu")).cuda()
     with tempfile.TemporaryDirectory() as tmp:
         debug_counts, _ = debug_nans_phase(model, samples[0], gt_depths[0], tmp)
-    per_map_launches = sum(s[-1] for s in shapes)
-    planned = planned_counts(sweep_premul=per_map_launches, corr_epilogue=per_map_launches)
+    planned = planned_map_counts(shapes, torch.float32)
     if debug_counts != planned:
         raise SystemExit(f"debug_nans launch counts {debug_counts} != planned {planned}")
     del model
@@ -2241,12 +2555,22 @@ def main():
                "sweep_grad_ref": ("itermvs_tpu_torch/csrc/sweep_grad_ref.cu",
                                   "itermvs_tpu/models/itermvs.py:106"),
                "sweep_grad_src": ("itermvs_tpu_torch/csrc/sweep_grad_src.cu",
-                                  "itermvs_tpu/models/itermvs.py:106")}
+                                  "itermvs_tpu/models/itermvs.py:106"),
+               "depth_readout": ("itermvs_tpu_torch/csrc/depth_readout.cu",
+                                 "itermvs_tpu/models/itermvs.py:75"),
+               "depth_readout_grad": ("itermvs_tpu_torch/csrc/depth_readout_grad.cu",
+                                      "itermvs_tpu/models/itermvs.py:75"),
+               "sweep_taps": ("itermvs_tpu_torch/csrc/sweep_taps.cu",
+                              "itermvs_tpu/ops/warping.py:158")}
     for name in ("corr_epilogue", "sweep_premul", "sweep_grad_ref", "sweep_grad_src"):
         source, replaces = sources[name]
         sources[f"{name}_bf16"] = (source.replace(".cu", "_bf16.cu"), replaces)
+    for name in TEMPLATED:                  # one templated source, both forms
+        sources[f"{name}_bf16"] = sources[name]
     report = []
-    for name in ("corr_epilogue", "sweep_premul", "corr_epilogue_bf16", "sweep_premul_bf16"):
+    for name in ("corr_epilogue", "sweep_premul", "depth_readout", "sweep_taps",
+                 "corr_epilogue_bf16", "sweep_premul_bf16", "depth_readout_bf16",
+                 "sweep_taps_bf16"):
         tot = per_map[name]
         t_bytes, t_ops = tot["bytes"] / PEAK_BYTES_PER_S, tot["ops"] / PEAK_F32_PER_S
         report.append({
@@ -2265,8 +2589,9 @@ def main():
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": None,
         "per": f"one {WIDTH}x{HEIGHT} reference view, {VIEWS - 1} sources"})
-    for name in ("sweep_grad_ref", "sweep_grad_src", "sweep_grad_ref_bf16",
-                 "sweep_grad_src_bf16"):
+    per_step.update(readout_step)
+    for name in ("sweep_grad_ref", "sweep_grad_src", "depth_readout_grad",
+                 "sweep_grad_ref_bf16", "sweep_grad_src_bf16", "depth_readout_grad_bf16"):
         tot = per_step[name]
         t_bytes, t_ops = tot["bytes"] / PEAK_BYTES_PER_S, tot["ops"] / PEAK_F32_PER_S
         report.append({

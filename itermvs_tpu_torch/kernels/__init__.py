@@ -2,7 +2,10 @@
 
 Each source `itermvs_tpu_torch/csrc/<name>.cu` is compiled by `nvcc` for
 Hopper (`sm_90a`) into its own shared library with a plain C interface,
-loaded with `ctypes` (pointers and the stream pass as `c_void_p`). The
+loaded with `ctypes` (pointers and the stream pass as `c_void_p`). A
+kernel is named by its source, or, where one templated source exports
+both dtype forms, its bfloat16 form is `<name>_bf16` in the library of
+`<name>` (`SIGNATURES` gives the source). The
 libraries go to `itermvs_tpu_torch/_build/` under a name that carries a
 hash of the source, the shared headers (`csrc/*.cuh`) and the flags, so
 an edited source or header is rebuilt. Every
@@ -27,12 +30,14 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("corr_epilogue", "sweep_premul", "fusion_consistency", "sweep_grad_ref",
            "sweep_grad_src", "corr_epilogue_bf16", "sweep_premul_bf16",
-           "sweep_grad_ref_bf16", "sweep_grad_src_bf16")
+           "sweep_grad_ref_bf16", "sweep_grad_src_bf16", "depth_readout",
+           "depth_readout_grad", "sweep_taps")
 # No --use_fast_math: fusion_consistency needs IEEE divides and sqrt.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# C signatures of the exported launchers (symbol -> (argtypes, restype)).
+# C signatures of the exported launchers: kernel -> (symbol, argtypes[,
+# source]); every launcher returns an int (cudaGetLastError()).
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "corr_epilogue": ("itermvs_corr_epilogue", (_P, _P, _L, _I, _I, _P)),
@@ -51,6 +56,19 @@ SIGNATURES = {
                             (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     "sweep_grad_src_bf16": ("itermvs_sweep_grad_src_bf16",
                             (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
+    "depth_readout": ("itermvs_depth_readout", (_P, _P, _P, _P, _P, _P, _I, _I, _P)),
+    "depth_readout_bf16": ("itermvs_depth_readout_bf16",
+                           (_P, _P, _P, _P, _P, _P, _I, _I, _P), "depth_readout"),
+    "depth_readout_grad": ("itermvs_depth_readout_grad",
+                           (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P)),
+    "depth_readout_grad_bf16": ("itermvs_depth_readout_grad_bf16",
+                                (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+                                "depth_readout_grad"),
+    "sweep_taps": ("itermvs_sweep_taps",
+                   (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _P)),
+    "sweep_taps_bf16": ("itermvs_sweep_taps_bf16",
+                        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _P),
+                        "sweep_taps"),
 }
 
 _lock = threading.Lock()
@@ -111,13 +129,15 @@ def build_all(names=SOURCES) -> float:
 
 
 def function(name: str):
-    """The bound C launcher of kernel `name`, building it if needed."""
+    """The bound C launcher of kernel `name`, building its source if
+    needed."""
     with _lock:
         fn = _functions.get(name)
         if fn is None:
-            build_all((name,))
-            symbol, argtypes = SIGNATURES[name]
-            fn = getattr(ctypes.CDLL(library_path(name)), symbol)
+            symbol, argtypes, *source = SIGNATURES[name]
+            source = source[0] if source else name
+            build_all((source,))
+            fn = getattr(ctypes.CDLL(library_path(source)), symbol)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
             _functions[name] = fn

@@ -2,9 +2,11 @@
 (counterpart of itermvs_tpu/models/itermvs.py), in test and train mode.
 
 Maps are NCHW; depth-sample stacks are [B, N, H, W]. Every sweep runs
-`fused_sweep_taps` (plain torch) → `SweepCorr` (K2 `sweep_premul` → K1
-`corr_epilogue`; backward K4 `sweep_grad_ref` and K5 `sweep_grad_src`),
-once per (source view, level), through `chunked_warp_corr`.
+`fused_sweep_taps` (K8 `sweep_taps`) → `SweepCorr` (K2 `sweep_premul` →
+K1 `corr_epilogue`; backward K4 `sweep_grad_ref` and K5
+`sweep_grad_src`), once per (source view, level), through
+`chunked_warp_corr`. Each depth prediction reads the 256-bin head out
+through `depth_readout` (K6; backward K7 `depth_readout_grad`).
 
 Numerical semantics kept from the JAX package:
   - init-branch view weights are bilinearly ×2 upsampled before reuse
@@ -29,11 +31,12 @@ sweep's correlation, the outputs of CorrNet and PixelViewWeight, the head
 logits, every softmax, the windowed expectation, the convex upsampling
 weights and every depth and confidence map stay float32.
 
-Three plain-torch chains run under `torch.profiler.record_function`
-labels, so that a profile can sum their device time: `fused_sweep_taps`,
-`depth_readout` (the 256-bin softmax and the windowed expectation) and
-`convex_upsample` (the 9-tap mask softmax and the ×4 convex upsample).
-A label only marks a range; it adds no sync and changes no result.
+Three chains run under `torch.profiler.record_function` labels, so that
+a profile can sum their device time: `fused_sweep_taps` (K8),
+`depth_readout` (K6: the 256-bin softmax and the windowed expectation)
+and `convex_upsample` (plain torch: the 9-tap mask softmax and the ×4
+convex upsample). A label only marks a range; it adds no sync and
+changes no result.
 """
 from __future__ import annotations
 
@@ -43,13 +46,13 @@ from torch.profiler import record_function
 
 from itermvs_tpu_torch.models.blocks import ConvGRU, ConvReLU, conv, conv_transpose
 from itermvs_tpu_torch.ops.depth_range import depth_unnormalization
+from itermvs_tpu_torch.ops.depth_readout import (  # noqa: F401 (windowed_expectation)
+    NUM_BINS, RADIUS, depth_readout, windowed_expectation)
 from itermvs_tpu_torch.ops.resize import resize_bilinear, upsample_bilinear
 from itermvs_tpu_torch.ops.sweep_grad import SweepCorr
 from itermvs_tpu_torch.ops.upsample import convex_upsample
 from itermvs_tpu_torch.ops.warping import device_constant, fused_sweep_taps
 
-NUM_BINS = 256          # output probability bins over normalized inverse depth
-RADIUS = 4              # windowed-expectation half width
 NUM_INIT_SAMPLES = 32   # initialization sweep samples
 GROUPS = 8              # correlation groups
 INTERVAL_SCALE = 1.0 / 256.0
@@ -76,32 +79,6 @@ def initial_depth_samples(inverse_depth_min, inverse_depth_max, height, width,
         num_sample - 1)
     inv = idmax + frac * (idmin - idmax)
     return (1.0 / inv).expand(batch, num_sample, height, width)
-
-
-def windowed_expectation(probability: torch.Tensor) -> torch.Tensor:
-    """Normalized depth [B, 1, H, W] from a [B, NUM_BINS, H, W] distribution.
-
-    Expectation over the ±RADIUS window around the argmax bin, normalized
-    by the window's mass. A window clipped at bin 0 (or NUM_BINS−1)
-    counts that bin once per clipped tap, as the reference's
-    `clip(argmax + k)` gather does: `max(0, RADIUS − argmax)` extra
-    weight at bin 0, symmetric at the top bin.
-    """
-    dt = probability.dtype
-    idx = probability.argmax(dim=1, keepdim=True).to(dt)          # [B,1,H,W]
-    bins = torch.arange(NUM_BINS, dtype=dt,
-                        device=probability.device).reshape(1, -1, 1, 1)
-    weight = ((bins - idx).abs() <= RADIUS).to(dt)
-    extra_lo = torch.clamp(RADIUS - idx, min=0.0)
-    extra_hi = torch.clamp(idx + RADIUS - (NUM_BINS - 1), min=0.0)
-    zero = torch.zeros((), dtype=dt, device=probability.device)
-    weight = (weight
-              + torch.where(bins == 0.0, extra_lo, zero)
-              + torch.where(bins == float(NUM_BINS - 1), extra_hi, zero))
-    pw = probability * weight
-    regress = (pw * bins).sum(dim=1, keepdim=True) / (
-        1e-6 + pw.sum(dim=1, keepdim=True))
-    return regress / (NUM_BINS - 1.0)
 
 
 def chunked_warp_corr(src, ref, flat_idx, taps, groups: int = GROUPS):
@@ -272,13 +249,14 @@ class Update(nn.Module):
         """[B, 32, H8, W8] level-3 score volume → hidden [B, hidden, H4, W4]."""
         return torch.tanh(upsample_bilinear(self.hidden_init_head(score_volume), 2))
 
-    def depth(self, hidden):
+    def depth(self, hidden, probability: bool = True):
         """(normalized depth [B, 1, H, W], probability [B, 256, H, W]) from
-        the 256-bin depth head."""
+        the 256-bin depth head, both float32; without `probability` (test
+        mode, where nothing reads it) the second is None and never
+        written."""
         logits = self.depth_head(hidden)
         with record_function("depth_readout"):
-            probability = torch.softmax(logits.float(), dim=1)
-            return windowed_expectation(probability), probability
+            return depth_readout(logits, probability)
 
     def confidence(self, hidden):
         """Confidence logits [B, 1, H, W], float32."""
@@ -356,7 +334,7 @@ class IterMVS(nn.Module):
             rel_projs["level3"], depth_samples)
 
         hidden = self.update.hidden_init(score_volume)
-        normalized_depth, probability = self.update.depth(hidden)
+        normalized_depth, probability = self.update.depth(hidden, not self.test)
 
         depths = {"combine": [], "probability": [], "initial": []}
         confidences = []
@@ -382,7 +360,7 @@ class IterMVS(nn.Module):
             if self.test and last:
                 depth = depth_unnormalization(normalized_depth, idmin_b, idmax_b)
             hidden = self.update(hidden, normalized_depth, corr)
-            normalized_depth, probability = self.update.depth(hidden)
+            normalized_depth, probability = self.update.depth(hidden, not self.test)
             if not self.test or last:
                 logits = self.update.confidence(hidden)
             if not self.test:

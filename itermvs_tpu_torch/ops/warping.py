@@ -3,11 +3,14 @@
 `fused_sweep_taps` computes, for every (view, sample, pixel) of a sweep,
 the clamped base-corner row index into the source feature map and the 4
 bilinear tap weights; `sweep_premul` (ops/sweep.py) and `corr_epilogue`
-(ops/sweep_epilogue.py) consume them. All of it is float32 arithmetic
-written out elementwise, so no product here goes through TF32 tensor
-cores whatever the backend flags say: projective coordinates rounded to
-TF32 would cost sub-pixel accuracy. Only the taps are cast at the end,
-to the gather table's dtype.
+(ops/sweep_epilogue.py) consume them. On a CUDA tensor it launches kernel
+K8 `sweep_taps` (csrc/sweep_taps.cu, a float32 and a bfloat16 form) or
+raises; only a CPU tensor takes the plain version,
+`fused_sweep_taps_plain`, to which K8 is bit-equal. All of it is float32
+arithmetic written out elementwise, so no product here goes through TF32
+tensor cores whatever the backend flags say: projective coordinates
+rounded to TF32 would cost sub-pixel accuracy. Only the taps are cast at
+the end, to the gather table's dtype.
 
 Semantics kept from the JAX package:
 * the reference pixel grid is scaled into SOURCE-pixel units,
@@ -21,7 +24,15 @@ Semantics kept from the JAX package:
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from itermvs_tpu_torch import kernels
+
+# K8's kernel per table dtype, and the samples its per-sample table holds.
+TAPS_KERNELS = {torch.float32: "sweep_taps", torch.bfloat16: "sweep_taps_bf16"}
+MAX_SAMPLES = 32
 
 
 def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
@@ -104,10 +115,12 @@ def axis_taps(p: torch.Tensor, size: torch.Tensor):
     return base.to(torch.int32), w_a, w_b
 
 
-def fused_sweep_taps(rel_projs: torch.Tensor, depth_samples: torch.Tensor,
-                     level_of_sample, src_hws, table_dtype: torch.dtype = torch.float32):
-    """Base-corner indices + bilinear taps for a multi-level, multi-view
-    sweep, as one elementwise chain over [B, V, N, H·W].
+def fused_sweep_taps_plain(rel_projs: torch.Tensor, depth_samples: torch.Tensor,
+                           level_of_sample, src_hws,
+                           table_dtype: torch.dtype = torch.float32):
+    """Plain PyTorch version of K8: base-corner indices + bilinear taps for
+    a multi-level, multi-view sweep, as one elementwise chain over
+    [B, V, N, H·W].
 
     Args:
       rel_projs: [B, V, L, 4, 4] relative projections per (view, level).
@@ -168,3 +181,84 @@ def fused_sweep_taps(rel_projs: torch.Tensor, depth_samples: torch.Tensor,
     flat_idx = by * size_x.to(torch.int32) + bx
     taps = torch.stack([wy_a * wx_a, wy_a * wx_b, wy_b * wx_a, wy_b * wx_b])
     return flat_idx, taps.to(table_dtype)
+
+
+class SampleTable(ctypes.Structure):
+    """K8's per-sample table, passed to the kernel by value: each sample's
+    level index, source size (H_l, W_l) and grid scales, the float32
+    values of W_l / W and H_l / H (csrc/sweep_taps.cu `SampleTable`)."""
+    _fields_ = [("level", ctypes.c_int * MAX_SAMPLES),
+                ("height", ctypes.c_int * MAX_SAMPLES),
+                ("width", ctypes.c_int * MAX_SAMPLES),
+                ("scale_y", ctypes.c_float * MAX_SAMPLES),
+                ("scale_x", ctypes.c_float * MAX_SAMPLES)]
+
+
+def sample_table(level_of_sample, src_hws, h: int, w: int) -> SampleTable:
+    """The SampleTable of a sweep over an h × w grid: the grid scales are
+    the Python quotients the plain version multiplies by, which the
+    c_float fields round to float32 as PyTorch rounds a scalar operand."""
+    n = len(level_of_sample)
+    if not 0 < n <= MAX_SAMPLES:
+        raise ValueError(f"fused_sweep_taps: 1..{MAX_SAMPLES} samples, got {n}")
+    table = SampleTable()
+    for s, lvl in enumerate(level_of_sample):
+        h1, w1 = src_hws[lvl]
+        table.level[s], table.height[s], table.width[s] = lvl, h1, w1
+        table.scale_y[s], table.scale_x[s] = h1 / h, w1 / w
+    return table
+
+
+def launch_sweep_taps(rel_projs, depth_samples, table: SampleTable, flat_idx, taps) -> None:
+    """K8's bare launch (the kernel of `taps`' dtype) into `flat_idx` [B,
+    V, N, H·W] int32 and `taps` [4, B, V, N, H·W] on the current stream,
+    for checked inputs (`rel_projs` contiguous; `depth_samples` [B, N, H,
+    W] of any strides). Counts nothing (the wrapper does)."""
+    b, v, levels = rel_projs.shape[:3]
+    n, h, w = depth_samples.shape[1:]
+    name = TAPS_KERNELS[taps.dtype]
+    kernels.check_launch(name, kernels.function(name)(
+        rel_projs.data_ptr(), depth_samples.data_ptr(), flat_idx.data_ptr(),
+        taps.data_ptr(), ctypes.byref(table), b, v, levels, n, h, w,
+        *depth_samples.stride(), torch.cuda.current_stream().cuda_stream))
+
+
+def fused_sweep_taps(rel_projs: torch.Tensor, depth_samples: torch.Tensor,
+                     level_of_sample, src_hws, table_dtype: torch.dtype = torch.float32):
+    """Base-corner indices + bilinear taps for a multi-level, multi-view
+    sweep (`fused_sweep_taps_plain` gives the arguments and results): K8
+    on a CUDA tensor, one launch per sweep; the plain version on the
+    CPU. No gradient reaches the results."""
+    dev = depth_samples.device
+    if dev.type == "cpu":
+        return fused_sweep_taps_plain(rel_projs, depth_samples, level_of_sample, src_hws,
+                                      table_dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_sweep_taps: unsupported device {dev}")
+    b, n, h, w = depth_samples.shape
+    if (rel_projs.device != dev or rel_projs.dtype != torch.float32
+            or depth_samples.dtype != torch.float32 or table_dtype not in TAPS_KERNELS):
+        raise ValueError("fused_sweep_taps: needs float32 projections and depths on one "
+                         "device and a float32 or bfloat16 table dtype")
+    if (rel_projs.ndim != 5 or rel_projs.shape[0] != b or rel_projs.shape[3:] != (4, 4)
+            or len(level_of_sample) != n or len(src_hws) != rel_projs.shape[2]):
+        raise ValueError(f"fused_sweep_taps: projections {tuple(rel_projs.shape)}, "
+                         f"{len(level_of_sample)} sample levels and {len(src_hws)} "
+                         f"source sizes do not agree with depths {tuple(depth_samples.shape)}")
+    table = sample_table(level_of_sample, src_hws, h, w)
+    v = rel_projs.shape[1]
+    flat_idx = torch.empty((b, v, n, h * w), dtype=torch.int32, device=dev)
+    taps = torch.empty((4, b, v, n, h * w), dtype=table_dtype, device=dev)
+    with torch.cuda.device(dev):
+        launch_sweep_taps(rel_projs.detach().contiguous(), depth_samples.detach(), table,
+                          flat_idx, taps)
+    if table_dtype == torch.float32:
+        fused_sweep_taps.launches += 1
+    else:
+        fused_sweep_taps.launches_bf16 += 1
+    return flat_idx, taps
+
+
+# Launches of the float32 and the bfloat16 kernel.
+fused_sweep_taps.launches = 0
+fused_sweep_taps.launches_bf16 = 0

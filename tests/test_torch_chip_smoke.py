@@ -232,9 +232,13 @@ def test_bf16_plans_launch_as_many_kernels():
 
 
 def test_launch_counts_name_all_nine_kernels():
+    """All fifteen report names since K6-K8 joined the nine: the sweep
+    and fusion kernels, the depth readout forward and backward and the
+    sweep taps, each but fusion_consistency in both dtypes."""
     chip_smoke.reset_launch_counts()
     counts = chip_smoke.launch_counts()
-    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 9
+    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 15
+    assert {"depth_readout", "depth_readout_grad_bf16", "sweep_taps_bf16"} <= set(counts)
     assert counts == chip_smoke.planned_counts()
     assert chip_smoke.planned_counts(sweep_premul_bf16=3)["sweep_premul_bf16"] == 3
     for name in counts:
@@ -252,6 +256,53 @@ def test_profile_categories_keep_the_bf16_forms_apart():
         "sweep_grad_src_bf16"
     assert cat("void (anonymous namespace)::corr_epilogue_bf16_kernel(uint4 const*)") == \
         "corr_epilogue_bf16"
+
+
+def test_profile_categories_name_the_templated_kernels():
+    """K6, K7 and K8 are one templated source each: the template argument
+    tells the dtype, and K6's name is a prefix of K7's."""
+    cat = chip_smoke._category
+    assert cat("void (anonymous namespace)::depth_readout_kernel<float>(float const*, "
+               "float*, float*, int*, float*, float*, int, long long)") == "depth_readout"
+    assert cat("void (anonymous namespace)::depth_readout_kernel<__nv_bfloat16>("
+               "__nv_bfloat16 const*, float*)") == "depth_readout_bf16"
+    assert cat("void (anonymous namespace)::depth_readout_grad_kernel<float>(float const*)") \
+        == "depth_readout_grad"
+    assert cat("void (anonymous namespace)::depth_readout_grad_kernel<__nv_bfloat16>("
+               "float const*, __nv_bfloat16*)") == "depth_readout_grad_bf16"
+    assert cat("void (anonymous namespace)::sweep_taps_kernel<__nv_bfloat16>(float const*, "
+               "float const*, int*, __nv_bfloat16*)") == "sweep_taps_bf16"
+    assert cat("void (anonymous namespace)::sweep_taps_kernel<float>(float const*)") == \
+        "sweep_taps"
+
+
+def test_map_plan_counts_k6_and_k8_per_prediction_and_sweep():
+    shapes = chip_smoke.sweep_shapes(1600, 1152, 5, 4)
+    plan = chip_smoke.planned_map_counts(shapes, torch.float32, maps=5)
+    assert plan == chip_smoke.planned_counts(sweep_premul=260, corr_epilogue=260,
+                                             depth_readout=25, sweep_taps=25)
+    plan16 = chip_smoke.planned_map_counts(shapes, torch.bfloat16)
+    assert plan16 == chip_smoke.planned_counts(sweep_premul_bf16=52, corr_epilogue_bf16=52,
+                                               depth_readout_bf16=5, sweep_taps_bf16=5)
+
+
+def test_readout_logits_plant_their_cases():
+    """chip_smoke's K6 inputs, made on the CPU: the argmax at the
+    edge bins in row 0, exact ties in row 1, and in row 2 near-ties whose
+    exp(l - max) is 1 in float32 though the later bin's logit is larger
+    on even columns."""
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator().manual_seed(0)
+        x = chip_smoke.readout_logits(2, 4, 12, gen, dtype, dev="cpu")
+        assert x.dtype == dtype and x.shape == (2, 256, 4, 12) and x.is_contiguous()
+        p = torch.softmax(x.float(), dim=1)
+        idx = p.argmax(dim=1)
+        assert idx[:, 0, :10].tolist() == [[0, 1, 2, 3, 4, 251, 252, 253, 254, 255]] * 2
+        assert (idx[:, 1, 0::2] == 0).all() and (idx[:, 1, 1::2] == 7).all()
+        assert (idx[:, 2] == 30).all()
+        xf = x.float()
+        assert (xf[:, 40, 2, 0::2] > xf[:, 30, 2, 0::2]).all()
+        assert (torch.exp(xf[:, 30, 2] - xf[:, 40, 2]) == 1).all()
 
 
 def test_hold_grad_allows_one_bf16_step_and_no_more():
@@ -324,12 +375,17 @@ def test_ddp_sample_keeps_another_share_in_each_sample():
 
 
 def test_ddp_plan_is_52_launches_per_rank_per_step():
+    """52 of each sweep kernel and 5 (one per prediction, one per sweep)
+    of K6, K7 and K8 per rank per step."""
     for dtype in (torch.float32, torch.bfloat16):
         shapes = chip_smoke.sweep_shapes(640, 512, 5, 4, 2, itemsize=dtype.itemsize)
         plan = chip_smoke.planned_step_counts(shapes, dtype)
         names = [chip_smoke.kernel_name(k, dtype) for k in
                  ("sweep_premul", "corr_epilogue", "sweep_grad_ref", "sweep_grad_src")]
-        assert plan == chip_smoke.planned_counts(**{k: 52 for k in names})
+        heads = [chip_smoke.kernel_name(k, dtype) for k in
+                 ("depth_readout", "depth_readout_grad", "sweep_taps")]
+        assert plan == chip_smoke.planned_counts(**{k: 52 for k in names},
+                                                 **{k: 5 for k in heads})
 
 
 def _record(loss, value, launches=None):
