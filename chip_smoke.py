@@ -17,11 +17,13 @@
    32 samples, the iteration sweep at 400x288 with 10 samples over 3
    levels, and that sweep with planted edges: behind the camera, NaN and
    huge depths, a source moved off the map), bit for bit against
-   fused_sweep_taps' plain version, and K6 depth_readout on seeded
+   fused_sweep_taps' plain version, K6 depth_readout on seeded
    [1, 256, 288, 400] logits with planted edge bins, exact ties and
    near-ties: the same argmax on every pixel, depth and probability within
-   1e-6 (`check_sweep_taps`, `check_readout`; bare `ms`, wrapper
-   `call_ms`, plain ms, bound and share per kernel).
+   1e-6, and K9 convex_upsample on seeded [1, 144, 288, 400] mask logits
+   whose border taps are planted to dominate: within 1e-6
+   (`check_sweep_taps`, `check_readout`, `check_upsample`; bare `ms`,
+   wrapper `call_ms`, plain ms, bound and share per kernel).
 4. Runs the port's eval core loop (`itermvs_tpu_torch.eval.run_depth`)
    with the vendored DTU weights and the feature cache on a 5-view
    textured-plane scene made in memory at 1600x1152, one depth map per
@@ -29,7 +31,7 @@
    (as save_depth's loader delivers them on a card); reads the PFMs back
    and checks them against the scene's analytic depth; checks that each
    kernel launched as often as the chunk plan predicts (K6 and K8 5 times
-   per map); prints per map
+   per map, K9 once); prints per map
    the host ms of run_depth's `dispatch` (uploads and eager launches)
    and `finalize` (wait, dequantization, writer handoff).
 5. Fuses those 5 depth maps (`itermvs_tpu_torch.fusion.fuse_views`,
@@ -63,7 +65,10 @@
    writes the probability) and K7 depth_readout_grad at [4, 256, 128,
    160], in both dtypes: K7 on K6's own outputs with seeded gradients of
    the probability and the depth (and of the depth alone), against the
-   plain formula in float64 (1e-5 of max, bf16 plus one bf16 step).
+   plain formula in float64 (1e-5 of max, bf16 plus one bf16 step); K9
+   and K10 convex_upsample_grad at [4, 144, 128, 160] in both dtypes, K10
+   with a seeded gradient of the upsampled map against the plain formula
+   in float64 (the same bounds), two launches bit-equal.
 8. One train step of the port (`engine.train_loop`) on the card against
    the same step on the CPU (plain versions) at 160x128, batch 2, 3
    views, 2 iterations, the DTU weights: loss and gradients.
@@ -71,7 +76,7 @@
    views, 4 GRU iterations, stage 2 (regress), from a fresh seeded init,
    on one in-memory DTU-layout batch of the plane scene: the loss must
    fall, and each of the four sweep kernels must launch 52 times per
-   step, K6, K7 and K8 5 times each; ms per step, steps/s, peak memory and one profiled step's
+   step, K6, K7 and K8 5 times each, K9 and K10 once; ms per step, steps/s, peak memory and one profiled step's
    device time by kind, idle share and the labelled chains' forward
    device time and launches; then a validation step and a
    checkpoint saved and restored on the card; then the backward kernels
@@ -112,6 +117,9 @@ path's shapes (sweep_premul_bf16 bit for bit, corr_epilogue_bf16 within
 share of the bound and, for K1, its time over the matmul's) and at their
 edges (`check_fwd_edge_cases`: ragged row counts, bases on the map's
 last row or column and off it, where both write NaN, C = 8 and 256),
+then K6 (training form), K9 and K10 in both dtypes at small shapes
+(`check_edge_shapes`: K6's ragged tiles, aligned or not; maps of one
+row, one column, 2x3),
 then the same 5 depth maps run in bf16 (each map's median error < 0.05
 and within max(1.15 f32, f32 + 0.01) of the f32 run's; 52 launches of
 each forward form per map; maps/s, device time by kind, idle share, the
@@ -173,6 +181,9 @@ from itermvs_tpu_torch.ops.sweep_epilogue import (
 from itermvs_tpu_torch.ops.sweep_grad import (
     SweepCorr, launch_sweep_grad_ref, launch_sweep_grad_src, sweep_grad_ref,
     sweep_grad_ref_plain, sweep_grad_src, sweep_grad_src_plain)
+from itermvs_tpu_torch.ops.upsample import (
+    CHANNELS, convex_upsample_grad, convex_upsample_grad_plain, convex_upsample_plain,
+    launch_convex_upsample, launch_convex_upsample_grad, upsample_depth)
 from itermvs_tpu_torch.ops.warping import (
     fused_sweep_taps, fused_sweep_taps_plain, launch_sweep_taps, relative_projection,
     sample_table)
@@ -920,6 +931,151 @@ def check_readout(b, h, w, dtype, launches, per, train):
     return out
 
 
+# K9 against its plain version: |up| <= 1 (a convex combination of
+# normalized depths), and the kernel computes the same float32 softmax and
+# 9-term sum, summed in another order than torch's reduction.
+UPSAMPLE_TOL = 1e-6
+# Operations per sub-pixel, as the plain versions count them: K9 the
+# softmax's 8 maxima, 9 subtracts, exps, adds and divides, then 9 products
+# and adds; K10 that again plus per tap g * w, t - up, its product and the
+# sum over the sub-pixels (the fold's few adds per pixel not counted).
+K9_OPS, K10_OPS = 62, 98
+
+
+def upsample_inputs(b, h, w, gen, dtype, dev="cuda"):
+    """Seeded K9/K10 inputs: a normalized depth x [b, 1, h, w] in [0, 1)
+    and mask logits [b, 144, h, w] in `dtype`, N(0, 4), with planted
+    borders: on rows 0 and h-1 and columns 0 and w-1 the three taps that
+    clamp there (dy = -1, dy = +1, dx = -1, dx = +1) get +30 on every
+    sub-pixel, so that the edge-padded neighbours carry almost all the
+    weight (at a corner the doubly clamped tap, +60, all of it)."""
+    x = torch.rand(b, 1, h, w, device=dev, generator=gen)
+    logits = torch.randn(b, CHANNELS, h, w, device=dev, generator=gen) * 2.0
+    taps = logits.view(b, 9, 16, h, w)
+    taps[:, 0:3, :, 0] += 30.0                  # dy = -1
+    taps[:, 6:9, :, h - 1] += 30.0              # dy = +1
+    taps[:, 0::3, :, :, 0] += 30.0              # dx = -1
+    taps[:, 2::3, :, :, w - 1] += 30.0          # dx = +1
+    return x, logits.to(dtype).contiguous()
+
+
+def check_upsample(b, h, w, dtype, launches, per, train):
+    """K9 (and, with `train`, K10) of `dtype`'s mask logits against their
+    plain versions on the card at [b, 144, h, w] on `upsample_inputs`: K9
+    within UPSAMPLE_TOL, its wrapper's output equal to the bare launch's;
+    K10 against the plain formula in float64 (`hold_grad`: 1e-5 of
+    max|plain|, bf16 logits' gradient plus one bf16 step of |plain|),
+    two launches bit-equal. Times the bare launches (`ms`, outputs
+    allocated beforehand), the wrappers (`call_ms`) and the plain
+    versions; one JSON line per kernel, whose totals (times `launches`)
+    it returns."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 4)
+    size = torch.tensor([], dtype=dtype).element_size()
+    pixels = b * h * w
+    x, logits = upsample_inputs(b, h, w, gen, dtype)
+    up = torch.empty(b, 1, 4 * h, 4 * w, device="cuda")
+    launch_convex_upsample(x, logits, up)
+    want = convex_upsample_plain(x, logits)
+    err = (up - want).abs().max().item()
+    same_wrapper = torch.equal(upsample_depth(x, logits), up)
+    kname = kernel_name("convex_upsample", dtype)
+    nbytes = pixels * (CHANNELS * size + 4 + 64)
+    ops = K9_OPS * 16 * pixels
+    k9 = {"ms": time_ms(lambda: launch_convex_upsample(x, logits, up)),
+          "call_ms": time_ms(lambda: upsample_depth(x, logits)),
+          "plain_ms": time_ms(lambda: convex_upsample_plain(x, logits)), "library_ms": None}
+    k9["bound_ms"], k9["bound_by"] = bound_ms(nbytes, ops)
+    print(json.dumps({"kernel": kname, "shape": [b, CHANNELS, h, w],
+                      f"launches_per_{per}": launches, "max_abs_err": err,
+                      "tol": UPSAMPLE_TOL, "wrapper_equal": same_wrapper,
+                      "border_max_abs_err": max(
+                          (up - want)[..., rows, cols].abs().max().item()
+                          for rows, cols in ((slice(0, 4), slice(None)),
+                                             (slice(-4, None), slice(None)),
+                                             (slice(None), slice(0, 4)),
+                                             (slice(None), slice(-4, None)))),
+                      **k9, "share": k9["bound_ms"] / k9["ms"]}))
+    if not err <= UPSAMPLE_TOL:
+        raise SystemExit(f"{kname}: max |kernel - plain| {err} > {UPSAMPLE_TOL}")
+    if not same_wrapper:
+        raise SystemExit(f"{kname}: the wrapper's output differs from the bare launch's")
+    out = {kname: {**{key: launches * k9[key] for key in ("ms", "call_ms", "plain_ms",
+                                                          "bound_ms")},
+                   "max_abs_err": err, "library_ms": None,
+                   "bytes": launches * nbytes, "ops": launches * ops}}
+    if not train:
+        return out
+
+    gname = kernel_name("convex_upsample_grad", dtype)
+    grad = torch.randn(b, 1, 4 * h, 4 * w, device="cuda", generator=gen)
+    d_x = torch.empty_like(x)
+    d_logits = torch.empty_like(logits)
+    partial = torch.empty(b, 9, h, w, device="cuda")
+    run = lambda: launch_convex_upsample_grad(x, logits, grad, d_x, d_logits, partial)
+    run()
+    exact_x, exact_l = convex_upsample_grad_plain(x.double(), logits.double(), grad.double(),
+                                                  torch.float64)
+    errs = {}
+    for label, got, exact in (("d_logits", d_logits, exact_l.to(dtype)),
+                              ("d_x", d_x, exact_x.float())):
+        e, scale = hold_grad(gname, got, exact, label)
+        errs[label] = (e, e / max(scale, 1e-30))
+    del exact_x, exact_l
+    first_x, first_l = d_x.clone(), d_logits.clone()
+    run()
+    torch.cuda.synchronize()
+    repeats = torch.equal(first_x, d_x) and torch.equal(bits(first_l), bits(d_logits))
+    nbytes = pixels * (2 * CHANNELS * size + 4 + 64 + 4)
+    ops = K10_OPS * 16 * pixels
+    k10 = {"ms": time_ms(run),
+           "call_ms": time_ms(lambda: convex_upsample_grad(x, logits, grad)),
+           "plain_ms": time_ms(lambda: convex_upsample_grad_plain(x, logits, grad, dtype)),
+           "library_ms": None}
+    k10["bound_ms"], k10["bound_by"] = bound_ms(nbytes, ops)
+    print(json.dumps({"kernel": gname, "shape": [b, CHANNELS, h, w],
+                      f"launches_per_{per}": launches,
+                      "max_abs_err": {k: v[0] for k, v in errs.items()},
+                      "max_rel_err": {k: v[1] for k, v in errs.items()},
+                      "two_launches_bit_equal": repeats,
+                      **k10, "share": k10["bound_ms"] / k10["ms"]}))
+    if not repeats:
+        raise SystemExit(f"{gname}: two launches on the same inputs differ")
+    out[gname] = {**{key: launches * k10[key] for key in ("ms", "call_ms", "plain_ms",
+                                                          "bound_ms")},
+                  "max_abs_err": max(v[0] for v in errs.values()),
+                  "max_rel_err": max(v[1] for v in errs.values()), "library_ms": None,
+                  "bytes": launches * nbytes, "ops": launches * ops, "launches": launches}
+    del x, logits, up, grad, d_x, d_logits, partial, first_x, first_l
+    torch.cuda.empty_cache()
+    return out
+
+
+# Small shapes for the kernels' edges: K6 with ragged last tiles (H*W
+# not a multiple of its 64-pixel tile), once with rows that are not
+# 16-byte aligned (77 pixels: the element-wise copy) and once with rows
+# that are (120); K9/K10 on maps of one row, one column and 2x3 (not
+# 2x2: there every pixel is a corner, whose doubly clamped tap, +60 in
+# `upsample_inputs`, takes all the weight, so that dlogits vanishes,
+# max 4.6e-11, and 1e-5 of it lies below float32's rounding). K6's
+# maps keep H*W above 64: at 64 positions or fewer PyTorch's softmax on
+# the card splits each position's sum over several threads, so the plain
+# version's p is then no longer summed in bin order (at 7x9 it lies
+# 1.01e-6 from K6's, beyond READOUT_TOL).
+READOUT_EDGE_SHAPES = ((3, 7, 11), (2, 10, 12))
+UPSAMPLE_EDGE_SHAPES = ((2, 1, 3), (1, 5, 1), (3, 2, 3))
+
+
+def check_edge_shapes():
+    """K6 (training form) and K9/K10 in both dtypes at the edge shapes,
+    under the same gates as at the main path's shapes."""
+    for dtype in (torch.float32, BF16):
+        for b, h, w in READOUT_EDGE_SHAPES:
+            check_readout(b, h, w, dtype, 1, "edge_case", train=True)
+        for b, h, w in UPSAMPLE_EDGE_SHAPES:
+            check_upsample(b, h, w, dtype, 1, "edge_case", train=True)
+
+
 def valid_corners(base, h1, w1):
     """Per row, the count of its 4 corners that lie on the source map."""
     y, x = base // w1, base % w1
@@ -1349,19 +1505,23 @@ SWEEP_KERNELS = (sweep_premul, corr_epilogue, sweep_grad_ref, sweep_grad_src)
 COUNTERS = {"sweep_premul": sweep_premul, "corr_epilogue": corr_epilogue,
             "sweep_grad_ref": sweep_grad_ref, "sweep_grad_src": sweep_grad_src,
             "depth_readout": depth_readout, "depth_readout_grad": depth_readout_grad,
-            "sweep_taps": fused_sweep_taps}
+            "sweep_taps": fused_sweep_taps, "convex_upsample": upsample_depth,
+            "convex_upsample_grad": convex_upsample_grad}
 # Every kernel's report name, float32 forms first.
 KERNEL_NAMES = ("sweep_premul", "corr_epilogue", "fusion_consistency", "sweep_grad_ref",
                 "sweep_grad_src", "depth_readout", "depth_readout_grad", "sweep_taps",
+                "convex_upsample", "convex_upsample_grad",
                 "sweep_premul_bf16", "corr_epilogue_bf16", "sweep_grad_ref_bf16",
                 "sweep_grad_src_bf16", "depth_readout_bf16", "depth_readout_grad_bf16",
-                "sweep_taps_bf16")
-# The templated kernels (one source, both dtypes), longest name first.
-TEMPLATED = ("depth_readout_grad", "depth_readout", "sweep_taps")
+                "sweep_taps_bf16", "convex_upsample_bf16", "convex_upsample_grad_bf16")
+# The templated kernels (one source, both dtypes), longest name first: a
+# source's kernels are named `<name>_...kernel<T>`, T telling the dtype.
+TEMPLATED = ("depth_readout_grad", "depth_readout", "sweep_taps", "convex_upsample_grad",
+             "convex_upsample")
 
 
 def launch_counts():
-    """{report name: launches} of all fifteen kernels."""
+    """{report name: launches} of all nineteen kernels."""
     counts = {"fusion_consistency": consistency.launches}
     for name, fn in COUNTERS.items():
         counts[name] = fn.launches
@@ -1377,11 +1537,13 @@ def planned_counts(**launches):
 def planned_map_counts(shapes, dtype, maps=1, iteration=ITERATION):
     """Launches of each kernel over `maps` depth maps at `shapes` in
     `dtype`: the forward sweep kernels once per chunk, K6 once per
-    prediction (1 + iteration) and K8 once per sweep (1 + iteration)."""
+    prediction (1 + iteration), K8 once per sweep (1 + iteration) and K9
+    once."""
     forward = sum(s[-1] for s in shapes) * maps
     return planned_counts(**{kernel_name(k, dtype): n for k, n in (
         ("sweep_premul", forward), ("corr_epilogue", forward),
-        ("depth_readout", (1 + iteration) * maps), ("sweep_taps", (1 + iteration) * maps))})
+        ("depth_readout", (1 + iteration) * maps), ("sweep_taps", (1 + iteration) * maps),
+        ("convex_upsample", maps))})
 
 
 def reset_launch_counts():
@@ -1394,10 +1556,8 @@ def _category(name):
     if "round_to_bf16" in name:           # sweep_grad_src_bf16's rounding pass
         return "sweep_grad_src_bf16"
     for k in TEMPLATED:
-        if f"{k}_kernel<__nv_bfloat16>" in name:
-            return f"{k}_bf16"
-        if f"{k}_kernel<" in name:
-            return k
+        if f"::{k}_" in name and "kernel<" in name:
+            return f"{k}_bf16" if "kernel<__nv_bfloat16" in name else k
     for fn in SWEEP_KERNELS:
         if f"{fn.__name__}_bf16" in name:
             return f"{fn.__name__}_bf16"
@@ -1457,8 +1617,8 @@ def device_time(fn):
     return device_summary(trace_events(fn))
 
 
-# The plain-torch chains that the model runs under record_function
-# labels (models/itermvs.py).
+# The chains that the model runs under record_function labels
+# (models/itermvs.py): K6, K8 and K9, one launch per call each.
 CHAINS = ("depth_readout", "fused_sweep_taps", "convex_upsample")
 
 
@@ -1620,13 +1780,14 @@ def planned_step_counts(shapes, dtype, iteration=TRAIN_ITERATION):
     """Launches of each kernel in one training step at `shapes` (the
     kernels of `dtype`: one forward sweep pair per chunk, one backward
     pair per sweep; K6, K7 and K8 once per prediction or sweep, 1 +
-    iteration)."""
+    iteration; K9 and K10 once)."""
     forward = sum(s[-1] for s in shapes)
     sweeps = sum(sweeps_of(shapes, dtype).values())
     return planned_counts(**{kernel_name(k, dtype): n for k, n in (
         ("sweep_premul", forward), ("corr_epilogue", forward), ("sweep_grad_ref", sweeps),
         ("sweep_grad_src", sweeps), ("depth_readout", 1 + iteration),
-        ("depth_readout_grad", 1 + iteration), ("sweep_taps", 1 + iteration))})
+        ("depth_readout_grad", 1 + iteration), ("sweep_taps", 1 + iteration),
+        ("convex_upsample", 1), ("convex_upsample_grad", 1))})
 
 
 def capture_sweeps(model, batch, iteration):
@@ -2421,6 +2582,8 @@ def main():
     per_map.update(check_sweep_taps(WIDTH, HEIGHT, VIEWS, 1, ITERATION, torch.float32, "map"))
     per_map.update(check_readout(1, HEIGHT // 4, WIDTH // 4, torch.float32, 1 + ITERATION,
                                  "map", train=False))
+    per_map.update(check_upsample(1, HEIGHT // 4, WIDTH // 4, torch.float32, 1, "map",
+                                  train=False))
     # K3 at DTU's 10 sources, and at the 4 of the main path's fusion (the
     # shape its reported time and bound are taken at).
     k3 = check_consistency(WIDTH, HEIGHT, (DTU_SOURCES, VIEWS - 1))[VIEWS - 1]
@@ -2489,7 +2652,10 @@ def main():
         per_map.update(check_sweep_taps(WIDTH, HEIGHT, VIEWS, 1, ITERATION, BF16, "map"))
         per_map.update(check_readout(1, HEIGHT // 4, WIDTH // 4, BF16, 1 + ITERATION, "map",
                                      train=False))
+        per_map.update(check_upsample(1, HEIGHT // 4, WIDTH // 4, BF16, 1, "map",
+                                      train=False))
         check_fwd_edge_cases()
+        check_edge_shapes()
         model16 = load_npz_weights(Pipeline(iteration=ITERATION, dtype=BF16),
                                    pretrained_path("dtu")).cuda()
         counts16, errs16, wall16 = depth_run(model16, samples, gt_depths,
@@ -2507,7 +2673,8 @@ def main():
         del model16
         torch.cuda.empty_cache()
     counts.update({k: counts16[k] for k in ("sweep_premul_bf16", "corr_epilogue_bf16",
-                                            "depth_readout_bf16", "sweep_taps_bf16")})
+                                            "depth_readout_bf16", "sweep_taps_bf16",
+                                            "convex_upsample_bf16")})
 
     # Training: the backward kernels at the step's shapes, a small step
     # against the CPU, then the full-width run, in f32 and in bf16.
@@ -2525,6 +2692,8 @@ def main():
                          dtype, "step")
         readout_step.update(check_readout(TRAIN_BATCH, TRAIN_HEIGHT // 4, TRAIN_WIDTH // 4,
                                           dtype, 1 + TRAIN_ITERATION, "step", train=True))
+        readout_step.update(check_upsample(TRAIN_BATCH, TRAIN_HEIGHT // 4, TRAIN_WIDTH // 4,
+                                           dtype, 1, "step", train=True))
     compare_train_step()
     synthetic_ms = {k: v["ms_by_shape"] for k, v in per_step.items()}
     train_counts, train32 = train_full_width(train_shapes, synthetic_ms=synthetic_ms)
@@ -2532,7 +2701,8 @@ def main():
     bf16_tracks_f32(train32["losses"], train16["losses"])
     train_counts.update({k: train_counts16[k] for k in ("sweep_grad_ref_bf16",
                                                         "sweep_grad_src_bf16",
-                                                        "depth_readout_grad_bf16")})
+                                                        "depth_readout_grad_bf16",
+                                                        "convex_upsample_grad_bf16")})
 
     # Data-parallel training (two gloo ranks on the card; one NCCL rank in
     # bf16), then --debug_nans on one depth map.
@@ -2561,7 +2731,11 @@ def main():
                "depth_readout_grad": ("itermvs_tpu_torch/csrc/depth_readout_grad.cu",
                                       "itermvs_tpu/models/itermvs.py:75"),
                "sweep_taps": ("itermvs_tpu_torch/csrc/sweep_taps.cu",
-                              "itermvs_tpu/ops/warping.py:158")}
+                              "itermvs_tpu/ops/warping.py:158"),
+               "convex_upsample": ("itermvs_tpu_torch/csrc/convex_upsample.cu",
+                                   "itermvs_tpu/ops/upsample.py:13"),
+               "convex_upsample_grad": ("itermvs_tpu_torch/csrc/convex_upsample_grad.cu",
+                                        "itermvs_tpu/ops/upsample.py:13")}
     for name in ("corr_epilogue", "sweep_premul", "sweep_grad_ref", "sweep_grad_src"):
         source, replaces = sources[name]
         sources[f"{name}_bf16"] = (source.replace(".cu", "_bf16.cu"), replaces)
@@ -2569,8 +2743,8 @@ def main():
         sources[f"{name}_bf16"] = sources[name]
     report = []
     for name in ("corr_epilogue", "sweep_premul", "depth_readout", "sweep_taps",
-                 "corr_epilogue_bf16", "sweep_premul_bf16", "depth_readout_bf16",
-                 "sweep_taps_bf16"):
+                 "convex_upsample", "corr_epilogue_bf16", "sweep_premul_bf16",
+                 "depth_readout_bf16", "sweep_taps_bf16", "convex_upsample_bf16"):
         tot = per_map[name]
         t_bytes, t_ops = tot["bytes"] / PEAK_BYTES_PER_S, tot["ops"] / PEAK_F32_PER_S
         report.append({
@@ -2591,7 +2765,8 @@ def main():
         "per": f"one {WIDTH}x{HEIGHT} reference view, {VIEWS - 1} sources"})
     per_step.update(readout_step)
     for name in ("sweep_grad_ref", "sweep_grad_src", "depth_readout_grad",
-                 "sweep_grad_ref_bf16", "sweep_grad_src_bf16", "depth_readout_grad_bf16"):
+                 "convex_upsample_grad", "sweep_grad_ref_bf16", "sweep_grad_src_bf16",
+                 "depth_readout_grad_bf16", "convex_upsample_grad_bf16"):
         tot = per_step[name]
         t_bytes, t_ops = tot["bytes"] / PEAK_BYTES_PER_S, tot["ops"] / PEAK_F32_PER_S
         report.append({

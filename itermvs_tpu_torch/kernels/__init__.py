@@ -31,7 +31,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("corr_epilogue", "sweep_premul", "fusion_consistency", "sweep_grad_ref",
            "sweep_grad_src", "corr_epilogue_bf16", "sweep_premul_bf16",
            "sweep_grad_ref_bf16", "sweep_grad_src_bf16", "depth_readout",
-           "depth_readout_grad", "sweep_taps")
+           "depth_readout_grad", "sweep_taps", "convex_upsample", "convex_upsample_grad")
 # No --use_fast_math: fusion_consistency needs IEEE divides and sqrt.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -69,6 +69,14 @@ SIGNATURES = {
     "sweep_taps_bf16": ("itermvs_sweep_taps_bf16",
                         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _P),
                         "sweep_taps"),
+    "convex_upsample": ("itermvs_convex_upsample", (_P, _P, _P, _I, _I, _I, _P)),
+    "convex_upsample_bf16": ("itermvs_convex_upsample_bf16", (_P, _P, _P, _I, _I, _I, _P),
+                             "convex_upsample"),
+    "convex_upsample_grad": ("itermvs_convex_upsample_grad",
+                             (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    "convex_upsample_grad_bf16": ("itermvs_convex_upsample_grad_bf16",
+                                  (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+                                  "convex_upsample_grad"),
 }
 
 _lock = threading.Lock()

@@ -6,7 +6,9 @@ Maps are NCHW; depth-sample stacks are [B, N, H, W]. Every sweep runs
 K1 `corr_epilogue`; backward K4 `sweep_grad_ref` and K5
 `sweep_grad_src`), once per (source view, level), through
 `chunked_warp_corr`. Each depth prediction reads the 256-bin head out
-through `depth_readout` (K6; backward K7 `depth_readout_grad`).
+through `depth_readout` (K6; backward K7 `depth_readout_grad`), and the
+last is ×4 upsampled through `upsample_depth` (K9 `convex_upsample`;
+backward K10 `convex_upsample_grad`).
 
 Numerical semantics kept from the JAX package:
   - init-branch view weights are bilinearly ×2 upsampled before reuse
@@ -29,13 +31,14 @@ compute in bfloat16, as do the hidden state and the sweep's tables and
 taps (the source features and `fused_sweep_taps(table_dtype=...)`); the
 sweep's correlation, the outputs of CorrNet and PixelViewWeight, the head
 logits, every softmax, the windowed expectation, the convex upsampling
-weights and every depth and confidence map stay float32.
+weights (K9 reads the bfloat16 mask logits and softmaxes them in
+float32) and every depth and confidence map stay float32.
 
 Three chains run under `torch.profiler.record_function` labels, so that
 a profile can sum their device time: `fused_sweep_taps` (K8),
 `depth_readout` (K6: the 256-bin softmax and the windowed expectation)
-and `convex_upsample` (plain torch: the 9-tap mask softmax and the ×4
-convex upsample). A label only marks a range; it adds no sync and
+and `convex_upsample` (K9: the 9-tap mask softmax and the ×4 convex
+upsample). A label only marks a range; it adds no sync and
 changes no result.
 """
 from __future__ import annotations
@@ -50,7 +53,7 @@ from itermvs_tpu_torch.ops.depth_readout import (  # noqa: F401 (windowed_expect
     NUM_BINS, RADIUS, depth_readout, windowed_expectation)
 from itermvs_tpu_torch.ops.resize import resize_bilinear, upsample_bilinear
 from itermvs_tpu_torch.ops.sweep_grad import SweepCorr
-from itermvs_tpu_torch.ops.upsample import convex_upsample
+from itermvs_tpu_torch.ops.upsample import upsample_depth
 from itermvs_tpu_torch.ops.warping import device_constant, fused_sweep_taps
 
 NUM_INIT_SAMPLES = 32   # initialization sweep samples
@@ -284,11 +287,10 @@ class IterMVS(nn.Module):
             conv(64, 16 * 9, 1, pad=0, bias=False, dtype=dtype))
 
     def _upsample_weights(self, ref_level2):
-        """Convex-upsample tap weights [B, 9, 4, 4, H4, W4], float32."""
-        b, _, h, w = ref_level2.shape
-        x = self.upsample(ref_level2)
-        with record_function("convex_upsample"):
-            return torch.softmax(x.float().reshape(b, 9, 4, 4, h, w), dim=1)
+        """Convex-upsample mask logits [B, 144, H4, W4] in the compute
+        dtype, as the conv gives them (the 9-tap softmax runs inside
+        `upsample_depth`)."""
+        return self.upsample(ref_level2)
 
     def forward(self, ref_features, src_features, rel_projs, depth_min, depth_max):
         """Args:
@@ -311,7 +313,7 @@ class IterMVS(nn.Module):
         idmin_b = idmin.reshape(batch, 1, 1, 1)
         idmax_b = idmax.reshape(batch, 1, 1, 1)
 
-        upsample_weights = self._upsample_weights(ref_features["level2"])
+        mask_logits = self._upsample_weights(ref_features["level2"])
 
         # The sweep kernels read NHWC: sources per view at their native
         # level size, references on the sweep grid, flattened.
@@ -372,7 +374,7 @@ class IterMVS(nn.Module):
                     normalized_depth = normalized_depth.detach()
 
         with record_function("convex_upsample"):
-            up = convex_upsample(normalized_depth, upsample_weights, scale=4)
+            up = upsample_depth(normalized_depth, mask_logits)
         depth_upsampled = depth_unnormalization(up, idmin_b, idmax_b)
         confidence = torch.sigmoid(logits)
         confidence_upsampled = upsample_bilinear(confidence, 4)

@@ -232,13 +232,15 @@ def test_bf16_plans_launch_as_many_kernels():
 
 
 def test_launch_counts_name_all_nine_kernels():
-    """All fifteen report names since K6-K8 joined the nine: the sweep
-    and fusion kernels, the depth readout forward and backward and the
-    sweep taps, each but fusion_consistency in both dtypes."""
+    """All nineteen report names since K6-K10 joined the nine: the sweep
+    and fusion kernels, the depth readout forward and backward, the sweep
+    taps and the convex upsample forward and backward, each but
+    fusion_consistency in both dtypes."""
     chip_smoke.reset_launch_counts()
     counts = chip_smoke.launch_counts()
-    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 15
-    assert {"depth_readout", "depth_readout_grad_bf16", "sweep_taps_bf16"} <= set(counts)
+    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 19
+    assert {"depth_readout", "depth_readout_grad_bf16", "sweep_taps_bf16", "convex_upsample",
+            "convex_upsample_grad_bf16"} <= set(counts)
     assert counts == chip_smoke.planned_counts()
     assert chip_smoke.planned_counts(sweep_premul_bf16=3)["sweep_premul_bf16"] == 3
     for name in counts:
@@ -274,16 +276,31 @@ def test_profile_categories_name_the_templated_kernels():
                "float const*, int*, __nv_bfloat16*)") == "sweep_taps_bf16"
     assert cat("void (anonymous namespace)::sweep_taps_kernel<float>(float const*)") == \
         "sweep_taps"
+    # K6's tile form, K9, and K10's two kernels (the fold named by its form).
+    assert cat("void (anonymous namespace)::depth_readout_kernel<__nv_bfloat16, true>("
+               "__nv_bfloat16 const*, float*)") == "depth_readout_bf16"
+    assert cat("void (anonymous namespace)::depth_readout_kernel<float, false>("
+               "float const*)") == "depth_readout"
+    assert cat("void (anonymous namespace)::convex_upsample_kernel<float>(float const*, "
+               "float const*, float*, int, int, int)") == "convex_upsample"
+    assert cat("void (anonymous namespace)::convex_upsample_kernel<__nv_bfloat16>("
+               "__nv_bfloat16 const*)") == "convex_upsample_bf16"
+    assert cat("void (anonymous namespace)::convex_upsample_grad_kernel<float>("
+               "float const*)") == "convex_upsample_grad"
+    assert cat("void (anonymous namespace)::convex_upsample_grad_fold_kernel<__nv_bfloat16>("
+               "float const*, float*, int, int, int)") == "convex_upsample_grad_bf16"
 
 
 def test_map_plan_counts_k6_and_k8_per_prediction_and_sweep():
     shapes = chip_smoke.sweep_shapes(1600, 1152, 5, 4)
     plan = chip_smoke.planned_map_counts(shapes, torch.float32, maps=5)
     assert plan == chip_smoke.planned_counts(sweep_premul=260, corr_epilogue=260,
-                                             depth_readout=25, sweep_taps=25)
+                                             depth_readout=25, sweep_taps=25,
+                                             convex_upsample=5)
     plan16 = chip_smoke.planned_map_counts(shapes, torch.bfloat16)
     assert plan16 == chip_smoke.planned_counts(sweep_premul_bf16=52, corr_epilogue_bf16=52,
-                                               depth_readout_bf16=5, sweep_taps_bf16=5)
+                                               depth_readout_bf16=5, sweep_taps_bf16=5,
+                                               convex_upsample_bf16=1)
 
 
 def test_readout_logits_plant_their_cases():
@@ -303,6 +320,29 @@ def test_readout_logits_plant_their_cases():
         xf = x.float()
         assert (xf[:, 40, 2, 0::2] > xf[:, 30, 2, 0::2]).all()
         assert (torch.exp(xf[:, 30, 2] - xf[:, 40, 2]) == 1).all()
+
+
+def test_upsample_inputs_plant_their_cases():
+    """chip_smoke's K9/K10 inputs, made on the CPU: on the border rows and
+    columns the taps that clamp there carry almost all of each sub-pixel's
+    weight, so the border sub-pixels read the edge-padded neighbours; a
+    corner's 16 are the corner's own value."""
+    from itermvs_tpu_torch.ops.upsample import convex_upsample_plain
+
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator().manual_seed(0)
+        x, logits = chip_smoke.upsample_inputs(2, 3, 5, gen, dtype, dev="cpu")
+        assert x.shape == (2, 1, 3, 5) and ((x >= 0) & (x < 1)).all()
+        assert logits.dtype == dtype and logits.shape == (2, 144, 3, 5)
+        assert logits.is_contiguous()
+        w = torch.softmax(logits.float().reshape(2, 9, 16, 3, 5), dim=1)
+        assert (w[:, 0:3, :, 0].sum(dim=1) > 0.999).all()        # row 0: dy = -1
+        assert (w[:, 6:9, :, -1].sum(dim=1) > 0.999).all()       # last row: dy = +1
+        assert (w[:, 0::3, :, :, 0].sum(dim=1) > 0.999).all()    # column 0: dx = -1
+        assert (w[:, 2::3, :, :, -1].sum(dim=1) > 0.999).all()   # last column: dx = +1
+        up = convex_upsample_plain(x, logits)
+        assert torch.allclose(up[:, 0, :4, :4], x[:, :, 0, 0, None], atol=1e-6)
+        assert torch.allclose(up[:, 0, -4:, -4:], x[:, :, -1, -1, None], atol=1e-6)
 
 
 def test_hold_grad_allows_one_bf16_step_and_no_more():
@@ -375,8 +415,8 @@ def test_ddp_sample_keeps_another_share_in_each_sample():
 
 
 def test_ddp_plan_is_52_launches_per_rank_per_step():
-    """52 of each sweep kernel and 5 (one per prediction, one per sweep)
-    of K6, K7 and K8 per rank per step."""
+    """52 of each sweep kernel, 5 (one per prediction, one per sweep)
+    of K6, K7 and K8, and one of K9 and K10 per rank per step."""
     for dtype in (torch.float32, torch.bfloat16):
         shapes = chip_smoke.sweep_shapes(640, 512, 5, 4, 2, itemsize=dtype.itemsize)
         plan = chip_smoke.planned_step_counts(shapes, dtype)
@@ -384,8 +424,11 @@ def test_ddp_plan_is_52_launches_per_rank_per_step():
                  ("sweep_premul", "corr_epilogue", "sweep_grad_ref", "sweep_grad_src")]
         heads = [chip_smoke.kernel_name(k, dtype) for k in
                  ("depth_readout", "depth_readout_grad", "sweep_taps")]
+        upsample = [chip_smoke.kernel_name(k, dtype) for k in
+                    ("convex_upsample", "convex_upsample_grad")]
         assert plan == chip_smoke.planned_counts(**{k: 52 for k in names},
-                                                 **{k: 5 for k in heads})
+                                                 **{k: 5 for k in heads},
+                                                 **{k: 1 for k in upsample})
 
 
 def _record(loss, value, launches=None):
@@ -676,6 +719,17 @@ def test_chain_bounds_count_each_input_and_output_once():
     train = chip_smoke.chain_bound_ms(640, 512, 5, 4, 4, itemsize=2, train=True)
     assert train["depth_readout"] == pytest.approx(
         1e3 * 5 * 4 * 128 * 160 * (256 * 2 + 4 + 256 * 4) / chip_smoke.PEAK_BYTES_PER_S)
+
+
+def test_readout_timing_script_needs_a_card():
+    """Without a CUDA device the K6 A/B timing script exits non-zero and
+    prints no timing line."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "itermvs_tpu_torch", "tools", "time_readout.py")
+    out = subprocess.run([sys.executable, script, "--tree", root], capture_output=True,
+                         text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert "versions" not in out.stdout
 
 
 def test_eval_timing_script_needs_a_card():
