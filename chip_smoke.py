@@ -64,8 +64,10 @@
    in both. Then K8 at the step's two sweeps and K6 (training form, which
    writes the probability) and K7 depth_readout_grad at [4, 256, 128,
    160], in both dtypes: K7 on K6's own outputs with seeded gradients of
-   the probability and the depth (and of the depth alone), against the
-   plain formula in float64 (1e-5 of max, bf16 plus one bf16 step); K9
+   the probability (dense, as the loss hands it back, and channels-last) and
+   the depth (and of each alone), against the plain formula in float64
+   (1e-5 of max, bf16 plus one bf16 step), two launches and the two
+   layouts bit-equal, the wrapper copying nothing; K9
    and K10 convex_upsample_grad at [4, 144, 128, 160] in both dtypes, K10
    with a seeded gradient of the upsampled map against the plain formula
    in float64 (the same bounds), two launches bit-equal.
@@ -76,7 +78,10 @@
    views, 4 GRU iterations, stage 2 (regress), from a fresh seeded init,
    on one in-memory DTU-layout batch of the plane scene: the loss must
    fall, and each of the four sweep kernels must launch 52 times per
-   step, K6, K7 and K8 5 times each, K9 and K10 once; ms per step, steps/s, peak memory and one profiled step's
+   step, K6, K7 and K8 5 times each, K9 and K10 once, and K7's wrapper
+   must copy no probability gradient (K7 reads the loss's in place; so
+   in step 10 too), and the layout of each one K7 gets is printed
+   (`prob_grad_layouts`); ms per step, steps/s, peak memory and one profiled step's
    device time by kind, idle share and the labelled chains' forward
    device time and launches; then a validation step and a
    checkpoint saved and restored on the card; then the backward kernels
@@ -117,9 +122,11 @@ path's shapes (sweep_premul_bf16 bit for bit, corr_epilogue_bf16 within
 share of the bound and, for K1, its time over the matmul's) and at their
 edges (`check_fwd_edge_cases`: ragged row counts, bases on the map's
 last row or column and off it, where both write NaN, C = 8 and 256),
-then K6 (training form), K9 and K10 in both dtypes at small shapes
-(`check_edge_shapes`: K6's ragged tiles, aligned or not; maps of one
-row, one column, 2x3),
+then K6 (training form) with K7 on both gradient layouts, K9 and K10
+in both dtypes at small shapes (`check_edge_shapes`: K6's and K7's
+ragged tiles, aligned or not; maps of one row, one column, 2x3) and K8
+bit for bit on small sweeps (one column, odd widths, 1 and 32 samples,
+a broadcast depth),
 then the same 5 depth maps run in bf16 (each map's median error < 0.05
 and within max(1.15 f32, f32 + 0.01) of the f32 run's; 52 launches of
 each forward form per map; maps/s, device time by kind, idle share, the
@@ -172,8 +179,8 @@ from itermvs_tpu_torch.ops.consistency import (
     MAX_SOURCES, consistency, consistency_plain, launch_consistency, record)
 from itermvs_tpu_torch.ops.depth_range import depth_unnormalization
 from itermvs_tpu_torch.ops.depth_readout import (
-    NUM_BINS, depth_readout, depth_readout_grad, depth_readout_grad_plain,
-    depth_readout_plain, launch_depth_readout, launch_depth_readout_grad)
+    NUM_BINS, DepthReadout, depth_readout, depth_readout_grad, depth_readout_grad_plain,
+    depth_readout_plain, launch_depth_readout, launch_depth_readout_grad, prob_grad_strides)
 from itermvs_tpu_torch.ops.sweep import (
     launch_sweep_premul, sample_chunks, sweep_premul, sweep_premul_plain)
 from itermvs_tpu_torch.ops.sweep_epilogue import (
@@ -838,13 +845,16 @@ def check_readout(b, h, w, dtype, launches, per, train):
     same argmax on every pixel and READOUT_TOL on the depth and the
     probability; the eval form (no probability) the same depth bits as
     the training form. K7 on K6's own outputs with a seeded gradient of
-    the probability and of the depth, and with the depth's alone, against
-    the plain formula in float64 (`hold_grad`: 1e-5 of max|plain|, for
-    bf16 plus one bf16 step of |plain|). Times the bare launches (`ms`),
-    the wrappers (`call_ms`, K7 with the probability's gradient as the
-    loss hands it back, an NHWC-strided view) and the plain versions;
-    one JSON line per kernel, whose totals (times `launches`) it
-    returns."""
+    the probability (dense, as the training loss hands it back, and
+    channels-last) and of the depth, with the depth's alone and with the
+    probability's alone, against the plain formula in float64
+    (`hold_grad`: 1e-5 of max|plain|, for bf16 plus one bf16 step of
+    |plain|); two launches bit-equal, and the two layouts' results too.
+    Times the bare launches (`ms`; K7's on the dense gradient, the
+    training loss's layout, and `ms_channels_last`), the wrappers
+    (`call_ms`, K7's on both layouts, neither of which it may copy) and
+    the plain versions; one JSON line per kernel, whose totals (times
+    `launches`) it returns."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 3)
     size = torch.tensor([], dtype=dtype).element_size()
@@ -896,37 +906,63 @@ def check_readout(b, h, w, dtype, launches, per, train):
         return out
 
     gname = kernel_name("depth_readout_grad", dtype)
+    # The probability's gradient channels-last (the layout the loss reads
+    # the probability in) and dense (the layout the loss's backward hands
+    # back, `prob_grad_layouts`): K7 reads both where they lie.
     d_prob = torch.randn(b, h, w, NUM_BINS, device="cuda", generator=gen).permute(0, 3, 1, 2)
     d_depth = torch.randn(b, 1, h, w, device="cuda", generator=gen)
     d_logits = torch.empty(b, NUM_BINS, h, w, device="cuda", dtype=dtype)
     dense = d_prob.contiguous()
-    errs, abs_errs = [], []
-    for label, dp in (("both gradients", dense), ("depth gradient only", None)):
-        launch_depth_readout_grad(prob, dp, d_depth, index, mass, regress, d_logits)
+    errs, abs_errs, results = [], [], {}
+    for label, dp, dd in (("both gradients, channels-last", d_prob, d_depth),
+                          ("both gradients, dense", dense, d_depth),
+                          ("depth gradient only", None, d_depth),
+                          ("probability gradient only, channels-last", d_prob, None),
+                          ("probability gradient only, dense", dense, None)):
+        if not repeats_equal(lambda: launch_depth_readout_grad(prob, dp, dd, index, mass,
+                                                               regress, d_logits), d_logits):
+            raise SystemExit(f"{gname} at {label}: two launches differ")
         exact = depth_readout_grad_plain(
             prob.double(), index, mass.double(), regress.double(),
-            None if dp is None else dp.double(), d_depth.double(), torch.float64).to(dtype)
+            None if dp is None else dp.double(), None if dd is None else dd.double(),
+            torch.float64).to(dtype)
         err, scale = hold_grad(gname, d_logits, exact, label)
         abs_errs.append(err)
         errs.append(err / max(scale, 1e-30))
+        results[label] = d_logits.clone()
         del exact
+    layouts_equal = all(torch.equal(bits(results[f"{g}, channels-last"]),
+                                    bits(results[f"{g}, dense"]))
+                        for g in ("both gradients", "probability gradient only"))
+    if not layouts_equal:
+        raise SystemExit(f"{gname}: the channels-last and the dense gradient's results differ")
     nbytes = pixels * (NUM_BINS * (8 + size) + 16)
     ops = K7_OPS_PER_BIN * NUM_BINS * pixels
+    copies = depth_readout_grad.copies
     k7 = {"ms": time_ms(lambda: launch_depth_readout_grad(prob, dense, d_depth, index, mass,
                                                           regress, d_logits)),
-          "call_ms": time_ms(lambda: depth_readout_grad(prob, index, mass, regress, d_prob,
+          "ms_channels_last": time_ms(lambda: launch_depth_readout_grad(
+              prob, d_prob, d_depth, index, mass, regress, d_logits)),
+          "call_ms": time_ms(lambda: depth_readout_grad(prob, index, mass, regress, dense,
                                                         d_depth, dtype)),
+          "call_ms_channels_last": time_ms(lambda: depth_readout_grad(
+              prob, index, mass, regress, d_prob, d_depth, dtype)),
           "plain_ms": time_ms(lambda: depth_readout_grad_plain(
               prob, index, mass, regress, d_prob, d_depth, dtype)), "library_ms": None}
+    if depth_readout_grad.copies != copies:
+        raise SystemExit(f"{gname}: the wrapper copied a dense or channels-last gradient")
     k7["bound_ms"], k7["bound_by"] = bound_ms(nbytes, ops)
     print(json.dumps({"kernel": gname, "shape": [b, NUM_BINS, h, w],
                       f"launches_per_{per}": launches, "max_rel_err": errs,
-                      **k7, "share": k7["bound_ms"] / k7["ms"]}))
-    out[gname] = {**{key: launches * k7[key] for key in ("ms", "call_ms", "plain_ms",
-                                                         "bound_ms")},
+                      "repeat_bit_equal": True, "layouts_bit_equal": layouts_equal,
+                      "ms_layout": "dense (the loss's)", **k7,
+                      "share": k7["bound_ms"] / k7["ms"]}))
+    out[gname] = {**{key: launches * k7[key] for key in (
+                      "ms", "ms_channels_last", "call_ms", "call_ms_channels_last", "plain_ms",
+                      "bound_ms")},
                   "max_abs_err": max(abs_errs), "max_rel_err": max(errs), "library_ms": None,
                   "bytes": launches * nbytes, "ops": launches * ops, "launches": launches}
-    del logits, prob, d_prob, dense, d_logits
+    del logits, prob, d_prob, dense, d_logits, results
     torch.cuda.empty_cache()
     return out
 
@@ -1064,16 +1100,71 @@ def check_upsample(b, h, w, dtype, launches, per, train):
 # 1.01e-6 from K6's, beyond READOUT_TOL).
 READOUT_EDGE_SHAPES = ((3, 7, 11), (2, 10, 12))
 UPSAMPLE_EDGE_SHAPES = ((2, 1, 3), (1, 5, 1), (3, 2, 3))
+# K8's edge sweeps (batch, samples, h, w, broadcast depth): a one-column
+# grid, odd widths (a thread's last pair ragged, scalar stores), one
+# sample, and 32 samples (every sample group full) from a broadcast view
+# as the init sweep passes them.
+TAPS_EDGE_SHAPES = ((2, 3, 5, 1, False), (1, 10, 4, 7, False), (2, 1, 3, 6, False),
+                    (1, 32, 3, 5, True), (2, 32, 4, 9, False))
+
+
+def taps_edge_inputs(b, n, h, w, broadcast, gen, dev="cuda"):
+    """K8's inputs on a small sweep: (rel_projs [b, 3, 3, 4, 4],
+    depth [b, n, h, w], level_of_sample, src_hws). The projections are the
+    identity perturbed by ~1e-2 with translations of up to 3 pixels, so
+    that samples fall inside the source maps, on their last row and
+    column and past every edge; the levels cycle (0, 0, 1, 2, 1, ...), so
+    that a level's samples are not all together; the depths lie in [0.5,
+    4] with planted ones behind the camera (z < 0 and 0 < z <= 1e-2), a
+    NaN and a huge one (the last three only without `broadcast`, whose
+    samples are one depth per (batch, sample))."""
+    rel = torch.eye(4, device=dev).repeat(b, 3, 3, 1, 1)
+    rel[..., :3, :3] += 1e-2 * torch.randn(b, 3, 3, 3, 3, device=dev, generator=gen)
+    rel[..., :2, 3] = 3.0 * (2 * torch.rand(b, 3, 3, 2, device=dev, generator=gen) - 1)
+    levels = tuple((0, 0, 1, 2, 1)[s % 5] for s in range(n))
+    src_hws = ((2 * h, 2 * w), (h, w), ((h + 1) // 2, (w + 1) // 2))
+    if broadcast:
+        depth = (0.5 + 3.5 * torch.rand(b, n, 1, 1, device=dev, generator=gen))
+        depth[:, 0] = -1.0
+        return rel, depth.expand(b, n, h, w), levels, src_hws
+    depth = 0.5 + 3.5 * torch.rand(b, n, h, w, device=dev, generator=gen)
+    depth[:, 0, 0] = -1.0
+    depth[:, -1, -1, :] = 0.005
+    depth[0, n // 2, h // 2, 0] = float("nan")
+    depth[-1, n // 2, 0, w - 1] = 1e30
+    return rel, depth, levels, src_hws
+
+
+def check_taps_edges():
+    """K8, both forms, bit for bit against its plain version on
+    `TAPS_EDGE_SHAPES`; one JSON line per form."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    for dtype in (torch.float32, BF16):
+        kname = kernel_name("sweep_taps", dtype)
+        for b, n, h, w, broadcast in TAPS_EDGE_SHAPES:
+            rel, depth, levels, srcs = taps_edge_inputs(b, n, h, w, broadcast, gen)
+            want_idx, want_taps = fused_sweep_taps_plain(rel, depth, levels, srcs, dtype)
+            got_idx, got_taps = fused_sweep_taps(rel, depth, levels, srcs, dtype)
+            torch.cuda.synchronize()
+            if not (torch.equal(got_idx, want_idx)
+                    and torch.equal(bits(got_taps), bits(want_taps))):
+                raise SystemExit(f"{kname} at edge sweep {(b, n, h, w, broadcast)}: differs "
+                                 f"from its plain version")
+        print(json.dumps({"kernel": kname, "edge_case": "sweeps",
+                          "shapes": [list(c) for c in TAPS_EDGE_SHAPES], "bit_equal": True}))
 
 
 def check_edge_shapes():
-    """K6 (training form) and K9/K10 in both dtypes at the edge shapes,
-    under the same gates as at the main path's shapes."""
+    """K6 (training form) with K7 on both of the probability gradient's
+    layouts, K9/K10 and K8 in both dtypes at the edge shapes, under the
+    same gates as at the main path's shapes."""
     for dtype in (torch.float32, BF16):
         for b, h, w in READOUT_EDGE_SHAPES:
             check_readout(b, h, w, dtype, 1, "edge_case", train=True)
         for b, h, w in UPSAMPLE_EDGE_SHAPES:
             check_upsample(b, h, w, dtype, 1, "edge_case", train=True)
+    check_taps_edges()
 
 
 def valid_corners(base, h1, w1):
@@ -1548,6 +1639,7 @@ def planned_map_counts(shapes, dtype, maps=1, iteration=ITERATION):
 
 def reset_launch_counts():
     consistency.launches = 0
+    depth_readout_grad.copies = 0
     for fn in COUNTERS.values():
         fn.launches = fn.launches_bf16 = 0
 
@@ -1823,6 +1915,34 @@ def capture_sweeps(model, batch, iteration):
     return [tuple(r) for r in captured]
 
 
+def prob_grad_layouts(model, batch):
+    """The layout of each probability gradient that reaches K7 in one
+    stage-2 training forward and backward of `model` on the device batch
+    `batch` (no optimizer step; the gradients are cleared after), in call
+    order: "dense" or "channels-last" (what K7 reads in place,
+    `prob_grad_strides`) with its strides, or "other" (copied).
+    `DepthReadout.backward` is wrapped for this call only."""
+    seen = []
+    backward = DepthReadout.backward
+
+    def capture(ctx, d_depth, d_prob):
+        strides = None if d_prob is None else prob_grad_strides(d_prob)
+        seen.append({"layout": "none" if d_prob is None else "other" if strides is None
+                     else "dense" if strides[2] == 1 else "channels-last",
+                     "strides": None if d_prob is None else list(d_prob.stride())})
+        return backward(ctx, d_depth, d_prob)
+
+    model.train()
+    DepthReadout.backward = staticmethod(capture)
+    try:
+        loss, _ = forward_loss(model, batch, True)
+        loss.backward()
+    finally:
+        DepthReadout.backward = staticmethod(backward)
+    model.zero_grad(set_to_none=True)
+    return seen
+
+
 def check_real_sweeps(captures, shapes, dtype, synthetic_ms=None):
     """K4 and K5 of `dtype` on the sweeps of one training step
     (`capture_sweeps`), grouped by the sweep shapes of `shapes`: per
@@ -1908,6 +2028,7 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     counts = launch_counts()
+    copies = depth_readout_grad.copies
     peak = torch.cuda.max_memory_allocated()
     planned = {k: n * TRAIN_STEPS for k, n in planned_step_counts(shapes, dtype).items()}
     last = step_s[-5:]
@@ -1916,7 +2037,8 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
            "steps": TRAIN_STEPS,
            "losses": losses, "step_s": step_s, "ms_per_step_last5": 1e3 * sum(last) / len(last),
            "steps_per_s_last5": len(last) / sum(last), "peak_mem_gib": peak / 2 ** 30,
-           "batch_setup_s": setup_s, "launches": counts, "planned_launches": planned}
+           "batch_setup_s": setup_s, "launches": counts, "planned_launches": planned,
+           "depth_readout_grad_copies": copies}
 
     events = trace_events(
         lambda: train_step(model, optimizer, batch, TRAIN_LR, True, TRAIN_ITERATION))
@@ -1957,10 +2079,20 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
         raise SystemExit(f"training loss did not fall: {losses}")
     if counts != planned:
         raise SystemExit(f"training launch counts {counts} != planned {planned}")
+    if copies != 0:
+        raise SystemExit(f"K7's wrapper copied the probability's gradient {copies} times")
     if not all(np.isfinite(list(val.values()))):
         raise SystemExit(f"validation step not finite: {val}")
     if position != (0, TRAIN_STEPS) or not (same_model and same_opt):
         raise SystemExit(f"checkpoint round trip failed: {rec['checkpoint']}")
+
+    # The layouts in which the loss hands K7 the probability's gradient.
+    rec["k7_prob_grad_layouts"] = prob_grad_layouts(model, batch)
+    print(json.dumps({"k7_prob_grad_layouts": rec["k7_prob_grad_layouts"],
+                      "dtype": str(dtype)}))
+    if any(r["layout"] == "other" for r in rec["k7_prob_grad_layouts"]):
+        raise SystemExit(f"K7 got a probability gradient it copies: "
+                         f"{rec['k7_prob_grad_layouts']}")
 
     # K4 and K5 on this step's own sweeps.
     captures = capture_sweeps(model, batch, TRAIN_ITERATION)
@@ -2112,6 +2244,7 @@ def run_steps(job, rank=0, world=1, device="cuda"):
             _sync(device)
             steps.append({"loss": loss, "ms": 1e3 * (time.perf_counter() - t0),
                           "launches": launch_counts(),
+                          "copies": depth_readout_grad.copies,
                           "state": {k: v.detach().cpu().clone()
                                     for k, v in model.state_dict().items()},
                           "grads": {k: p.grad.detach().cpu().clone()
@@ -2199,7 +2332,8 @@ def hold_ddp(name, ranks, single, planned, strict=True, extra=None):
     after the first step within DDP_PARAM_REL (relative L2); always the
     BN running statistics after it within DDP_BN_REL, every rank
     bit-equal to rank 0 (parameters, BN statistics) after every step,
-    finite losses and `planned` launches per rank per step. Prints one
+    finite losses, `planned` launches per rank per step and no copy of
+    the probability's gradient in K7's wrapper. Prints one
     JSON line (with `extra`); SystemExit on a miss."""
     steps = [r["runs"][0] for r in ranks]
     want = single["runs"][0]
@@ -2216,6 +2350,7 @@ def hold_ddp(name, ranks, single, planned, strict=True, extra=None):
                for s in steps[1:] for i in range(len(s)) for k in s[i]["state"]),
            "ms_per_step_per_rank": [[s["ms"] for s in r] for r in steps],
            "launches_per_rank_per_step": [[s["launches"] for s in r] for r in steps],
+           "depth_readout_grad_copies": [[s["copies"] for s in r] for r in steps],
            "planned_per_step": planned}
     print(json.dumps({name: rec}))
     if strict and not (rec["loss_rel"] <= DDP_LOSS_REL
@@ -2227,6 +2362,8 @@ def hold_ddp(name, ranks, single, planned, strict=True, extra=None):
         raise SystemExit(f"{name}: the ranks' parameters or BN statistics differ")
     if any(s["launches"] != planned for r in steps for s in r):
         raise SystemExit(f"{name}: launches per rank per step != {planned}")
+    if any(s["copies"] for r in steps for s in r):
+        raise SystemExit(f"{name}: K7's wrapper copied the probability's gradient")
     return rec
 
 
@@ -2316,8 +2453,9 @@ def train_ddp_nccl():
         planned = planned_step_counts(sweep_shapes(
             TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_ITERATION, TRAIN_BATCH,
             itemsize=dtype.itemsize), dtype)
-        if any(s["launches"] != planned for s in plain["runs"][0]):
-            raise SystemExit(f"train_ddp_nccl: plain launches per step != {planned}")
+        if any(s["launches"] != planned or s["copies"] for s in plain["runs"][0]):
+            raise SystemExit(f"train_ddp_nccl: plain launches per step != {planned}, or "
+                             f"K7's wrapper copied the probability's gradient")
         ms = {name: float(np.mean([s["ms"] for s in r["runs"][0][1:]]))
               for name, r in (("synced", synced), ("plain", plain))}
         extra = {"dtype": str(dtype), "ms_per_step_synced_bn_nccl": ms["synced"],

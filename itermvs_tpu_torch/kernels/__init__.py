@@ -60,9 +60,9 @@ SIGNATURES = {
     "depth_readout_bf16": ("itermvs_depth_readout_bf16",
                            (_P, _P, _P, _P, _P, _P, _I, _I, _P), "depth_readout"),
     "depth_readout_grad": ("itermvs_depth_readout_grad",
-                           (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P)),
+                           (_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _L, _P)),
     "depth_readout_grad_bf16": ("itermvs_depth_readout_grad_bf16",
-                                (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+                                (_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _L, _P),
                                 "depth_readout_grad"),
     "sweep_taps": ("itermvs_sweep_taps",
                    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _P)),

@@ -11,7 +11,9 @@ package.
 On a CUDA tensor `depth_readout` launches the hand-written kernels of the
 logits' dtype (csrc/depth_readout.cu forward, csrc/depth_readout_grad.cu
 backward, each with a float32 and a bfloat16 form) or raises; only a CPU
-tensor takes the plain PyTorch versions beside them. The backward's
+tensor takes the plain PyTorch versions beside them. K7 reads the
+probability's gradient where it lies, dense NCHW (as the training loss
+hands it back) or channels-last (`prob_grad_strides`). The backward's
 plain version is the formula itself, not autograd of the plain forward:
 with r, S and the argmax from the forward, the window weights w_k and
 c = ∂L/∂d / (255 (1e-6 + S)),
@@ -130,15 +132,57 @@ def launch_depth_readout(logits, depth, prob=None, index=None, mass=None,
         _ptr(regress), b, h * w, torch.cuda.current_stream().cuda_stream))
 
 
+def prob_grad_strides(d_prob: torch.Tensor):
+    """The (batch, bin, pixel) element strides under which K7 reads a
+    probability gradient [B, 256, H, W] where it lies: dense NCHW (bin
+    stride H·W, pixel stride 1) or channels-last (bin stride 1, pixel
+    stride 256), H and W flattened into one pixel axis. None for any
+    other layout (the wrapper copies it)."""
+    b, _, h, w = d_prob.shape
+    sb, sk, sh, sw = d_prob.stride()
+    hw = h * w
+    if h == 1 or w == 1:
+        pixel = sw if h == 1 else sh
+    elif sh == w * sw:
+        pixel = sw
+    else:
+        return None
+    batch = sb if b > 1 else NUM_BINS * hw
+    if sk == hw and (pixel == 1 or hw == 1):
+        return batch, hw, 1
+    if sk == 1 and (pixel == NUM_BINS or hw == 1):
+        return batch, 1, NUM_BINS
+    return None
+
+
+def kernel_prob_grad(d_prob: torch.Tensor) -> torch.Tensor:
+    """The probability's gradient as K7 reads it: float32 (converted in
+    its own layout), in place where `prob_grad_strides` takes its layout,
+    else made contiguous once, counted on `depth_readout_grad.copies`.
+    The training loss reads the probability NHWC, but its clamp's
+    backward hands the gradient back dense NCHW, the probability's own
+    layout."""
+    d_prob = d_prob.float()
+    if prob_grad_strides(d_prob) is None:
+        d_prob = d_prob.contiguous()
+        depth_readout_grad.copies += 1
+    return d_prob
+
+
 def launch_depth_readout_grad(prob, d_prob, d_depth, index, mass, regress, out) -> None:
     """K7's bare launch (the kernel of `out`'s dtype) into `out` [B, 256,
     H, W] on the current stream, for checked inputs (`d_prob`, `d_depth`
-    may be None: 0). Counts nothing (the wrapper does)."""
+    may be None: 0; `d_prob` float32, dense or channels-last as
+    `prob_grad_strides` takes it). Counts nothing (the wrapper does)."""
     b, _, h, w = prob.shape
+    strides = (0, 0, 0) if d_prob is None else prob_grad_strides(d_prob)
+    if strides is None:
+        raise ValueError("depth_readout_grad: the probability's gradient must be dense "
+                         f"NCHW or channels-last, got strides {d_prob.stride()}")
     name = KERNELS[out.dtype][1]
     kernels.check_launch(name, kernels.function(name)(
         prob.data_ptr(), _ptr(d_prob), _ptr(d_depth), index.data_ptr(), mass.data_ptr(),
-        regress.data_ptr(), out.data_ptr(), b, h * w,
+        regress.data_ptr(), out.data_ptr(), b, h * w, *strides,
         torch.cuda.current_stream().cuda_stream))
 
 
@@ -174,12 +218,13 @@ def depth_readout_grad(prob, index, mass, regress, d_prob, d_depth,
     """K7 (or its plain version on the CPU): ∂L/∂logits in `dtype`."""
     if prob.device.type == "cpu":
         return depth_readout_grad_plain(prob, index, mass, regress, d_prob, d_depth, dtype)
-    # The probability's gradient may come back as a permuted view (the
-    # loss reads the probability NHWC): made NCHW-contiguous once here.
-    d_prob = None if d_prob is None else d_prob.float().contiguous()
+    d_prob = None if d_prob is None else kernel_prob_grad(d_prob)
     d_depth = None if d_depth is None else d_depth.float().contiguous()
-    given = [t for t in (d_prob, d_depth) if t is not None]
-    _check("depth_readout_grad", [prob, index, mass, regress, *given], dtype)
+    _check("depth_readout_grad", [prob, index, mass, regress]
+           + ([] if d_depth is None else [d_depth]), dtype)
+    if d_prob is not None and (d_prob.device != prob.device or d_prob.shape != prob.shape):
+        raise ValueError("depth_readout_grad: the probability's gradient must match the "
+                         "probability's shape and device")
     if (index.dtype != torch.int32
             or any(t.dtype != torch.float32 for t in (prob, mass, regress))):
         raise ValueError("depth_readout_grad: needs K6's float32 probability, S and r "
@@ -234,3 +279,6 @@ depth_readout.launches = 0
 depth_readout.launches_bf16 = 0
 depth_readout_grad.launches = 0
 depth_readout_grad.launches_bf16 = 0
+# Probability gradients that came in another layout than K7 reads and
+# were copied first (the training path hands K7 none).
+depth_readout_grad.copies = 0

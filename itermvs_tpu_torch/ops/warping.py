@@ -25,6 +25,7 @@ Semantics kept from the JAX package:
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -197,7 +198,14 @@ class SampleTable(ctypes.Structure):
 def sample_table(level_of_sample, src_hws, h: int, w: int) -> SampleTable:
     """The SampleTable of a sweep over an h × w grid: the grid scales are
     the Python quotients the plain version multiplies by, which the
-    c_float fields round to float32 as PyTorch rounds a scalar operand."""
+    c_float fields round to float32 as PyTorch rounds a scalar operand.
+    Built once per sweep geometry and then shared: the kernel takes it by
+    value, and nothing writes to it after it is built."""
+    return _sample_table(tuple(level_of_sample), tuple(map(tuple, src_hws)), h, w)
+
+
+@functools.lru_cache(maxsize=64)
+def _sample_table(level_of_sample, src_hws, h: int, w: int) -> SampleTable:
     n = len(level_of_sample)
     if not 0 < n <= MAX_SAMPLES:
         raise ValueError(f"fused_sweep_taps: 1..{MAX_SAMPLES} samples, got {n}")
@@ -245,6 +253,11 @@ def fused_sweep_taps(rel_projs: torch.Tensor, depth_samples: torch.Tensor,
         raise ValueError(f"fused_sweep_taps: projections {tuple(rel_projs.shape)}, "
                          f"{len(level_of_sample)} sample levels and {len(src_hws)} "
                          f"source sizes do not agree with depths {tuple(depth_samples.shape)}")
+    strides = depth_samples.stride()
+    reach = sum((size - 1) * st for size, st in zip((n, h, w), strides[1:]))
+    if n * h * w >= 2 ** 31 or reach >= 2 ** 31:
+        raise ValueError("fused_sweep_taps: a (batch, view) plane must have fewer than "
+                         "2^31 outputs and depths within 2^31 elements")
     table = sample_table(level_of_sample, src_hws, h, w)
     v = rel_projs.shape[1]
     flat_idx = torch.empty((b, v, n, h * w), dtype=torch.int32, device=dev)

@@ -431,10 +431,11 @@ def test_ddp_plan_is_52_launches_per_rank_per_step():
                                                  **{k: 1 for k in upsample})
 
 
-def _record(loss, value, launches=None):
+def _record(loss, value, launches=None, copies=0):
+    """One step's record as `run_steps` writes it."""
     state = {"w": torch.full((3,), value), "bn.running_mean": torch.ones(2)}
     return {"loss": loss, "ms": 1.0, "launches": launches or chip_smoke.planned_counts(),
-            "state": state, "grads": {"w": torch.ones(3)}}
+            "copies": copies, "state": state, "grads": {"w": torch.ones(3)}}
 
 
 def test_hold_ddp_gates():
@@ -452,6 +453,9 @@ def test_hold_ddp_gates():
     with pytest.raises(SystemExit, match="launches per rank"):
         chip_smoke.hold_ddp("t", [single, single], single,
                             chip_smoke.planned_counts(sweep_premul=52))
+    copied = {"runs": [[_record(10.0, 1.0, copies=1)]]}
+    with pytest.raises(SystemExit, match="copied the probability's gradient"):
+        chip_smoke.hold_ddp("t", [copied, copied], single, chip_smoke.planned_counts())
 
 
 def test_world_one_group_comes_and_goes(monkeypatch):
@@ -741,3 +745,22 @@ def test_eval_timing_script_needs_a_card():
                          text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode != 0 and "no CUDA device" in out.stderr
     assert "maps_per_s" not in out.stdout
+
+
+def test_k8_timing_script_needs_a_card():
+    """Without a CUDA device the K8 A/B timing script exits non-zero and
+    prints no timing line."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "itermvs_tpu_torch", "tools", "time_sweep_taps.py")
+    out = subprocess.run([sys.executable, script, "--tree", root], capture_output=True,
+                         text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert "versions" not in out.stdout and "sass_instructions" not in out.stdout
+
+
+def test_launch_count_reset_clears_k7_copies():
+    """The training phases gate `depth_readout_grad.copies` at 0 from
+    each reset on."""
+    chip_smoke.depth_readout_grad.copies = 3
+    chip_smoke.reset_launch_counts()
+    assert chip_smoke.depth_readout_grad.copies == 0

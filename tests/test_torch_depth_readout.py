@@ -224,3 +224,89 @@ def test_new_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="must be"):
         depth_readout(torch.zeros(1, 8, 2, 3))
     assert (depth_readout.launches, depth_readout_grad.launches) == before
+
+
+def _layouts(b=2, h=3, w=5):
+    """{name: [b, 256, h, w] float32 gradient}: dense NCHW, the loss's
+    channels-last view, and an odd permutation (bins last, H and W
+    swapped), all of the same values."""
+    dense = torch.randn(b, NUM_BINS, h, w)
+    return {"dense": dense,
+            "channels_last": dense.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2),
+            "odd": dense.permute(0, 3, 2, 1).contiguous().permute(0, 3, 2, 1)}
+
+
+@pytest.mark.parametrize("layout, want", [("dense", (NUM_BINS * 15, 15, 1)),
+                                          ("channels_last", (NUM_BINS * 15, 1, NUM_BINS)),
+                                          ("odd", None)])
+def test_k7_reads_dense_and_channels_last_in_place_and_copies_the_rest(layout, want):
+    """The wrapper's layout decision (`kernel_prob_grad`), made on the
+    CPU: dense NCHW and the loss's channels-last view reach K7 as they
+    are, under their (batch, bin, pixel) strides; any other layout is
+    copied to dense NCHW once, and counted."""
+    d_prob = _layouts()[layout]
+    assert dr.prob_grad_strides(d_prob) == want
+    copies = depth_readout_grad.copies
+    got = dr.kernel_prob_grad(d_prob)
+    assert torch.equal(got, d_prob)
+    if want is None:
+        assert depth_readout_grad.copies == copies + 1
+        assert got.is_contiguous() and dr.prob_grad_strides(got) == (NUM_BINS * 15, 15, 1)
+    else:
+        assert depth_readout_grad.copies == copies and got is d_prob
+
+
+def test_k7_layouts_of_one_row_column_or_batch_and_of_bf16():
+    """Size-1 axes flatten whatever their strides; a lone batch entry
+    gets the dense batch stride; a bf16 gradient is converted to float32
+    in its own layout, not copied."""
+    one_row = torch.randn(1, 1, 7, NUM_BINS).permute(0, 3, 1, 2)
+    assert dr.prob_grad_strides(one_row) == (NUM_BINS * 7, 1, NUM_BINS)
+    one_col = torch.randn(3, 6, 1, NUM_BINS).permute(0, 3, 1, 2)
+    assert dr.prob_grad_strides(one_col) == (NUM_BINS * 6, 1, NUM_BINS)
+    assert dr.prob_grad_strides(torch.randn(2, NUM_BINS, 1, 1)) == (NUM_BINS, 1, 1)
+    sliced = torch.randn(3, NUM_BINS, 4, 6)[:, :, :, :5]           # rows do not flatten
+    assert dr.prob_grad_strides(sliced) is None
+    copies = depth_readout_grad.copies
+    bf16 = _layouts()["channels_last"].bfloat16()
+    got = dr.kernel_prob_grad(bf16)
+    assert got.dtype == torch.float32 and torch.equal(got, bf16.float())
+    assert dr.prob_grad_strides(got) == (NUM_BINS * 15, 1, NUM_BINS)
+    assert depth_readout_grad.copies == copies
+
+
+def test_training_loss_hands_k7_a_gradient_it_reads_in_place():
+    """A small CPU training forward and loss (models/losses.py reads each
+    probability NHWC): every probability gradient that reaches
+    `depth_readout_grad`, one per prediction, is in a layout K7 reads in
+    place, so training copies none. It arrives dense NCHW, not
+    channels-last: the loss's clamp backward, `where(p >= 1e-5, grad,
+    0)`, takes the layout of its condition, the probability's NCHW
+    storage, though the cross-entropy's gradient before it is NHWC."""
+    import chip_smoke
+    from itermvs_tpu_torch.engine.train_loop import init_weights, to_device_batch
+    from itermvs_tpu_torch.models import Pipeline
+
+    iteration = 2
+    model = init_weights(Pipeline(iteration=iteration, test=False), 0)
+    batch = to_device_batch(chip_smoke.train_sample(64, 64, 3, 2, 0), "cpu")
+    backward = DepthReadout.backward
+    seen = chip_smoke.prob_grad_layouts(model, batch)
+    assert DepthReadout.backward is backward and len(seen) == 1 + iteration
+    for rec in seen:
+        assert rec == {"layout": "dense", "strides": [NUM_BINS * 16 * 16, 16 * 16, 16, 1]}
+    assert all(p.grad is None for p in model.parameters())
+
+
+@pytest.mark.parametrize("cotangents", ["both", "probability"])
+def test_plain_k7_on_channels_last_equals_it_on_the_dense_copy(rng, cotangents):
+    """The plain version reads the loss's channels-last gradient as it
+    lies and gives the dense copy's result bit for bit."""
+    x, d_depth, d_prob = _vjp_inputs(rng)
+    _, *saved = depth_readout_plain(_nchw(x))
+    last = torch.from_numpy(d_prob).permute(0, 3, 1, 2)
+    assert dr.prob_grad_strides(last)[1:] == (1, NUM_BINS)
+    dd = _nchw(d_depth) if cotangents == "both" else None
+    got = depth_readout_grad_plain(*saved, last, dd, torch.float32)
+    want = depth_readout_grad_plain(*saved, last.contiguous(), dd, torch.float32)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

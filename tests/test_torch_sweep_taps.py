@@ -36,24 +36,30 @@ def _axis_taps(p, size):
     return base.astype(np.int32), w_a.astype(F), w_b.astype(F)
 
 
-def _k8_emulated(rel, depth, level_of_sample, src_hws):
+def _k8_emulated(rel, depth, level_of_sample, src_hws, group=4):
     """K8's per-element arithmetic, one float32 rounding per operation in
-    the kernel's order: (flat_idx [B, V, N, HW] int32, taps [4, B, V, N,
-    HW] float32)."""
+    the kernel's order and with its reuse: the samples in groups of
+    `group` (one grid z index), each pixel's grid point and rot . (gx, gy,
+    1) computed at the first sample of a group and again wherever the
+    level changes inside it, and reused for the group's later samples of
+    that level. (flat_idx [B, V, N, HW] int32, taps [4, B, V, N, HW]
+    float32)."""
     b, n, h, w = depth.shape
     v = rel.shape[1]
     table = sample_table(level_of_sample, src_hws, h, w)
     y, x = np.divmod(np.arange(h * w), w)
     flat_idx = np.empty((b, v, n, h * w), np.int32)
     taps = np.empty((4, b, v, n, h * w), F)
-    with np.errstate(invalid="ignore"):
+    with np.errstate(invalid="ignore", over="ignore"):
         for s in range(n):
             m = rel[:, :, table.level[s]]                         # [B, V, 4, 4]
-            gx = x.astype(F) * F(table.scale_x[s])
-            gy = y.astype(F) * F(table.scale_y[s])
+            if s % group == 0 or table.level[s] != table.level[s - 1]:
+                gx = x.astype(F) * F(table.scale_x[s])
+                gy = y.astype(F) * F(table.scale_y[s])
+                rot = [(m[:, :, i, 0, None] * gx + m[:, :, i, 1, None] * gy)
+                       + m[:, :, i, 2, None] for i in range(3)]
             d = depth[:, s].reshape(b, 1, h * w)
-            xyz = [((m[:, :, i, 0, None] * gx + m[:, :, i, 1, None] * gy)
-                    + m[:, :, i, 2, None]) * d + m[:, :, i, 3, None] for i in range(3)]
+            xyz = [rot[i] * d + m[:, :, i, 3, None] for i in range(3)]
             valid = xyz[2] > F(1e-2)
             pz = np.where(valid, xyz[2], F(1))
             px = np.where(valid, xyz[0], F(w)) / pz
@@ -178,3 +184,38 @@ def test_wrapper_never_falls_back_off_the_cpu():
     assert (fused_sweep_taps.launches, fused_sweep_taps.launches_bf16) == before
     assert warping.TAPS_KERNELS == {torch.float32: "sweep_taps",
                                     torch.bfloat16: "sweep_taps_bf16"}
+
+
+@pytest.mark.parametrize("shape", range(5))
+def test_k8_arithmetic_at_the_edge_sweeps(shape):
+    """chip_smoke's K8 edge sweeps (`TAPS_EDGE_SHAPES`: one column, odd
+    widths, so that a thread's last pixel pair is ragged; one sample; 32
+    samples from a broadcast depth; the levels interleaved, level 2 with
+    a single sample in a group), emulated and bit-equal to the plain
+    version in both table dtypes."""
+    import chip_smoke
+    b, n, h, w, broadcast = chip_smoke.TAPS_EDGE_SHAPES[shape]
+    gen = torch.Generator().manual_seed(shape)
+    rel, depth, levels, srcs = chip_smoke.taps_edge_inputs(b, n, h, w, broadcast, gen, "cpu")
+    got_idx, got_taps = _k8_emulated(rel.numpy(), depth.contiguous().numpy(), levels, srcs)
+    for dtype in (torch.float32, torch.bfloat16):
+        want_idx, want_taps = fused_sweep_taps_plain(rel, depth, levels, srcs, dtype)
+        assert np.array_equal(got_idx, want_idx.numpy())
+        if dtype == torch.float32:
+            assert np.array_equal(got_taps.view(np.uint32), want_taps.numpy().view(np.uint32))
+        else:
+            assert np.array_equal(_bf16_bits(got_taps),
+                                  want_taps.view(torch.int16).numpy().view(np.uint16))
+    t = got_taps.sum(axis=0)
+    assert (t == 0).any() and ((t > 0) & (t < 0.999)).any()
+
+
+def test_sample_table_is_built_once_per_geometry():
+    """The wrapper's table is cached by (levels, source sizes, h, w): the
+    same geometry, in lists or tuples, gives the same table; another
+    gives another."""
+    src_hws = [(576, 800), (288, 400), (144, 200)]
+    a = sample_table([0, 0, 1, 2], src_hws, 288, 400)
+    assert sample_table((0, 0, 1, 2), tuple(src_hws), 288, 400) is a
+    assert sample_table((0, 0, 1, 2), src_hws, 144, 200) is not a
+    assert list(a.level[:4]) == [0, 0, 1, 2]
