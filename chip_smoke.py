@@ -124,7 +124,8 @@ edges (`check_fwd_edge_cases`: ragged row counts, bases on the map's
 last row or column and off it, where both write NaN, C = 8 and 256),
 then K6 (training form) with K7 on both gradient layouts, K9 and K10
 in both dtypes at small shapes (`check_edge_shapes`: K6's and K7's
-ragged tiles, aligned or not; maps of one row, one column, 2x3) and K8
+ragged tiles, aligned or not; maps of one row, one column, 2x3, and
+even widths of 66 and 2, where K9/K10 take their paired path) and K8
 bit for bit on small sweeps (one column, odd widths, 1 and 32 samples,
 a broadcast depth),
 then the same 5 depth maps run in bf16 (each map's median error < 0.05
@@ -190,7 +191,8 @@ from itermvs_tpu_torch.ops.sweep_grad import (
     sweep_grad_ref_plain, sweep_grad_src, sweep_grad_src_plain)
 from itermvs_tpu_torch.ops.upsample import (
     CHANNELS, convex_upsample_grad, convex_upsample_grad_plain, convex_upsample_plain,
-    launch_convex_upsample, launch_convex_upsample_grad, upsample_depth)
+    fold_is_programmatic, launch_convex_upsample, launch_convex_upsample_grad,
+    upsample_depth)
 from itermvs_tpu_torch.ops.warping import (
     fused_sweep_taps, fused_sweep_taps_plain, launch_sweep_taps, relative_projection,
     sample_table)
@@ -978,6 +980,17 @@ UPSAMPLE_TOL = 1e-6
 K9_OPS, K10_OPS = 62, 98
 
 
+def upsample_work(b, h, w, dtype, grad):
+    """(bytes, operations) of K9 (or, with `grad`, K10) at [b, 144, h, w]:
+    each input read once, each output written once (K10's scratch P not
+    counted), and the operations per sub-pixel above."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    pixels = b * h * w
+    if grad:
+        return pixels * (2 * CHANNELS * size + 4 + 64 + 4), K10_OPS * 16 * pixels
+    return pixels * (CHANNELS * size + 4 + 64), K9_OPS * 16 * pixels
+
+
 def upsample_inputs(b, h, w, gen, dtype, dev="cuda"):
     """Seeded K9/K10 inputs: a normalized depth x [b, 1, h, w] in [0, 1)
     and mask logits [b, 144, h, w] in `dtype`, N(0, 4), with planted
@@ -1003,12 +1016,11 @@ def check_upsample(b, h, w, dtype, launches, per, train):
     max|plain|, bf16 logits' gradient plus one bf16 step of |plain|),
     two launches bit-equal. Times the bare launches (`ms`, outputs
     allocated beforehand), the wrappers (`call_ms`) and the plain
-    versions; one JSON line per kernel, whose totals (times `launches`)
-    it returns."""
+    versions; one JSON line per kernel (K10's says whether its fold was a
+    programmatic dependent launch), whose totals (times `launches`) it
+    returns."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 4)
-    size = torch.tensor([], dtype=dtype).element_size()
-    pixels = b * h * w
     x, logits = upsample_inputs(b, h, w, gen, dtype)
     up = torch.empty(b, 1, 4 * h, 4 * w, device="cuda")
     launch_convex_upsample(x, logits, up)
@@ -1016,8 +1028,7 @@ def check_upsample(b, h, w, dtype, launches, per, train):
     err = (up - want).abs().max().item()
     same_wrapper = torch.equal(upsample_depth(x, logits), up)
     kname = kernel_name("convex_upsample", dtype)
-    nbytes = pixels * (CHANNELS * size + 4 + 64)
-    ops = K9_OPS * 16 * pixels
+    nbytes, ops = upsample_work(b, h, w, dtype, grad=False)
     k9 = {"ms": time_ms(lambda: launch_convex_upsample(x, logits, up)),
           "call_ms": time_ms(lambda: upsample_depth(x, logits)),
           "plain_ms": time_ms(lambda: convex_upsample_plain(x, logits)), "library_ms": None}
@@ -1062,8 +1073,7 @@ def check_upsample(b, h, w, dtype, launches, per, train):
     run()
     torch.cuda.synchronize()
     repeats = torch.equal(first_x, d_x) and torch.equal(bits(first_l), bits(d_logits))
-    nbytes = pixels * (2 * CHANNELS * size + 4 + 64 + 4)
-    ops = K10_OPS * 16 * pixels
+    nbytes, ops = upsample_work(b, h, w, dtype, grad=True)
     k10 = {"ms": time_ms(run),
            "call_ms": time_ms(lambda: convex_upsample_grad(x, logits, grad)),
            "plain_ms": time_ms(lambda: convex_upsample_grad_plain(x, logits, grad, dtype)),
@@ -1074,6 +1084,7 @@ def check_upsample(b, h, w, dtype, launches, per, train):
                       "max_abs_err": {k: v[0] for k, v in errs.items()},
                       "max_rel_err": {k: v[1] for k, v in errs.items()},
                       "two_launches_bit_equal": repeats,
+                      "fold_programmatic": fold_is_programmatic(),
                       **k10, "share": k10["bound_ms"] / k10["ms"]}))
     if not repeats:
         raise SystemExit(f"{gname}: two launches on the same inputs differ")
@@ -1093,13 +1104,16 @@ def check_upsample(b, h, w, dtype, launches, per, train):
 # that are (120); K9/K10 on maps of one row, one column and 2x3 (not
 # 2x2: there every pixel is a corner, whose doubly clamped tap, +60 in
 # `upsample_inputs`, takes all the weight, so that dlogits vanishes,
-# max 4.6e-11, and 1e-5 of it lies below float32's rounding). K6's
-# maps keep H*W above 64: at 64 positions or fewer PyTorch's softmax on
-# the card splits each position's sum over several threads, so the plain
-# version's p is then no longer summed in bin order (at 7x9 it lies
-# 1.01e-6 from K6's, beyond READOUT_TOL).
+# max 4.6e-11, and 1e-5 of it lies below float32's rounding), where odd
+# widths take the kernels' scalar path with a one-pixel pair at each
+# row's end, and at the even widths 66 (a row of 33 pairs, so that a
+# block's 32 pairs end inside a row) and 2 (one pair a row) on their
+# paired path. K6's maps keep H*W above 64: at 64 positions or fewer
+# PyTorch's softmax on the card splits each position's sum over several
+# threads, so the plain version's p is then no longer summed in bin
+# order (at 7x9 it lies 1.01e-6 from K6's, beyond READOUT_TOL).
 READOUT_EDGE_SHAPES = ((3, 7, 11), (2, 10, 12))
-UPSAMPLE_EDGE_SHAPES = ((2, 1, 3), (1, 5, 1), (3, 2, 3))
+UPSAMPLE_EDGE_SHAPES = ((2, 1, 3), (1, 5, 1), (3, 2, 3), (2, 3, 66), (1, 4, 2))
 # K8's edge sweeps (batch, samples, h, w, broadcast depth): a one-column
 # grid, odd widths (a thread's last pair ragged, scalar stores), one
 # sample, and 32 samples (every sample group full) from a broadcast view

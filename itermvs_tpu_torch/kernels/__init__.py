@@ -77,6 +77,9 @@ SIGNATURES = {
     "convex_upsample_grad_bf16": ("itermvs_convex_upsample_grad_bf16",
                                   (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
                                   "convex_upsample_grad"),
+    # Not a kernel: 1 where K10's kernels are programmatic dependent launches.
+    "convex_upsample_grad_programmatic": ("itermvs_convex_upsample_grad_programmatic", (),
+                                          "convex_upsample_grad"),
 }
 
 _lock = threading.Lock()

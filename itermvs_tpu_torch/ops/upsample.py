@@ -20,9 +20,10 @@ so a border pixel also takes the taps that clamp onto it.
 On a CUDA tensor `upsample_depth` launches the hand-written kernels of
 the logits' dtype (csrc/convex_upsample.cu forward, csrc/
 convex_upsample_grad.cu backward, each with a float32 and a bfloat16
-form) or raises; only a CPU tensor takes the plain PyTorch versions
-beside them. The backward's plain version is the formula itself, not
-autograd of the plain forward.
+form, sharing their softmax through csrc/upsample_taps.cuh) or raises;
+only a CPU tensor takes the plain PyTorch versions beside them. The
+backward's plain version is the formula itself, not autograd of the
+plain forward.
 """
 from __future__ import annotations
 
@@ -154,6 +155,13 @@ def launch_convex_upsample_grad(x, mask_logits, grad, d_x, d_logits, partial) ->
         mask_logits.data_ptr(), x.data_ptr(), grad.data_ptr(), d_logits.data_ptr(),
         partial.data_ptr(), d_x.data_ptr(), b, h, w,
         torch.cuda.current_stream().cuda_stream))
+
+
+def fold_is_programmatic() -> bool:
+    """Whether K10 launches its fold (and its first kernel) as a
+    programmatic dependent launch, a choice compiled into
+    csrc/convex_upsample_grad.cu. Needs nvcc."""
+    return bool(kernels.function("convex_upsample_grad_programmatic")())
 
 
 def _forward(x: torch.Tensor, mask_logits: torch.Tensor) -> torch.Tensor:

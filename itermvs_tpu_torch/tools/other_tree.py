@@ -1,11 +1,12 @@
 """Build a kernel source of another checkout of the port in this one and
 bind its launchers, for the tools that time two versions of a kernel in
-one process (`time_readout.py`, `time_sweep_taps.py`).
+one process (`time_readout.py`, `time_sweep_taps.py`, `time_upsample.py`).
 
 The other checkout's `itermvs_tpu_torch/csrc/<source>.cu` is compiled
 with this checkout's nvcc flags into this checkout's
 `itermvs_tpu_torch/_build/`, under a name that carries a hash of the
-source and the flags. Needs nvcc (the card's machine).
+source, the other checkout's shared headers and the flags. Needs nvcc
+(the card's machine).
 """
 from __future__ import annotations
 
@@ -23,10 +24,15 @@ def source_path(tree: str, source: str) -> str:
 
 
 def library(tree: str, source: str) -> str:
-    """The shared library of `tree`'s `source`.cu, built here if needed."""
+    """The shared library of `tree`'s `source`.cu, built here if needed;
+    its name hashes the source, the tree's shared headers (`csrc/*.cuh`)
+    and the flags. The ptxas report is kept beside it as `<lib>.log`."""
     path = source_path(tree, source)
-    with open(path, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(kernels.NVCC_FLAGS).encode())
+    csrc = os.path.dirname(path)
+    digest = hashlib.sha256(" ".join(kernels.NVCC_FLAGS).encode())
+    for name in (f"{source}.cu", *sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))):
+        with open(os.path.join(csrc, name), "rb") as f:
+            digest.update(f.read())
     lib = os.path.join(kernels.BUILD_DIR, f"lib{source}_other-{digest.hexdigest()[:16]}.so")
     if not os.path.exists(lib):
         os.makedirs(kernels.BUILD_DIR, exist_ok=True)
@@ -34,6 +40,8 @@ def library(tree: str, source: str) -> str:
                              capture_output=True, text=True)
         if out.returncode != 0:
             raise SystemExit(f"nvcc failed for {path}:\n{out.stdout}{out.stderr}")
+        with open(f"{lib}.log", "w") as f:
+            f.write(out.stdout + out.stderr)
     return lib
 
 
@@ -68,4 +76,20 @@ def sass_instructions(lib: str) -> dict:
             counts[name] = 0
         elif name is not None and re.match(r"\s*/\*[0-9a-f]{4}\*/", line):
             counts[name] += 1
+    return counts
+
+
+def registers(lib: str) -> dict:
+    """{kernel function (mangled): registers per thread} from the ptxas
+    report kept beside a library (`<lib>.log`)."""
+    counts, name = {}, None
+    with open(f"{lib}.log") as f:
+        for line in f:
+            head = re.search(r"Compiling entry function '(\S+)'", line)
+            used = re.search(r"Used (\d+) registers", line)
+            if head:
+                name = head.group(1)
+            elif used and name is not None:
+                counts[name] = int(used.group(1))
+                name = None
     return counts

@@ -764,3 +764,43 @@ def test_launch_count_reset_clears_k7_copies():
     chip_smoke.depth_readout_grad.copies = 3
     chip_smoke.reset_launch_counts()
     assert chip_smoke.depth_readout_grad.copies == 0
+
+
+def test_upsample_timing_script_needs_a_card():
+    """Without a CUDA device the K9/K10 A/B timing script exits non-zero
+    and prints no timing line."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "itermvs_tpu_torch", "tools", "time_upsample.py")
+    out = subprocess.run([sys.executable, script, "--tree", root], capture_output=True,
+                         text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert "versions" not in out.stdout and "sass_instructions" not in out.stdout
+
+
+def test_upsample_work_counts_each_input_and_output_once():
+    """K9: 144 logits, the pixel's depth and its 16 sub-pixels; K10: the
+    logits read and their gradient written, g's 16 values, the depth and
+    its gradient. The edge shapes hold both of the kernels' paths: odd
+    widths, and even widths crossing a block's 32 pairs and of one
+    pair."""
+    assert chip_smoke.upsample_work(1, 288, 400, torch.bfloat16, grad=False) == (
+        288 * 400 * (144 * 2 + 4 + 64), 62 * 16 * 288 * 400)
+    assert chip_smoke.upsample_work(4, 128, 160, torch.float32, grad=True) == (
+        4 * 128 * 160 * (2 * 144 * 4 + 72), 98 * 16 * 4 * 128 * 160)
+    widths = {w for _, _, w in chip_smoke.UPSAMPLE_EDGE_SHAPES}
+    assert any(w % 2 for w in widths) and 2 in widths
+    assert any(w % 2 == 0 and w // 2 > 32 for w in widths)
+
+
+def test_ptxas_registers_are_read_per_kernel(tmp_path):
+    from itermvs_tpu_torch.tools import other_tree
+
+    log = tmp_path / "lib.so.log"
+    log.write_text(
+        "ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1av\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 1 barriers, 9216 bytes smem\n"
+        "ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'\n"
+        "ptxas info    : Used 26 registers, used 0 barriers\n")
+    assert other_tree.registers(str(tmp_path / "lib.so")) == {"_Z1av": 40, "_Z1bv": 26}

@@ -21,6 +21,15 @@ gradients (the same float32 arithmetic, summed in another order); on a
 1e-5 of 1 for ∂logits.
 chip_smoke.py holds the CUDA kernels against these plain versions on the
 card.
+
+The kernels' own arithmetic, which cannot run here, is emulated in numpy
+float32 (`_k9_k10_emulated`): the softmax of csrc/upsample_taps.cuh (one
+reciprocal of the sum, then a product per weight), K10's per-tap sums in
+its order (the 4 sub-columns of a sub-row, then the 4 sub-rows in
+order) and its fold, on chip_smoke's planted inputs, held under the
+gates chip_smoke applies on the card; and the kernels' mapping of
+threads to pixel pairs, with a one-pixel pair at the end of a row of
+odd width.
 """
 import numpy as np
 import pytest
@@ -28,6 +37,8 @@ import torch
 
 import jax
 import jax.numpy as jnp
+
+import chip_smoke
 
 from itermvs_tpu.ops.upsample import convex_upsample as jax_convex_upsample
 from itermvs_tpu_torch.ops.upsample import (
@@ -193,3 +204,118 @@ def test_new_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="needs x"):
         upsample_depth(torch.zeros(1, 1, 2, 3), torch.zeros(1, 16, 2, 3))
     assert (upsample_depth.launches, convex_upsample_grad.launches) == before
+
+
+F = np.float32
+
+
+def _softmax9_emulated(l):
+    """csrc/upsample_taps.cuh `softmax9` over the last axis (9 taps) of
+    float32 logits: the maximum, the sum of exp(l - max) in tap order,
+    then each exp times the sum's reciprocal, one rounding per step."""
+    m = l[..., 0]
+    for k in range(1, 9):
+        m = np.fmax(m, l[..., k])
+    e = np.empty_like(l)
+    s = np.zeros_like(m)
+    for k in range(9):
+        e[..., k] = np.exp(l[..., k] - m)
+        s = s + e[..., k]
+    r = F(1) / s
+    return e * r[..., None]
+
+
+def _tap_range(q, d, n):
+    """csrc/convex_upsample_grad.cu `tap_range`."""
+    return max(0 if q == 0 else q - d, 0), min(n - 1 if q == n - 1 else q - d, n - 1)
+
+
+def _k9_k10_emulated(x, logits, grad):
+    """K9's output [B, 1, 4H, 4W] and K10's (∂x [B, 1, H, W], ∂logits
+    [B, 144, H, W]) float32, each operation rounded once, in the kernels'
+    order. x, grad float32 and logits (float32 values) as numpy arrays."""
+    b, _, h, w = x.shape
+    ys, xs = np.arange(h), np.arange(w)
+    t = np.stack([x[:, 0][:, np.clip(ys + dy, 0, h - 1)][:, :, np.clip(xs + dx, 0, w - 1)]
+                  for dy in (-1, 0, 1) for dx in (-1, 0, 1)], axis=-1)   # [B, H, W, 9]
+    # [B, i, j, H, W, 9]: tap last.
+    wt = _softmax9_emulated(logits.reshape(b, 9, 4, 4, h, w).transpose(0, 2, 3, 4, 5, 1))
+    t = t[:, None, None]
+    up = np.zeros(wt.shape[:-1], F)
+    for k in range(9):
+        up = up + wt[..., k] * t[..., k]
+    out = up.transpose(0, 3, 1, 4, 2).reshape(b, 1, 4 * h, 4 * w)
+    g = grad.reshape(b, h, 4, w, 4).transpose(0, 2, 4, 1, 3)[..., None]  # [B, i, j, H, W, 1]
+    gw = g * wt
+    d_logits = gw * (t - up[..., None])
+    rows = np.zeros((b, 4) + wt.shape[3:], F)                      # [B, i, H, W, 9]
+    for j in range(4):
+        rows = rows + gw[:, :, j]
+    part = rows[:, 0]
+    for i in range(1, 4):
+        part = part + rows[:, i]                                   # [B, H, W, 9]
+    d_x = np.zeros((b, 1, h, w), F)
+    for bb, y, xc in np.ndindex(b, h, w):
+        acc = F(0)
+        for k in range(9):
+            y0, y1 = _tap_range(y, k // 3 - 1, h)
+            x0, x1 = _tap_range(xc, k % 3 - 1, w)
+            for py in range(y0, y1 + 1):
+                for px in range(x0, x1 + 1):
+                    acc = F(acc + part[bb, py, px, k])
+        d_x[bb, 0, y, xc] = acc
+    return out, d_x, d_logits.transpose(0, 5, 1, 2, 3, 4).reshape(b, 144, h, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 5, 6), (1, 3, 7)])
+def test_kernel_arithmetic_holds_chip_smokes_gates(shape, dtype):
+    """The emulated kernels on chip_smoke's planted inputs: K9 within
+    UPSAMPLE_TOL of the plain version; K10's ∂logits (rounded once to the
+    logits' dtype) and ∂x within 1e-5 of max|float64 plain|, plus one
+    bf16 step of |plain| for bf16 ∂logits (`hold_grad`'s bounds)."""
+    b, h, w = shape
+    gen = torch.Generator().manual_seed(0)
+    x, logits = chip_smoke.upsample_inputs(b, h, w, gen, dtype, dev="cpu")
+    grad = torch.randn(b, 1, 4 * h, 4 * w, generator=gen)
+    with np.errstate(over="ignore", under="ignore"):
+        out, d_x, d_l = _k9_k10_emulated(x.numpy(), logits.float().numpy(), grad.numpy())
+    assert np.abs(out - convex_upsample_plain(x, logits).numpy()).max() <= \
+        chip_smoke.UPSAMPLE_TOL
+    exact_x, exact_l = convex_upsample_grad_plain(x.double(), logits.double(), grad.double(),
+                                                  torch.float64)
+    step = chip_smoke.BF16_STEP if dtype == torch.bfloat16 else 0.0
+    for got, want, s in ((torch.from_numpy(d_l).to(dtype), exact_l.to(dtype), step),
+                         (torch.from_numpy(d_x), exact_x.float(), 0.0)):
+        want = want.float()
+        bound = 1e-5 * want.abs().max() + s * want.abs()
+        assert bool(((got.float() - want).abs() <= bound).all())
+
+
+def _pairs(b, h, w):
+    """The kernels' pixel pairs (csrc/upsample_taps.cuh `Pair`), in
+    thread order: (batch, row, first column, two pixels)."""
+    per_row = (w + 1) // 2
+    out = []
+    for gq in range(b * h * per_row):
+        r, x0 = divmod(gq, per_row)
+        out.append((r // h, r % h, 2 * x0, 2 * x0 + 1 < w))
+    return out
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 66])
+def test_pair_mapping_covers_every_pixel_once(w):
+    """Pairs never straddle a row; at odd W a row ends in a one-pixel
+    pair; at even W every pair holds two pixels and every plane's pair
+    starts on an even element (the paired path's 2-element alignment), so
+    that a block's 32 pairs may end inside a row (W = 66) or span rows."""
+    b, h = 2, 3
+    seen = []
+    for bb, y, x0, two in _pairs(b, h, w):
+        seen += [(bb, y, x0)] + ([(bb, y, x0 + 1)] if two else [])
+        assert x0 + two < w
+        if w % 2 == 0:
+            assert two and (y * w + x0) % 2 == 0 and (h * w) % 2 == 0
+    assert sorted(seen) == [(bb, y, xc) for bb in range(b) for y in range(h)
+                            for xc in range(w)]
+    assert len(seen) == len(set(seen))
