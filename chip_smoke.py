@@ -144,6 +144,21 @@ dtype's averaged over its run and two runs from the init perturbed by
 1e-6; 52 launches of each bf16 form per step; the bf16 loss on an f32
 run's weights before each step is printed).
 
+After the bf16 maps, `eval_ddp_2rank` runs the eval CLI's data-parallel
+mode on the same 5 maps at `--batch_size 2`: two processes share the
+card over gloo, each joined before it calls the port. Each renders the
+scene from the seed, takes its rows of the 3 global batches through
+`data.loader.eval_batches` (the last batch padded: rank 1's last row is
+padding) and runs `run_depth` with their `n_real`, the feature cache
+off, in f32 on the uint16 and the float32 wire and in bf16 on the uint16
+wire, under deterministic cuDNN, each rank into a directory of its own;
+after the barrier of `eval.fuse_once`, as the CLI's main, rank 0 links
+the ranks' maps into one directory (a map two ranks wrote fails) and
+fuses the f32 maps. Held: each rank wrote the maps of its real rows and
+no other, the maps equal one process's at batch 1 with the cache off
+bit for bit, each rank launched each kernel as planned for its 3 rows,
+and the fused cloud passes step 5's gate with K3 launched once per view.
+
 The last line is `{"ok": true, "device": {...}}`; any failed phase
 exits non-zero before it. Without a CUDA device, or outside the repo,
 the script exits non-zero and prints no result.
@@ -169,7 +184,8 @@ from itermvs_tpu_torch.engine.checkpoint import restore_checkpoint, save_checkpo
 from itermvs_tpu_torch.engine.profiling import maybe_enable_nan_debugging
 from itermvs_tpu_torch.engine.train_loop import (
     forward_loss, init_weights, make_optimizer, to_device_batch, train_step, val_step)
-from itermvs_tpu_torch.eval import run_depth
+from itermvs_tpu_torch.data.loader import eval_batches
+from itermvs_tpu_torch.eval import fuse_once, run_depth
 from itermvs_tpu_torch.fusion import MemoryViews, consistency_matrices, fuse_views
 from itermvs_tpu_torch.io import read_pfm, read_ply
 from itermvs_tpu_torch.models import Pipeline
@@ -2272,16 +2288,18 @@ def run_steps(job, rank=0, world=1, device="cuda"):
     return out
 
 
-def ddp_rank(rank, world, port, backend, device, job_path):
+def ddp_rank(rank, world, port, backend, device, job_path, work="run_steps"):
     """One rank of `run_ranks`, in a process of its own: joins the group
-    through torchrun's variables (every rank on `device`), runs
-    `run_steps` and saves its records beside the job file."""
+    through torchrun's variables (every rank on `device`), runs `work`
+    (this module's `run_steps` or `eval_rank`) and saves its records
+    beside the job file."""
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
                       WORLD_SIZE=str(world), LOCAL_RANK="0")
     job = torch.load(job_path, weights_only=True)
     mesh.initialize_distributed("on", backend=backend, device=device)
     try:
-        out = run_steps(job, int(rank), int(world), device)
+        out = {"run_steps": run_steps, "eval_rank": eval_rank}[work](
+            job, int(rank), int(world), device)
     finally:
         torch.distributed.destroy_process_group()
     torch.save(out, f"{job_path}.rank{rank}")
@@ -2293,11 +2311,11 @@ def free_port():
         return s.getsockname()[1]
 
 
-def run_ranks(job, world, backend, device, timeout=900, env=None):
-    """`run_steps` of `job` on `world` ranks, each a Python process of its
-    own (`ddp_rank`) on `device`, joined over `backend` on localhost.
-    Returns each rank's records; a rank that fails stops all and raises
-    with its output."""
+def run_ranks(job, world, backend, device, timeout=900, env=None, work="run_steps"):
+    """`work` (`run_steps` or `eval_rank`) of `job` on `world` ranks, each a
+    Python process of its own (`ddp_rank`) on `device`, joined over
+    `backend` on localhost. Returns each rank's records; a rank that fails
+    stops all and raises with its output."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "job.pt")
         torch.save(job, path)
@@ -2306,7 +2324,7 @@ def run_ranks(job, world, backend, device, timeout=900, env=None):
         logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(world)]
         procs = [subprocess.Popen(
             [sys.executable, "-c", code, str(r), str(world), str(port), backend, str(device),
-             path], cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+             path, work], cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
             stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
         deadline = time.monotonic() + timeout
         try:
@@ -2706,6 +2724,180 @@ def input_uint8(model, samples, samples_u8, noise, tmp):
     return rec
 
 
+# eval_ddp_2rank: the eval path over two processes on the one card (gloo),
+# at --batch_size 2: 3 global batches of the 5 maps, the last one padded.
+EVAL_DDP_BATCH = 2
+# (dtype, result wire) of the data-parallel eval runs, each held bit for
+# bit against one process; the learned maps fused are the first run's.
+EVAL_DDP_RUNS = (("float32", "uint16"), ("float32", "float32"), ("bfloat16", "uint16"))
+
+
+def stack_samples(samples):
+    """Batch-1 samples (`samples_of`) as one batch in the loader's layout."""
+    def stack(values):
+        if isinstance(values[0], dict):
+            return {k: stack([v[k] for v in values]) for k in values[0]}
+        if isinstance(values[0], list):
+            return [x for v in values for x in v]
+        return np.concatenate(values)
+
+    return stack(samples)
+
+
+def rank_batches(samples, batch_size, rank, world):
+    """(batch, n_real) of this rank's rows of each global batch of
+    `samples` at `batch_size`, as `eval_batches` gives them to the loader:
+    the short last batch padded by its last sample."""
+    return [(stack_samples([samples[i] for i in rows]), n)
+            for rows, n in eval_batches(len(samples), batch_size, rank, world)]
+
+
+def real_views(size, batch_size, rank, world):
+    """The views whose maps `rank` writes: its rows before the padding."""
+    return [rows[i] for rows, n in eval_batches(size, batch_size, rank, world)
+            for i in range(n)]
+
+
+def merge_rank_outputs(root, world):
+    """Hard-links the PFMs that each rank wrote under root/rank<r> into
+    root/all and returns {rank: [views it wrote]}; a map written by two
+    ranks, or a depth map without its confidence, raises."""
+    written = {}
+    for r in range(world):
+        views = {}
+        for kind in ("depth_est", "confidence"):
+            src, dst = os.path.join(root, f"rank{r}", kind), os.path.join(root, "all", kind)
+            os.makedirs(dst, exist_ok=True)
+            names = sorted(os.listdir(src)) if os.path.isdir(src) else []
+            for name in names:
+                if os.path.exists(os.path.join(dst, name)):
+                    raise SystemExit(f"{kind}/{name} written by two ranks")
+                os.link(os.path.join(src, name), os.path.join(dst, name))
+            views[kind] = [int(name[:8]) for name in names]
+        if views["depth_est"] != views["confidence"]:
+            raise SystemExit(f"rank {r} wrote depth maps {views['depth_est']} but "
+                             f"confidence maps {views['confidence']}")
+        written[r] = views["depth_est"]
+    return written
+
+
+def eval_rank(job, rank=0, world=1, device="cuda"):
+    """One rank of `eval_ddp_2rank`: renders the scene from its seed, runs
+    `run_depth` on its rows of every global batch (`rank_batches`, the
+    feature cache off, as save_depth runs a data-parallel eval) once per
+    EVAL_DDP_RUNS into job["out"]/<dtype>_<wire>/rank<r>, under
+    deterministic cuDNN; then `fuse_once`, as the eval CLI's main: after
+    the barrier rank 0 links every rank's maps together
+    (`merge_rank_outputs`) and fuses the learned depth of the first run.
+    Records the rank's rows, each run's launches and rank 0's merge and
+    fused cloud."""
+    cams, images, _ = render_scene(job["width"], job["height"], job["views"], job["seed"])
+    local = rank_batches(samples_of(cams, images), job["batch"], rank, world)
+    batches = [b for b, _ in local]
+    if torch.device(device).type == "cuda":
+        batches = pinned(batches)
+    out = {"rows": [len(b["filename"]) for b in batches], "n_real": [n for _, n in local],
+           "launches": {}}
+    with deterministic_cudnn():
+        for dtype, wire in EVAL_DDP_RUNS:
+            model = load_npz_weights(Pipeline(iteration=job["iteration"],
+                                              dtype=getattr(torch, dtype)),
+                                     pretrained_path("dtu")).to(device)
+            _sync(device)
+            reset_launch_counts()
+            run_depth(model, batches, os.path.join(job["out"], f"{dtype}_{wire}", f"rank{rank}"),
+                      device, feature_cache=False, result_wire=wire, n_real=out["n_real"],
+                      log=lambda *_: None)
+            _sync(device)
+            out["launches"][f"{dtype}_{wire}"] = launch_counts()
+            del model
+
+    def fuse():
+        merged = {f"{d}_{w}": merge_rank_outputs(os.path.join(job["out"], f"{d}_{w}"), world)
+                  for d, w in EVAL_DDP_RUNS}
+        learned = os.path.join(job["out"], "_".join(EVAL_DDP_RUNS[0]), "all")
+        maps = [[read_pfm(os.path.join(learned, kind, f"{v:08d}.pfm"))[0][..., 0]
+                 for v in range(job["views"])] for kind in ("depth_est", "confidence")]
+        reset_launch_counts()
+        fused = fuse_scene(fusion_views(cams, *maps, images),
+                           os.path.join(job["out"], "fused"), device)
+        _sync(device)
+        return {"written": merged, "fused": fused, "fusion_launches": launch_counts()}
+
+    out["rank0"] = fuse_once(fuse, device, parallel=True)
+    return out
+
+
+def eval_ddp_2rank(samples, card):
+    """The eval path over DDP_WORLD processes sharing the card over gloo
+    (`eval_rank`), the 5 maps at EVAL_DDP_BATCH, against one process at
+    batch 1 with the feature cache off (`samples`, on the card), per
+    EVAL_DDP_RUNS, both under deterministic cuDNN: each rank writes the
+    maps of its real rows and no other, every map once, 0 differing
+    pixels; each rank launches each kernel as planned for its rows (the
+    padded row is computed, as on JAX's devices); rank 0's fused cloud of
+    the learned depth passes the main phase's gate and launches K3 once per
+    view. Prints one JSON line; SystemExit on a miss."""
+    views = len(samples)
+    with tempfile.TemporaryDirectory() as tmp:
+        job = {"width": WIDTH, "height": HEIGHT, "views": views, "seed": SEED,
+               "iteration": ITERATION, "batch": EVAL_DDP_BATCH, "out": tmp}
+        t0 = time.perf_counter()
+        ranks = run_ranks(job, DDP_WORLD, "gloo", "cuda:0", work="eval_rank")
+        wall = time.perf_counter() - t0
+        differing = {}
+        with deterministic_cudnn():
+            for dtype, wire in EVAL_DDP_RUNS:
+                key = f"{dtype}_{wire}"
+                model = load_npz_weights(Pipeline(iteration=ITERATION,
+                                                  dtype=getattr(torch, dtype)),
+                                         pretrained_path("dtu")).cuda()
+                run_depth(model, samples, os.path.join(tmp, key, "one"), "cuda",
+                          feature_cache=False, result_wire=wire, log=lambda *_: None)
+                del model
+                diff = pfm_diff(os.path.join(tmp, key, "all"), os.path.join(tmp, key, "one"),
+                                views)
+                differing[key] = sum(r["differing_pixels"] for r in diff)
+    rank0 = ranks[0]["rank0"]
+
+    def launched(counts):
+        return {k: n for k, n in counts.items() if n}
+
+    rec = {"world": DDP_WORLD, "batch": EVAL_DDP_BATCH, "maps": views,
+           "rows_per_rank": [r["rows"] for r in ranks],
+           "n_real_per_rank": [r["n_real"] for r in ranks],
+           "written_per_rank": rank0["written"], "differing_pixels": differing,
+           "launches_per_rank": [{key: launched(c) for key, c in r["launches"].items()}
+                                 for r in ranks],
+           "wall_s_with_process_start": wall,
+           "timing_note": "two processes sharing one card over gloo: not a scaling figure",
+           "fused": rank0["fused"], "fusion_launches": launched(rank0["fusion_launches"]),
+           "card": card}
+    print(json.dumps({"eval_ddp_2rank": rec}))
+    for key, written in rank0["written"].items():
+        want = {r: real_views(views, EVAL_DDP_BATCH, r, DDP_WORLD) for r in range(DDP_WORLD)}
+        if written != want:
+            raise SystemExit(f"eval_ddp_2rank {key}: the ranks wrote {written}, not {want}")
+    if any(differing.values()):
+        raise SystemExit(f"eval_ddp_2rank: maps differ from one process: {differing}")
+    for r, rank in enumerate(ranks):
+        for dtype, wire in EVAL_DDP_RUNS:
+            dt = getattr(torch, dtype)
+            planned = planned_map_counts(sweep_shapes(WIDTH, HEIGHT, views, ITERATION,
+                                                      itemsize=dt.itemsize), dt,
+                                         maps=sum(rank["rows"]))
+            if rank["launches"][f"{dtype}_{wire}"] != planned:
+                raise SystemExit(f"eval_ddp_2rank rank {r} {dtype} {wire}: launches "
+                                 f"{rank['launches'][f'{dtype}_{wire}']} != planned {planned}")
+    fused = rank0["fused"]
+    if not (fused["pixel_share"] >= 0.05 and fused["median_abs_z_minus_z0"] < 0.05):
+        raise SystemExit(f"eval_ddp_2rank: rank 0's fused cloud failed: {fused}")
+    if rank0["fusion_launches"] != planned_counts(fusion_consistency=views):
+        raise SystemExit(f"eval_ddp_2rank: fusion launches {rank0['fusion_launches']}: "
+                         f"want {views} of fusion_consistency only")
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -2827,6 +3019,8 @@ def main():
     counts.update({k: counts16[k] for k in ("sweep_premul_bf16", "corr_epilogue_bf16",
                                             "depth_readout_bf16", "sweep_taps_bf16",
                                             "convex_upsample_bf16")})
+    # The same maps as a data-parallel eval: two gloo ranks on the card.
+    eval_ddp_2rank(samples, smi)
 
     # Training: the backward kernels at the step's shapes, a small step
     # against the CPU, then the full-width run, in f32 and in bf16.

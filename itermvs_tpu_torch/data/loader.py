@@ -14,6 +14,9 @@ consecutive `batch_size / process_count` slice of every global batch,
 and short batches are dropped, so the slices partition each global batch
 exactly. A sample is the same whichever process loads it: the datasets'
 per-item randomness is keyed on (seed, epoch, index) (data/base.py).
+
+Eval keeps the short last batch (`eval_batches`): it is padded, as the
+JAX eval.py pads it for its device mesh, and the padding is not written.
 """
 from __future__ import annotations
 
@@ -90,6 +93,31 @@ class BatchOrder(torch.utils.data.Sampler):
         self.epoch += 1
         self.skip = 0
         return iter(batches)
+
+
+def eval_batches(size: int, batch_size: int, rank: int = 0,
+                 world: int = 1) -> list[tuple[list[int], int]]:
+    """Data-parallel eval's batches for process `rank` of `world`:
+    (indices, n_real) per global batch.
+
+    The indices 0..size-1 are cut in order into global batches of
+    `batch_size`; a short last batch is padded to `batch_size` by
+    repeating its last index (the JAX eval.py's `_pad`). Process r takes
+    the consecutive rows [r·b/world, (r+1)·b/world) of each, the rows
+    device r holds under the JAX package's `batch_sharding`; `n_real`
+    counts those of them that come before the padding (0 when the
+    process's rows are all padding)."""
+    if batch_size % world != 0:
+        raise ValueError(f"batch_size {batch_size} must divide evenly over "
+                         f"{world} processes")
+    local = batch_size // world
+    lo = rank * local
+    out = []
+    for start in range(0, size, batch_size):
+        real = min(batch_size, size - start)
+        rows = [start + min(i, real - 1) for i in range(lo, lo + local)]
+        out.append((rows, max(0, min(local, real - lo))))
+    return out
 
 
 class DataLoader:

@@ -13,6 +13,15 @@ the model outputs (engine/profiling.py).
 `--device` (default `cuda`) is the port's own, both steps run on it, and
 a missing card is an error, not a silent run on the CPU.
 
+Under torchrun (`python -m torch.distributed.run --nproc_per_node N -m
+itermvs_tpu_torch.eval ...`) the processes join one group, each on
+`cuda:LOCAL_RANK` (or the CPU over gloo with `--device cpu`). When N
+divides `--batch_size`, eval is data-parallel as the JAX eval.py's is
+over its devices: every global batch is split over the processes
+(`data.loader.eval_batches`, the short last one padded), each writes the
+maps of its own real rows, and rank 0 alone fuses once all are written.
+Otherwise rank 0 evaluates everything alone and the others stay idle.
+
 The core loop, `run_depth`, takes any iterable of samples in the
 loader's batched layout, so callers without image files (e.g.
 `chip_smoke.py`) can feed in-memory samples.
@@ -32,11 +41,13 @@ import torch
 
 from itermvs_tpu_torch.data import find_dataset_def
 from itermvs_tpu_torch.data.base import split_decode_cache_cap
+from itermvs_tpu_torch.data.loader import eval_batches
 from itermvs_tpu_torch.engine.profiling import maybe_enable_nan_debugging
 from itermvs_tpu_torch.fusion import filter_depth
 from itermvs_tpu_torch.io import save_pfm
 from itermvs_tpu_torch.models import Pipeline
 from itermvs_tpu_torch.ops.consistency import quantize_depth
+from itermvs_tpu_torch.parallel import mesh
 from itermvs_tpu_torch.weights import load_weights, pretrained_path
 
 parser = argparse.ArgumentParser(description="Predict depth, filter, and fuse "
@@ -224,7 +235,8 @@ def _write_outputs(outdir, filename, depth_est, confidence):
 def run_depth(model: Pipeline, samples, outdir: str, device, *,
               feature_cache: bool = True, feature_cache_views: int = 16,
               result_wire: str = "uint16", log=print,
-              host_secs: list | None = None) -> list[float]:
+              host_secs: list | None = None,
+              n_real: list[int] | None = None) -> list[float]:
     """Depth + confidence PFMs for every batch of `samples`.
 
     `samples` yields dicts in the loader's batched layout (arrays or
@@ -232,6 +244,10 @@ def run_depth(model: Pipeline, samples, outdir: str, device, *,
     With `feature_cache`, batch-1 samples carrying `scan` and `view_ids`
     run FeatureNet once per (scan, view), LRU-bounded to
     `feature_cache_views` views; outputs equal the uncached forward.
+    `n_real`, when given, holds per batch the number of its leading rows
+    that are real; the rows after them pad the batch (data-parallel eval,
+    `data.loader.eval_batches`) and are computed but neither fetched nor
+    written, so a batch of padding alone writes nothing.
 
     A one-batch software pipeline, as the JAX eval.py's: `dispatch`
     uploads batch i+1, launches its forward and its device→host copies
@@ -281,7 +297,7 @@ def run_depth(model: Pipeline, samples, outdir: str, device, *,
         return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(
             x, non_blocking=True)
 
-    def dispatch(sample):
+    def dispatch(sample, real):
         t0 = time.perf_counter()
         projs = {k: dev(v) for k, v in sample["proj_matrices"].items()
                  if k != "level_0"}
@@ -295,7 +311,7 @@ def run_depth(model: Pipeline, samples, outdir: str, device, *,
         depths, confs = out["depths_upsampled"], out["confidence_upsampled"]
         wire = (quantize_results(depths, confs) if result_wire == "uint16"
                 else (depths[..., 0], confs[..., 0]))
-        host = [to_host(x) for x in wire]
+        host = [to_host(x[:real]) for x in wire]
         done = None
         if cuda:
             done = torch.cuda.Event()
@@ -326,7 +342,8 @@ def run_depth(model: Pipeline, samples, outdir: str, device, *,
         pending = None
         try:
             for batch_idx, sample in enumerate(samples):
-                launched = (batch_idx, *dispatch(sample))
+                real = len(sample["filename"]) if n_real is None else n_real[batch_idx]
+                launched = (batch_idx, *dispatch(sample, real))
                 previous, pending = pending, launched
                 if previous is not None:
                     finalize(*previous)
@@ -342,21 +359,50 @@ def _init_loader_worker(worker_id, workers):
     split_decode_cache_cap(workers)
 
 
-def save_depth(args, img_wh) -> list[float]:
-    """Load the dataset and weights and run `run_depth` on `args.device`."""
+def save_depth(args, img_wh) -> bool:
+    """Load the dataset and weights and run `run_depth` on `args.device`.
+
+    Joins torchrun's process group unless this process already belongs
+    to one; each rank of a CUDA run takes `cuda:LOCAL_RANK`. The eval is
+    data-parallel when the group's processes divide `--batch_size` (the
+    JAX eval.py's rule, with processes for devices): each rank loads,
+    evaluates and writes only its rows of every global batch
+    (`eval_batches`), with the feature cache off. Otherwise rank 0
+    evaluates every map and the other ranks return at once. Returns
+    whether the ranks shared the batches."""
     device = resolve_device(args.device)
     if args.feature_cache == "on" and args.batch_size != 1:
-        raise SystemExit("--feature_cache on requires --batch_size 1")
+        raise SystemExit("--feature_cache on requires --batch_size 1 on a single device")
+    if not mesh.is_initialized():
+        mesh.initialize_distributed("auto", device=device)
+    rank, world = mesh.rank(), mesh.world_size()
+    if world > 1 and device.type == "cuda":
+        device = mesh.local_device("cuda")
+        torch.cuda.set_device(device)
+    parallel = world > 1 and args.batch_size % world == 0
+    if world > 1 and not parallel and rank != 0:
+        print(f"rank {rank}: --batch_size {args.batch_size} does not divide over "
+              f"{world} processes; rank 0 evaluates alone and this rank is idle")
+        return False
+    if parallel and rank == 0:
+        print(f"data-parallel eval over {world} processes")
     path = args.loadckpt or pretrained_path("dtu")
     print(f"loading model {path}")
     model = load_weights(Pipeline(iteration=args.iteration,
                                   dtype=getattr(torch, args.precision)), path).to(device)
     dataset = apply_scan_shard(build_dataset(args, img_wh),
                                parse_scan_shard(args.scan_shard))
+    if parallel:
+        order = eval_batches(len(dataset), args.batch_size, rank, world)
+        batching = dict(batch_sampler=[rows for rows, _ in order])
+        n_real = [n for _, n in order]
+    else:
+        batching = dict(batch_size=args.batch_size, shuffle=False)
+        n_real = None
     ncpu = os.cpu_count() or 1
     workers = min(4, ncpu - 1) if ncpu > 1 else 0
     loader = torch.utils.data.DataLoader(
-        dataset, batch_size=args.batch_size, shuffle=False, num_workers=workers,
+        dataset, **batching, num_workers=workers,
         pin_memory=device.type == "cuda",
         multiprocessing_context="spawn" if workers else None,
         worker_init_fn=(functools.partial(_init_loader_worker, workers=workers)
@@ -365,10 +411,24 @@ def save_depth(args, img_wh) -> list[float]:
     use_cache = args.feature_cache == "on" or (
         args.feature_cache == "auto" and args.batch_size == 1)
     with maybe_enable_nan_debugging(model, args.debug_nans):
-        return run_depth(model, loader, args.outdir, device,
-                         feature_cache=use_cache,
-                         feature_cache_views=args.feature_cache_views,
-                         result_wire=args.result_wire)
+        run_depth(model, loader, args.outdir, device,
+                  feature_cache=use_cache,
+                  feature_cache_views=args.feature_cache_views,
+                  result_wire=args.result_wire, n_real=n_real)
+    if parallel:
+        print(f"rank {rank}: wrote {sum(n_real)} of {len(dataset)} maps")
+    return parallel
+
+
+def fuse_once(fuse, device, parallel: bool):
+    """Fusion after an eval that every rank of the group ran: rank 0
+    alone calls `fuse` and returns its result. In a data-parallel eval
+    the ranks first meet at one barrier, which each reaches once its
+    maps are written, so that rank 0 reads them all; the other ranks
+    then return None without waiting for the fusion."""
+    if parallel:
+        mesh.barrier(device)
+    return fuse() if mesh.rank() == 0 else None
 
 
 def run_fusion(args, img_wh) -> list[tuple[str, float]]:
@@ -425,8 +485,13 @@ def main(argv=None):
     for k, v in sorted(vars(args).items()):
         print(f"{k}: {v}")
     img_wh = resolve_img_wh(args)
-    save_depth(args, img_wh)
-    run_fusion(args, img_wh)
+    owned = not mesh.is_initialized()
+    try:
+        parallel = save_depth(args, img_wh)
+        fuse_once(lambda: run_fusion(args, img_wh), resolve_device(args.device), parallel)
+    finally:
+        if owned and mesh.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -8,6 +8,7 @@ package's verify recipe.
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -804,3 +805,82 @@ def test_ptxas_registers_are_read_per_kernel(tmp_path):
         "ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'\n"
         "ptxas info    : Used 26 registers, used 0 barriers\n")
     assert other_tree.registers(str(tmp_path / "lib.so")) == {"_Z1av": 40, "_Z1bv": 26}
+
+
+def test_rank_batches_slice_the_padded_global_batches():
+    """eval_ddp_2rank's rows: the 5 maps at batch 2 make global batches
+    [0, 1], [2, 3], [4, 4]; rank 0 gets 0, 2, 4 and rank 1 gets 1, 3 and
+    the padded 4, which it does not write. Side by side, the ranks' rows
+    are the padded global batch that one rank gets at world 1."""
+    cams, images, _ = chip_smoke.render_scene(64, 48, 5, 0)
+    samples = chip_smoke.samples_of(cams, images)
+    ranks = [chip_smoke.rank_batches(samples, 2, r, 2) for r in range(2)]
+    whole = chip_smoke.rank_batches(samples, 2, 0, 1)
+    assert [n for _, n in whole] == [2, 2, 1]
+    assert [[n for _, n in b] for b in ranks] == [[1, 1, 1], [1, 1, 0]]
+    assert [chip_smoke.real_views(5, 2, r, 2) for r in range(2)] == [[0, 2, 4], [1, 3]]
+    assert chip_smoke.real_views(5, 2, 0, 1) == [0, 1, 2, 3, 4]
+    for (a, _), (b, _), (g, _) in zip(*ranks, whole):
+        assert a["imgs"]["level_0"].shape == (1, 5, 48, 64, 3)
+        assert a["filename"] + b["filename"] == g["filename"]
+        assert a["scan"] + b["scan"] == g["scan"]
+        for key in ("depth_min", "depth_max", "view_ids"):
+            assert np.array_equal(np.concatenate([a[key], b[key]]), g[key])
+        for group in ("imgs", "proj_matrices"):
+            for k in g[group]:
+                assert np.array_equal(np.concatenate([a[group][k], b[group][k]]), g[group][k])
+    last = whole[-1][0]
+    assert last["filename"] == [samples[4]["filename"][0]] * 2
+    assert np.array_equal(last["imgs"]["level_0"][1], samples[4]["imgs"]["level_0"][0])
+
+
+def test_merge_rank_outputs_links_each_map_once(tmp_path):
+    """Each rank's maps are linked into one directory; a map that two
+    ranks wrote, or a depth map without its confidence, raises."""
+    from itermvs_tpu_torch.io import save_pfm
+
+    def write(root, rank, views, kinds=("depth_est", "confidence")):
+        for kind in kinds:
+            os.makedirs(root / f"rank{rank}" / kind, exist_ok=True)
+            for v in views:
+                save_pfm(str(root / f"rank{rank}" / kind / f"{v:08d}.pfm"),
+                         np.full((2, 3), v, np.float32))
+
+    write(tmp_path / "ok", 0, [0, 2, 4])
+    write(tmp_path / "ok", 1, [1, 3])
+    assert chip_smoke.merge_rank_outputs(str(tmp_path / "ok"), 3) == {
+        0: [0, 2, 4], 1: [1, 3], 2: []}
+    for v in range(5):
+        depth, _ = read_pfm(str(tmp_path / "ok" / "all" / "depth_est" / f"{v:08d}.pfm"))
+        assert (depth == v).all()
+    write(tmp_path / "twice", 0, [0, 2, 4])
+    write(tmp_path / "twice", 1, [1, 3, 4])
+    with pytest.raises(SystemExit, match="00000004.pfm written by two ranks"):
+        chip_smoke.merge_rank_outputs(str(tmp_path / "twice"), 2)
+    write(tmp_path / "half", 0, [0])
+    write(tmp_path / "half", 0, [1], kinds=("depth_est",))
+    with pytest.raises(SystemExit, match=r"rank 0 wrote depth maps \[0, 1\] but confidence"):
+        chip_smoke.merge_rank_outputs(str(tmp_path / "half"), 1)
+
+
+def test_eval_rank_on_two_cpu_ranks():
+    """eval_ddp_2rank's ranks on the CPU over gloo (3 maps at 128x96,
+    iteration 1, batch 2): each rank runs every EVAL_DDP_RUNS form on its
+    rows, rank 0 alone merges (each rank wrote its real views only) and
+    fuses after the barrier."""
+    with tempfile.TemporaryDirectory() as tmp:
+        job = {"width": 128, "height": 96, "views": 3, "seed": 0, "iteration": 1,
+               "batch": 2, "out": tmp}
+        ranks = chip_smoke.run_ranks(job, 2, "gloo", "cpu", timeout=300,
+                                     env=dict(os.environ, OMP_NUM_THREADS="2"),
+                                     work="eval_rank")
+    assert [r["rows"] for r in ranks] == [[1, 1], [1, 1]]
+    assert [r["n_real"] for r in ranks] == [[1, 1], [1, 0]]
+    assert ranks[1]["rank0"] is None
+    rank0 = ranks[0]["rank0"]
+    assert rank0["written"] == {f"{d}_{w}": {0: [0, 2], 1: [1]}
+                                for d, w in chip_smoke.EVAL_DDP_RUNS}
+    assert rank0["fused"]["views"] == 3 and rank0["fused"]["points"] >= 0
+    for r in ranks:        # CPU: the plain versions, no kernel launched
+        assert set(r["launches"]) == {f"{d}_{w}" for d, w in chip_smoke.EVAL_DDP_RUNS}
+        assert all(c == chip_smoke.planned_counts() for c in r["launches"].values())

@@ -49,17 +49,23 @@ def test_port_pfms_match_jax_eval(tmp_path):
     _run([sys.executable, "-m", "itermvs_tpu_torch.eval", *common,
           f"--outdir={tmp_path / 'port'}", "--loadckpt", NPZ, "--device", "cpu"])
 
+    assert_pfms_match_jax(tmp_path / "port", tmp_path / "jax", VIEWS, (H, W, 1))
+
+
+def assert_pfms_match_jax(port_dir, jax_dir, views, shape):
+    """The port's PFMs against the JAX eval.py's, under the tolerance of
+    this file's docstring."""
     rel_all, conf_all = [], []
-    for v in range(VIEWS):
-        got, _ = read_pfm(str(tmp_path / "port" / "depth_est" / f"{v:08d}.pfm"))
-        want, _ = read_pfm(str(tmp_path / "jax" / "depth_est" / f"{v:08d}.pfm"))
-        assert got.shape == want.shape == (H, W, 1)
+    for v in range(views):
+        got, _ = read_pfm(os.path.join(port_dir, "depth_est", f"{v:08d}.pfm"))
+        want, _ = read_pfm(os.path.join(jax_dir, "depth_est", f"{v:08d}.pfm"))
+        assert got.shape == want.shape == shape
         assert np.isfinite(got).all()
         rel = np.abs(got - want) / np.abs(want)
         assert np.mean(rel <= 1e-3) >= 0.99, f"view {v}"
         rel_all.append(rel.ravel())
-        cg, _ = read_pfm(str(tmp_path / "port" / "confidence" / f"{v:08d}.pfm"))
-        cw, _ = read_pfm(str(tmp_path / "jax" / "confidence" / f"{v:08d}.pfm"))
+        cg, _ = read_pfm(os.path.join(port_dir, "confidence", f"{v:08d}.pfm"))
+        cw, _ = read_pfm(os.path.join(jax_dir, "confidence", f"{v:08d}.pfm"))
         conf_all.append(np.abs(cg - cw).ravel())
     rel_all = np.concatenate(rel_all)
     assert np.median(rel_all) <= 1e-4

@@ -4,8 +4,9 @@ PFMs it writes are byte-equal to those of one `run_depth` call per batch
 (128x96, 3 views, the vendored DTU weights, 2 GRU iterations, on the
 CPU), with the feature cache on, off and evicting views of the batch in
 flight, on the uint16 and the float32 wire, and at batch 2 with a ragged
-last batch. A failing batch still leaves the batch before it on disk,
-and a failing write surfaces from `run_depth`.
+last batch. Rows that `n_real` marks as padding are not written. A
+failing batch still leaves the batch before it on disk, and a failing
+write surfaces from `run_depth`.
 """
 import os
 
@@ -72,6 +73,25 @@ def test_pipelined_pfms_equal_one_batch_per_call(tmp_path, scene, model, batch_s
         run_depth(model, [b], str(tmp_path / "one"), "cpu", **opts)
     got, want = pfm_bytes(tmp_path / "all"), pfm_bytes(tmp_path / "one")
     assert len(want) == 2 * VIEWS and got == want
+
+
+@pytest.mark.parametrize("wire", ["uint16", "float32"])
+def test_padding_rows_are_not_written(tmp_path, scene, model, wire):
+    """Batches [0, 1] with one real row, [0, 1] with none (padding alone)
+    and [2] with one: maps 0 and 2 are written, as one call per batch
+    writes them, and every batch counts in the returned seconds."""
+    loaded = batches(scene, 2)
+    opts = dict(feature_cache=False, result_wire=wire, **QUIET)
+    host = []
+    secs = run_depth(model, [loaded[0], loaded[0], loaded[1]], str(tmp_path / "padded"),
+                     "cpu", host_secs=host, n_real=[1, 0, 1], **opts)
+    assert len(secs) == len(host) == 3 and all(s >= 0 for s in secs)
+    for b in loaded:
+        run_depth(model, [b], str(tmp_path / "one"), "cpu", **opts)
+    got, want = pfm_bytes(tmp_path / "padded"), pfm_bytes(tmp_path / "one")
+    assert sorted(got) == [(kind, f"{v:08d}.pfm") for kind in ("confidence", "depth_est")
+                           for v in (0, 2)]
+    assert all(got[key] == want[key] for key in got)
 
 
 def test_dispatch_of_the_next_batch_precedes_finalize(tmp_path, scene, model, monkeypatch):
