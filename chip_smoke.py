@@ -109,7 +109,21 @@
    gated, and the first loss and parameters are printed beside two plain
    bf16 steps from the init perturbed by 1e-7; ms per step of both forms
    and one profiled step each (device time by kind).
-11. `--debug_nans` (`engine/profiling.py`): one 1600x1152 depth map with
+11. The entry points (`itermvs_tpu_torch/entry.py`, `entry_dryrun`):
+   `entry()`'s forward (a fresh seed-0 init, 128x160, 5 views, 4
+   iterations) on the card, launching K1 and K2 52 times, K6 and K8 5
+   times and K9 once, its depth held against `entry(device="cpu")`'s
+   (median relative difference at most 1e-4, fewer than 1% of the pixels
+   beyond 1e-3; the share and the largest such patch printed), ms per
+   call; then `dryrun_multichip(2)`: two gloo processes sharing the card
+   take the JAX dry run's steps at 64x96, 3 views, 2 iterations, one
+   sample each, with a checkpoint after step 2 restored into a fresh
+   model and optimizer; the restored step's loss within 1e-6 of the
+   live one's, the ranks bit-equal after it, each rank's launches in
+   each step as planned (14 of K1, K2, K4, K5, 3 of K6, K7, K8, one of
+   K9, K10), and step 1's loss within 1e-4 of one process's step over
+   both samples; the dry run's wall seconds.
+12. `--debug_nans` (`engine/profiling.py`): one 1600x1152 depth map with
    the checks on runs clean (median error < 0.05, 52 launches of K1 and
    K2), and the same map with a NaN put into one input image raises
    FloatingPointError naming a module.
@@ -169,7 +183,6 @@ import contextlib
 import json
 import math
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -179,12 +192,13 @@ import traceback
 import numpy as np
 import torch
 
+from itermvs_tpu_torch import entry as entry_points
 from itermvs_tpu_torch import kernels
 from itermvs_tpu_torch.engine.checkpoint import restore_checkpoint, save_checkpoint
 from itermvs_tpu_torch.engine.profiling import maybe_enable_nan_debugging
 from itermvs_tpu_torch.engine.train_loop import (
     forward_loss, init_weights, make_optimizer, to_device_batch, train_step, val_step)
-from itermvs_tpu_torch.data.loader import eval_batches
+from itermvs_tpu_torch.data.loader import eval_batches, slice_batch
 from itermvs_tpu_torch.eval import fuse_once, run_depth
 from itermvs_tpu_torch.fusion import MemoryViews, consistency_matrices, fuse_views
 from itermvs_tpu_torch.io import read_pfm, read_ply
@@ -194,6 +208,7 @@ from itermvs_tpu_torch.models.itermvs import (
     CORR_INTERVALS, GROUPS, INTERVAL_SCALE, LEVELS, NUM_INIT_SAMPLES, initial_depth_samples)
 from itermvs_tpu_torch.ops.consistency import (
     MAX_SOURCES, consistency, consistency_plain, launch_consistency, record)
+from itermvs_tpu_torch.ops.counts import KERNEL_NAMES, launch_counts, reset_launch_counts
 from itermvs_tpu_torch.ops.depth_range import depth_unnormalization
 from itermvs_tpu_torch.ops.depth_readout import (
     NUM_BINS, DepthReadout, depth_readout, depth_readout_grad, depth_readout_grad_plain,
@@ -212,7 +227,7 @@ from itermvs_tpu_torch.ops.upsample import (
 from itermvs_tpu_torch.ops.warping import (
     fused_sweep_taps, fused_sweep_taps_plain, launch_sweep_taps, relative_projection,
     sample_table)
-from itermvs_tpu_torch.parallel import mesh
+from itermvs_tpu_torch.parallel import launch, mesh
 from itermvs_tpu_torch.weights import (
     load_npz_weights, load_state, npz_state_dict, pretrained_path)
 
@@ -1622,32 +1637,10 @@ def fuse_scene(views, outdir, device):
 
 # ------------------------------------------------------------ end to end
 SWEEP_KERNELS = (sweep_premul, corr_epilogue, sweep_grad_ref, sweep_grad_src)
-# Every counted wrapper by its kernel's report name (without `_bf16`).
-COUNTERS = {"sweep_premul": sweep_premul, "corr_epilogue": corr_epilogue,
-            "sweep_grad_ref": sweep_grad_ref, "sweep_grad_src": sweep_grad_src,
-            "depth_readout": depth_readout, "depth_readout_grad": depth_readout_grad,
-            "sweep_taps": fused_sweep_taps, "convex_upsample": upsample_depth,
-            "convex_upsample_grad": convex_upsample_grad}
-# Every kernel's report name, float32 forms first.
-KERNEL_NAMES = ("sweep_premul", "corr_epilogue", "fusion_consistency", "sweep_grad_ref",
-                "sweep_grad_src", "depth_readout", "depth_readout_grad", "sweep_taps",
-                "convex_upsample", "convex_upsample_grad",
-                "sweep_premul_bf16", "corr_epilogue_bf16", "sweep_grad_ref_bf16",
-                "sweep_grad_src_bf16", "depth_readout_bf16", "depth_readout_grad_bf16",
-                "sweep_taps_bf16", "convex_upsample_bf16", "convex_upsample_grad_bf16")
 # The templated kernels (one source, both dtypes), longest name first: a
 # source's kernels are named `<name>_...kernel<T>`, T telling the dtype.
 TEMPLATED = ("depth_readout_grad", "depth_readout", "sweep_taps", "convex_upsample_grad",
              "convex_upsample")
-
-
-def launch_counts():
-    """{report name: launches} of all nineteen kernels."""
-    counts = {"fusion_consistency": consistency.launches}
-    for name, fn in COUNTERS.items():
-        counts[name] = fn.launches
-        counts[f"{name}_bf16"] = fn.launches_bf16
-    return {k: counts[k] for k in KERNEL_NAMES}
 
 
 def planned_counts(**launches):
@@ -1665,13 +1658,6 @@ def planned_map_counts(shapes, dtype, maps=1, iteration=ITERATION):
         ("sweep_premul", forward), ("corr_epilogue", forward),
         ("depth_readout", (1 + iteration) * maps), ("sweep_taps", (1 + iteration) * maps),
         ("convex_upsample", maps))})
-
-
-def reset_launch_counts():
-    consistency.launches = 0
-    depth_readout_grad.copies = 0
-    for fn in COUNTERS.values():
-        fn.launches = fn.launches_bf16 = 0
 
 
 def _category(name):
@@ -2230,12 +2216,6 @@ def tensor_tree(x):
     return torch.from_numpy(np.array(x))
 
 
-def slice_batch(x, start, n):
-    if isinstance(x, dict):
-        return {k: slice_batch(v, start, n) for k, v in x.items()}
-    return x[start:start + n]
-
-
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -2305,12 +2285,6 @@ def ddp_rank(rank, world, port, backend, device, job_path, work="run_steps"):
     torch.save(out, f"{job_path}.rank{rank}")
 
 
-def free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def run_ranks(job, world, backend, device, timeout=900, env=None, work="run_steps"):
     """`work` (`run_steps` or `eval_rank`) of `job` on `world` ranks, each a
     Python process of its own (`ddp_rank`) on `device`, joined over
@@ -2319,34 +2293,11 @@ def run_ranks(job, world, backend, device, timeout=900, env=None, work="run_step
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "job.pt")
         torch.save(job, path)
-        port = free_port()
-        code = "import sys, chip_smoke; chip_smoke.ddp_rank(*sys.argv[1:])"
-        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(world)]
-        procs = [subprocess.Popen(
-            [sys.executable, "-c", code, str(r), str(world), str(port), backend, str(device),
-             path, work], cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
-            stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
-        deadline = time.monotonic() + timeout
         try:
-            while any(p.poll() is None for p in procs):
-                if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
-                    break
-                time.sleep(0.1)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
-            for f in logs:
-                f.seek(0)
-            outputs = [f.read() for f in logs]
-            for f in logs:
-                f.close()
-        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
-        if failed:
-            raise SystemExit("\n".join(
-                f"{backend} rank {r} of {world} failed ({procs[r].returncode}):\n"
-                f"{outputs[r][-3000:]}" for r in failed))
+            launch.run_ranks("chip_smoke", "ddp_rank", (backend, device, path, work), world,
+                             timeout, env=env)
+        except launch.RankFailed as e:
+            raise SystemExit(f"{backend} {e}") from None
         return [torch.load(f"{path}.rank{r}", weights_only=True) for r in range(world)]
 
 
@@ -2437,7 +2388,7 @@ def process_group(backend, device):
     """A world-1 group in this process, joined as torchrun's rank 0 would."""
     saved = {k: os.environ.get(k) for k in ("MASTER_ADDR", "MASTER_PORT", "RANK",
                                             "WORLD_SIZE", "LOCAL_RANK")}
-    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), RANK="0",
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(launch.free_port()), RANK="0",
                       WORLD_SIZE="1", LOCAL_RANK="0")
     try:
         mesh.initialize_distributed("on", backend=backend, device=device)
@@ -2511,6 +2462,132 @@ def train_ddp_nccl():
                                     [synced], plain, planned, strict=dtype == torch.float32,
                                     extra=extra)
     return recs
+
+
+# ---------------------------------------------------------- entry points
+# entry_dryrun: `entry()`'s forward (128x160, 5 views, 4 iterations, a
+# fresh seed-0 init) on the card against the same call on the CPU (the
+# plain versions): the median relative depth difference, and the share
+# of pixels beyond ENTRY_FAR. Fresh weights can leave two of the 256
+# depth bins nearly tied behind a coarse pixel, which moves a patch of
+# the upsampled map, so the share and the largest patch are printed.
+ENTRY_MEDIAN_REL, ENTRY_FAR, ENTRY_FAR_SHARE = 1e-4, 1e-3, 0.01
+ENTRY_WIDTH, ENTRY_HEIGHT, ENTRY_VIEWS = 160, 128, 5
+# dryrun_multichip's ranks: two gloo processes sharing the one card.
+DRYRUN_WORLD = 2
+
+
+def largest_patch(bad):
+    """(pixels, [y0, y1, x0, x1]) of the largest 8-connected patch of the
+    2-D mask `bad`; (0, None) where it is empty."""
+    from scipy import ndimage
+
+    labels, n = ndimage.label(bad, structure=np.ones((3, 3)))
+    if n == 0:
+        return 0, None
+    sizes = np.bincount(labels.ravel())[1:]
+    ys, xs = np.nonzero(labels == int(np.argmax(sizes)) + 1)
+    return int(sizes.max()), [int(ys.min()), int(ys.max()), int(xs.min()), int(xs.max())]
+
+
+def hold_entry(got, want, counts, planned, extra=None):
+    """`entry()`'s (depth, confidence) on the card against the CPU's: all
+    [1, ENTRY_HEIGHT, ENTRY_WIDTH, 1], the card's finite, the median relative
+    depth difference within ENTRY_MEDIAN_REL and fewer than
+    ENTRY_FAR_SHARE of the pixels beyond ENTRY_FAR, and the call's
+    launches as `planned`. Prints one JSON line; SystemExit on a miss."""
+    shapes = [list(t.shape) for t in (*got, *want)]
+    if shapes != [[1, ENTRY_HEIGHT, ENTRY_WIDTH, 1]] * 4:
+        raise SystemExit(f"entry: outputs of another shape: {shapes}")
+    (d, c), (wd, wc) = ([t.detach().cpu().double().numpy() for t in pair]
+                        for pair in (got, want))
+    rel = np.abs(d - wd) / np.abs(wd)
+    far = rel[0, ..., 0] > ENTRY_FAR
+    pixels, box = largest_patch(far)
+    rec = {"finite": bool(np.isfinite(d).all() and np.isfinite(c).all()),
+           "median_rel_depth": float(np.median(rel)), "max_rel_depth": float(rel.max()),
+           "share_beyond_1e-3": float(far.mean()), "largest_patch_pixels": pixels,
+           "largest_patch_box_y0_y1_x0_x1": box,
+           "max_abs_conf": float(np.abs(c - wc).max()),
+           "launches": {k: n for k, n in counts.items() if n},
+           "planned": {k: n for k, n in planned.items() if n}, **(extra or {})}
+    print(json.dumps({"entry": rec}))
+    if not rec["finite"]:
+        raise SystemExit(f"entry: outputs not finite: {rec}")
+    if not (rec["median_rel_depth"] <= ENTRY_MEDIAN_REL
+            and rec["share_beyond_1e-3"] < ENTRY_FAR_SHARE):
+        raise SystemExit(f"entry: the card's depth disagrees with the CPU's: {rec}")
+    if counts != planned:
+        raise SystemExit(f"entry: launches {counts} != planned {planned}")
+    return rec
+
+
+def hold_dryrun(rec, planned, single_loss, extra=None):
+    """`dryrun_multichip`'s record: the restored model and optimizer
+    bit-equal to the live ones, the restored step's loss within
+    RESUME_REL of the live one's, the ranks bit-equal after it, every
+    rank's launches in every step as `planned`, and the first step's loss
+    within DDP_LOSS_REL of `single_loss`, one process's step over the
+    whole batch from the same init. Prints one JSON line; SystemExit on
+    a miss."""
+    rel = abs(rec["live"] - rec["restored"]) / max(1.0, abs(rec["live"]))
+    out = {**{k: v for k, v in rec.items() if k != "launches"}, "resume_rel": rel,
+           "single_process_loss": single_loss,
+           "loss_rel": abs(rec["loss"] - single_loss) / abs(single_loss),
+           "launches_per_rank_per_step": [[{k: n for k, n in step.items() if n}
+                                           for step in rank] for rank in rec["launches"]],
+           "planned_per_step": {k: n for k, n in planned.items() if n},
+           **(extra or {})}
+    print(json.dumps({"dryrun_multichip": out}))
+    if not (rel <= entry_points.RESUME_REL and rec["ranks_bit_equal"]
+            and rec["restored_bit_equal"]):
+        raise SystemExit(f"dryrun_multichip: the resume or the ranks disagree: {out}")
+    if any(step != planned for rank in rec["launches"] for step in rank):
+        raise SystemExit(f"dryrun_multichip: launches per rank per step != {planned}")
+    if not out["loss_rel"] <= DDP_LOSS_REL:
+        raise SystemExit(f"dryrun_multichip: step 1 disagrees with one process: {out}")
+    return out
+
+
+def entry_dryrun(smi):
+    """`entry()` on the card (one call counted, then ms per call) held
+    against `entry(device="cpu")` (`hold_entry`), then
+    `dryrun_multichip(DRYRUN_WORLD)` (`hold_dryrun`, 64x96, 3 views, 2
+    iterations, batch 1 per rank) against one process's step over both
+    samples."""
+    t0 = time.perf_counter()
+    fn, args = entry_points.entry()
+    reset_launch_counts()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    first_s = time.perf_counter() - t0
+    call_ms = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        call_ms.append(1e3 * (time.perf_counter() - t1))
+    cpu_fn, cpu_args = entry_points.entry(device="cpu")
+    planned = planned_map_counts(
+        sweep_shapes(ENTRY_WIDTH, ENTRY_HEIGHT, ENTRY_VIEWS, ITERATION), torch.float32)
+    hold_entry(got, cpu_fn(*cpu_args), counts, planned, extra={
+        "first_call_s_with_init": first_s, "ms_per_call": call_ms,
+        "entry_phase_s": time.perf_counter() - t0, "card": smi})
+    t0 = time.perf_counter()
+    dry = entry_points.dryrun_multichip(DRYRUN_WORLD, timeout=600)
+    wall = time.perf_counter() - t0
+    planned = planned_step_counts(sweep_shapes(
+        entry_points.DRYRUN_WIDTH, entry_points.DRYRUN_HEIGHT, entry_points.DRYRUN_VIEWS,
+        entry_points.DRYRUN_ITERATION), torch.float32, iteration=entry_points.DRYRUN_ITERATION)
+    model = init_weights(Pipeline(iteration=entry_points.DRYRUN_ITERATION, test=False),
+                         0).cuda()
+    batch = to_device_batch(entry_points.dryrun_batch(DRYRUN_WORLD), "cuda")
+    single = train_step(model, make_optimizer(model), batch, entry_points.DRYRUN_LR, True,
+                        entry_points.DRYRUN_ITERATION)["loss"].item()
+    return hold_dryrun(dry, planned, single, extra={
+        "timing_note": "two processes sharing one card over gloo",
+        "phase_wall_s": wall, "card": smi})
 
 
 def nan_image(sample, view=1):
@@ -3054,6 +3131,8 @@ def main():
     # bf16), then --debug_nans on one depth map.
     train_ddp_2rank()
     train_ddp_nccl()
+    # The entry points: entry() against the CPU, the dry run on two ranks.
+    entry_dryrun(smi)
     model = load_npz_weights(Pipeline(iteration=ITERATION), pretrained_path("dtu")).cuda()
     with tempfile.TemporaryDirectory() as tmp:
         debug_counts, _ = debug_nans_phase(model, samples[0], gt_depths[0], tmp)

@@ -40,6 +40,14 @@ def collate(samples: list):
     raise TypeError(f"cannot collate type {type(first)}")
 
 
+def slice_batch(batch, start: int, n: int):
+    """Rows [start, start + n) of every leaf of a collated batch: one
+    process's consecutive slice of a global batch."""
+    if isinstance(batch, dict):
+        return {k: slice_batch(v, start, n) for k, v in batch.items()}
+    return batch[start:start + n]
+
+
 class BatchOrder(torch.utils.data.Sampler):
     """Batch sampler yielding the index batches of one epoch in the JAX
     loader's order. Iterating takes the current (epoch, skip), then moves

@@ -1,0 +1,49 @@
+"""Launch counters of the port's hand-written kernels.
+
+Each kernel's wrapper adds one to its counter (`launches`, or
+`launches_bf16` for the bfloat16 form) where it launches the kernel, and
+nowhere else: a wrapper given CPU tensors runs its plain version and
+counts nothing. These read and reset them all, under each kernel's
+report name (its source's name, `_bf16` for the bfloat16 form), so that
+a caller can check which kernels a run went through.
+"""
+from __future__ import annotations
+
+from itermvs_tpu_torch.ops.consistency import consistency
+from itermvs_tpu_torch.ops.depth_readout import depth_readout, depth_readout_grad
+from itermvs_tpu_torch.ops.sweep import sweep_premul
+from itermvs_tpu_torch.ops.sweep_epilogue import corr_epilogue
+from itermvs_tpu_torch.ops.sweep_grad import sweep_grad_ref, sweep_grad_src
+from itermvs_tpu_torch.ops.upsample import convex_upsample_grad, upsample_depth
+from itermvs_tpu_torch.ops.warping import fused_sweep_taps
+
+# Every counted wrapper by its kernel's report name (without `_bf16`).
+COUNTERS = {"sweep_premul": sweep_premul, "corr_epilogue": corr_epilogue,
+            "sweep_grad_ref": sweep_grad_ref, "sweep_grad_src": sweep_grad_src,
+            "depth_readout": depth_readout, "depth_readout_grad": depth_readout_grad,
+            "sweep_taps": fused_sweep_taps, "convex_upsample": upsample_depth,
+            "convex_upsample_grad": convex_upsample_grad}
+# Every kernel's report name, float32 forms first.
+KERNEL_NAMES = ("sweep_premul", "corr_epilogue", "fusion_consistency", "sweep_grad_ref",
+                "sweep_grad_src", "depth_readout", "depth_readout_grad", "sweep_taps",
+                "convex_upsample", "convex_upsample_grad",
+                "sweep_premul_bf16", "corr_epilogue_bf16", "sweep_grad_ref_bf16",
+                "sweep_grad_src_bf16", "depth_readout_bf16", "depth_readout_grad_bf16",
+                "sweep_taps_bf16", "convex_upsample_bf16", "convex_upsample_grad_bf16")
+
+
+def launch_counts() -> dict[str, int]:
+    """{report name: launches} of all nineteen kernels."""
+    counts = {"fusion_consistency": consistency.launches}
+    for name, fn in COUNTERS.items():
+        counts[name] = fn.launches
+        counts[f"{name}_bf16"] = fn.launches_bf16
+    return {k: counts[k] for k in KERNEL_NAMES}
+
+
+def reset_launch_counts() -> None:
+    """Every launch counter to 0, and the count of K7's gradient copies."""
+    consistency.launches = 0
+    depth_readout_grad.copies = 0
+    for fn in COUNTERS.values():
+        fn.launches = fn.launches_bf16 = 0

@@ -16,6 +16,7 @@ import torch
 
 import chip_smoke
 from tests import synthetic_scene
+from itermvs_tpu_torch import entry as port_entry
 from itermvs_tpu_torch import kernels
 from itermvs_tpu_torch.eval import run_depth
 from itermvs_tpu_torch.io import read_pfm
@@ -884,3 +885,88 @@ def test_eval_rank_on_two_cpu_ranks():
     for r in ranks:        # CPU: the plain versions, no kernel launched
         assert set(r["launches"]) == {f"{d}_{w}" for d, w in chip_smoke.EVAL_DDP_RUNS}
         assert all(c == chip_smoke.planned_counts() for c in r["launches"].values())
+
+
+def test_entry_plan_is_52_per_call_at_128x160():
+    """entry()'s forward (128x160, 5 views, 4 iterations): 52 launches of
+    K1 and K2, 5 of K6 and K8, one of K9."""
+    shapes = chip_smoke.sweep_shapes(chip_smoke.ENTRY_WIDTH, chip_smoke.ENTRY_HEIGHT,
+                                     chip_smoke.ENTRY_VIEWS, chip_smoke.ITERATION)
+    assert [s[:8] for s in shapes] == [
+        ("init", 1, 32, 16, 20, 16, 20, 48),
+        ("iter_level1", 1, 4, 32, 40, 64, 80, 16),
+        ("iter_level2", 1, 4, 32, 40, 32, 40, 32),
+        ("iter_level3", 1, 2, 32, 40, 16, 20, 48)]
+    assert chip_smoke.planned_map_counts(shapes, torch.float32) == chip_smoke.planned_counts(
+        sweep_premul=52, corr_epilogue=52, depth_readout=5, sweep_taps=5, convex_upsample=1)
+
+
+def test_dryrun_plan_per_rank_per_step():
+    """The dry run's step on one rank (64x96, 3 views, 2 iterations, batch
+    1): 2 + 2·2·3 = 14 launches of each sweep kernel, forward and
+    backward, 3 of K6, K7 and K8, one of K9 and K10."""
+    shapes = chip_smoke.sweep_shapes(port_entry.DRYRUN_WIDTH, port_entry.DRYRUN_HEIGHT,
+                                     port_entry.DRYRUN_VIEWS, port_entry.DRYRUN_ITERATION)
+    plan = chip_smoke.planned_step_counts(shapes, torch.float32,
+                                          iteration=port_entry.DRYRUN_ITERATION)
+    assert plan == chip_smoke.planned_counts(
+        sweep_premul=14, corr_epilogue=14, sweep_grad_ref=14, sweep_grad_src=14,
+        depth_readout=3, depth_readout_grad=3, sweep_taps=3, convex_upsample=1,
+        convex_upsample_grad=1)
+
+
+def test_largest_patch_finds_the_biggest_connected_block():
+    bad = np.zeros((12, 16), bool)
+    bad[2:4, 3:6] = True                  # 6 pixels
+    bad[7:11, 9:12] = True                # 12 pixels
+    bad[6, 8] = True                      # touches the block diagonally
+    assert chip_smoke.largest_patch(bad) == (13, [6, 10, 8, 11])
+    assert chip_smoke.largest_patch(np.zeros((3, 3), bool)) == (0, None)
+
+
+def _entry_outputs(depth, conf=None):
+    depth = torch.as_tensor(depth, dtype=torch.float32).reshape(1, 128, 160, 1)
+    return depth, torch.full_like(depth, 0.5) if conf is None else conf
+
+
+def test_hold_entry_gates():
+    """entry_dryrun's first gate: the card's maps against the CPU's (median
+    rel 1e-4, under 1% of pixels beyond 1e-3), shape, finite, launches."""
+    want = _entry_outputs(np.linspace(2, 10, 128 * 160))
+    plan = chip_smoke.planned_counts(sweep_premul=52)
+    near = _entry_outputs(want[0] * (1 + 5e-5))
+    rec = chip_smoke.hold_entry(near, want, plan, plan)
+    assert rec["share_beyond_1e-3"] == 0 and rec["largest_patch_pixels"] == 0
+    patch = want[0].clone()
+    patch[0, 40:45, 60:68] *= 1.01                        # 40 pixels: 0.2%
+    rec = chip_smoke.hold_entry(_entry_outputs(patch), want, plan, plan)
+    assert rec["largest_patch_pixels"] == 40 and rec["largest_patch_box_y0_y1_x0_x1"] == [
+        40, 44, 60, 67]
+    wide = want[0].clone()
+    wide[0, :2] *= 1.01                                   # 320 pixels: 1.6%
+    nan = want[0].clone()
+    nan[0, 0, 0] = float("nan")
+    for got, match in ((_entry_outputs(want[0] * 1.001), "disagrees with the CPU"),
+                       (_entry_outputs(wide), "disagrees with the CPU"),
+                       (_entry_outputs(nan), "not finite"),
+                       ((want[0][..., 0], want[1][..., 0]), "of another shape")):
+        with pytest.raises(SystemExit, match=match):
+            chip_smoke.hold_entry(got, want, plan, plan)
+    with pytest.raises(SystemExit, match="launches"):
+        chip_smoke.hold_entry(want, want, chip_smoke.planned_counts(), plan)
+
+
+def test_hold_dryrun_gates():
+    plan = chip_smoke.planned_counts(sweep_grad_ref=14)
+    rec = {"loss": 164.77, "live": 99.889, "restored": 99.889, "restored_bit_equal": True,
+           "ranks_bit_equal": True, "launches": [[plan] * 4] * 2}
+    out = chip_smoke.hold_dryrun(rec, plan, 164.77 * (1 + 5e-5))
+    assert out["resume_rel"] == 0 and out["loss_rel"] < 1e-4
+    for bad, match in (({"restored": 99.889 * (1 + 2e-6)}, "resume or the ranks"),
+                       ({"ranks_bit_equal": False}, "resume or the ranks"),
+                       ({"restored_bit_equal": False}, "resume or the ranks"),
+                       ({"launches": [[plan] * 4, [plan] * 3 + [chip_smoke.planned_counts()]]},
+                        "launches per rank per step"),
+                       ({"loss": 164.77 * (1 + 2e-4)}, "step 1 disagrees")):
+        with pytest.raises(SystemExit, match=match):
+            chip_smoke.hold_dryrun({**rec, **bad}, plan, 164.77)
