@@ -23,7 +23,17 @@
    1e-6, and K9 convex_upsample on seeded [1, 144, 288, 400] mask logits
    whose border taps are planted to dominate: within 1e-6
    (`check_sweep_taps`, `check_readout`, `check_upsample`; bare `ms`,
-   wrapper `call_ms`, plain ms, bound and share per kernel).
+   wrapper `call_ms`, plain ms, bound and share per kernel). Then
+   `check_view_aggregate`: K11 view_aggregate at each of a map's 13
+   view aggregations (the init sweep's 4 views of [1, 32, 8, 144*200] as
+   slices of one stacked tensor, each iteration level's n = 4, 4, 2 at
+   288*400) and of a training step's (640x512, batch 4: the init sweep's
+   slices strided by the batch), and K12 view_aggregate_grad there (with
+   the weights' gradient at the init sweeps), at an odd P and with 6
+   sources: the output and every view's gradient bit for bit against the
+   plain versions, the weights' gradient within 1e-5 (relative L2), two
+   K12 launches bit-equal; bare ms against the byte bound, the plain
+   chain's ms and device ms.
 4. Runs the port's eval core loop (`itermvs_tpu_torch.eval.run_depth`)
    with the vendored DTU weights and the feature cache on a 5-view
    textured-plane scene made in memory at 1600x1152, one depth map per
@@ -31,7 +41,7 @@
    (as save_depth's loader delivers them on a card); reads the PFMs back
    and checks them against the scene's analytic depth; checks that each
    kernel launched as often as the chunk plan predicts (K6 and K8 5 times
-   per map, K9 once); prints per map
+   per map, K9 once, K11 13 times); prints per map
    the host ms of run_depth's `dispatch` (uploads and eager launches)
    and `finalize` (wait, dequantization, writer handoff).
 5. Fuses those 5 depth maps (`itermvs_tpu_torch.fusion.fuse_views`,
@@ -78,7 +88,8 @@
    views, 4 GRU iterations, stage 2 (regress), from a fresh seeded init,
    on one in-memory DTU-layout batch of the plane scene: the loss must
    fall, and each of the four sweep kernels must launch 52 times per
-   step, K6, K7 and K8 5 times each, K9 and K10 once, and K7's wrapper
+   step, K6, K7 and K8 5 times each, K9 and K10 once, K11 and K12 13
+   times each, and K7's wrapper
    must copy no probability gradient (K7 reads the loss's in place; so
    in step 10 too), and the layout of each one K7 gets is printed
    (`prob_grad_layouts`); ms per step, steps/s, peak memory and one profiled step's
@@ -224,6 +235,9 @@ from itermvs_tpu_torch.ops.upsample import (
     CHANNELS, convex_upsample_grad, convex_upsample_grad_plain, convex_upsample_plain,
     fold_is_programmatic, launch_convex_upsample, launch_convex_upsample_grad,
     upsample_depth)
+from itermvs_tpu_torch.ops.view_aggregate import (
+    view_aggregate, view_aggregate_args, view_aggregate_grad, view_aggregate_grad_args,
+    view_aggregate_grad_plain, view_aggregate_plain)
 from itermvs_tpu_torch.ops.warping import (
     fused_sweep_taps, fused_sweep_taps_plain, launch_sweep_taps, relative_projection,
     sample_table)
@@ -1212,6 +1226,176 @@ def check_edge_shapes():
     check_taps_edges()
 
 
+# K12's ∂w sums the n·G rows in another order than the plain version's
+# reduction: relative L2 within this. K11 and ∂c_v are bit for bit.
+VIEW_GRAD_REL = 1e-5
+# K11/K12 beside the main path's shapes (label, batch, views, samples n,
+# P, stacked): an odd P (the scalar path) on strided views at batch 2,
+# and 6 sources (eval_tanks.sh's --n_views 7) at the map's iteration P.
+VIEW_EDGE_CASES = (("odd_p", 2, 3, 4, 7 * 11, True),
+                   ("six_sources", 1, 6, 4, 288 * 400, False))
+
+
+def view_aggregate_work(b, nv, rows, p, grad, weight_grad=False):
+    """(bytes, operations) of K11 (or, with `grad`, K12) on nv views of
+    [b, rows, p]: each input read once, each output written once. K11 per
+    element nv products, nv − 1 sums and a divide, per pixel nv adds of
+    the weight sum; K12 per view and element a divide and a product, with
+    ∂w a subtract, a product and a sum more."""
+    e, px = b * rows * p, b * p
+    if not grad:
+        return 4 * (nv * e + nv * px + e), 2 * nv * e + nv * px
+    nbytes, ops = 4 * (nv * px + e + nv * e), nv * px + 2 * nv * e
+    if weight_grad:
+        nbytes, ops = nbytes + 4 * (nv * e + e + nv * px), ops + 3 * nv * e
+    return nbytes, ops
+
+
+def view_aggregate_inputs(b, nv, n, p, stacked, gen, dev="cuda"):
+    """Seeded K11/K12 inputs: nv correlations [b, n, G, p], N(0, 1) (with
+    `stacked` the views of one [b, nv, n, G, p] tensor, as the init branch
+    passes them), weights [b, nv, p] in [1/nv, 1] (the range of a
+    softmax's maximum) and a gradient of the output, N(0, 1)."""
+    if stacked:
+        corrs = torch.randn(b, nv, n, GROUPS, p, device=dev, generator=gen).unbind(1)
+    else:
+        corrs = tuple(torch.randn(b, n, GROUPS, p, device=dev, generator=gen)
+                      for _ in range(nv))
+    weights = 1.0 / nv + (1.0 - 1.0 / nv) * torch.rand(b, nv, p, device=dev, generator=gen)
+    grad = torch.randn(b, n, GROUPS, p, device=dev, generator=gen)
+    return corrs, weights, grad
+
+
+def bare_launch(name, args):
+    """A call of kernel `name`'s C launcher on `args`, built once."""
+    fn = kernels.function(name)
+    return lambda: kernels.check_launch(name, fn(*args))
+
+
+def launch_device_ms(fn, reps=20):
+    """The profiler's device ms per call of `fn` over `reps` calls."""
+    fn()
+    return device_time(lambda: [fn() for _ in range(reps)])[2] / reps
+
+
+def hold_view_aggregate(label, corrs, weights, grad, weight_grad, launches, per):
+    """K11 and K12 (with ∂w where `weight_grad`) against their plain
+    versions at one shape: K11's output and every ∂c_v bit for bit, the
+    wrappers' outputs equal to the bare launches', ∂w within
+    VIEW_GRAD_REL (relative L2), two K12 launches bit-equal. Times the
+    bare launches (`ms`: the C launcher called with its arguments built
+    once, outputs allocated beforehand, so that the host's Python does not
+    pace the ~25 µs calls; `device_ms`: the profiler's kernel time per
+    launch), the wrappers (`call_ms`) and the plain versions (`plain_ms`,
+    and `plain_device_ms` from the profiler). One JSON line per kernel;
+    returns both records."""
+    b, n, g, p = corrs[0].shape
+    nv = len(corrs)
+    out = torch.empty(b, n, g, p, device="cuda")
+    bare = bare_launch("view_aggregate", view_aggregate_args(corrs, weights, out))
+    bare()
+    want = view_aggregate_plain(corrs, weights)
+    same = torch.equal(bits(out), bits(want))
+    wrapper = torch.equal(bits(view_aggregate(corrs, weights)), bits(out))
+    nbytes, ops = view_aggregate_work(b, nv, n * g, p, grad=False)
+    k11 = {"ms": time_ms(bare), "device_ms": launch_device_ms(bare),
+           "call_ms": time_ms(lambda: view_aggregate(corrs, weights)),
+           "plain_ms": time_ms(lambda: view_aggregate_plain(corrs, weights)),
+           "plain_device_ms": device_time(lambda: view_aggregate_plain(corrs, weights))[2],
+           "library_ms": None, "bytes": nbytes, "ops": ops}
+    k11["bound_ms"], k11["bound_by"] = bound_ms(nbytes, ops)
+    print(json.dumps({"kernel": "view_aggregate", "shape": label, "batch": b, "views": nv,
+                      "n": n, "p": p, "batch_stride": corrs[0].stride(0),
+                      f"launches_per_{per}": launches, "bit_equal": same,
+                      "wrapper_equal": wrapper, "max_abs_err": (out - want).abs().max().item(),
+                      **k11, "share": k11["bound_ms"] / k11["ms"]}))
+    if not (same and wrapper):
+        raise SystemExit(f"view_aggregate at {label}: differs from its plain version "
+                         f"({same}) or the wrapper from the bare launch ({wrapper})")
+
+    d_corr = torch.empty(nv, b, n, g, p, device="cuda")
+    d_w = torch.empty_like(weights) if weight_grad else None
+    more = dict(corrs=corrs, out=out, d_weights=d_w) if weight_grad else {}
+    bare = bare_launch("view_aggregate_grad",
+                       view_aggregate_grad_args(weights, grad, d_corr, **more))
+    bare()
+    want_c, want_w = view_aggregate_grad_plain(corrs, weights, grad, weight_grad)
+    same = all(torch.equal(bits(d_corr[v]), bits(want_c[v])) for v in range(nv))
+    first = [d_corr.clone()] + ([d_w.clone()] if weight_grad else [])
+    bare()
+    torch.cuda.synchronize()
+    repeats = all(torch.equal(bits(a), bits(z)) for a, z in zip(first, (d_corr, d_w)))
+    call = lambda: view_aggregate_grad(weights, grad, *((corrs, out) if weight_grad else ()))
+    got_c, got_w = call()
+    wrapper = all(torch.equal(bits(a), bits(z)) for a, z in zip(got_c, d_corr)) and (
+        not weight_grad or torch.equal(bits(got_w), bits(d_w)))
+    err = rel = 0.0
+    if weight_grad:
+        err = (d_w - want_w).abs().max().item()
+        rel = ((d_w - want_w).norm() / want_w.norm()).item()
+    nbytes, ops = view_aggregate_work(b, nv, n * g, p, grad=True, weight_grad=weight_grad)
+    plain = lambda: view_aggregate_grad_plain(corrs, weights, grad, weight_grad)
+    k12 = {"ms": time_ms(bare), "device_ms": launch_device_ms(bare),
+           "call_ms": time_ms(call), "plain_ms": time_ms(plain),
+           "plain_device_ms": device_time(plain)[2], "library_ms": None,
+           "bytes": nbytes, "ops": ops, "max_abs_err": err, "max_rel_err": rel}
+    k12["bound_ms"], k12["bound_by"] = bound_ms(nbytes, ops)
+    print(json.dumps({"kernel": "view_aggregate_grad", "shape": label, "batch": b,
+                      "views": nv, "n": n, "p": p, "weight_grad": weight_grad,
+                      f"launches_per_{per}": launches if per != "map" else 0,
+                      "d_corr_bit_equal": same, "two_launches_bit_equal": repeats,
+                      "wrapper_equal": wrapper, "tol_rel_l2": VIEW_GRAD_REL,
+                      **k12, "share": k12["bound_ms"] / k12["ms"]}))
+    if not (same and repeats and wrapper and rel <= VIEW_GRAD_REL):
+        raise SystemExit(f"view_aggregate_grad at {label}: ∂c bit-equal {same}, launches "
+                         f"bit-equal {repeats}, wrapper equal {wrapper}, ∂w rel L2 {rel} "
+                         f"(tolerance {VIEW_GRAD_REL})")
+    return k11, k12
+
+
+def check_view_aggregate():
+    """K11 and K12 against their plain versions on the card
+    (`hold_view_aggregate`) at each aggregation of a 1600x1152 map (the
+    init sweep's 4 views of [1, 32, 8, 144·200], slices of one stacked
+    tensor as the init branch passes them; each iteration level's n = 4,
+    4, 2 at 288·400, views of their own) and of a 640x512 batch-4 training
+    step (the init sweep's slices strided by the batch), K12 with ∂w at
+    the init sweeps (where the weights take a gradient), then at
+    VIEW_EDGE_CASES with ∂w. Returns the per-map totals of K11 and the
+    per-step totals of K11 and K12 (each shape times its launches)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    per_map, per_step = {}, {}
+    plans = (("map", sweep_shapes(WIDTH, HEIGHT, VIEWS, ITERATION), VIEWS, ITERATION, per_map),
+             ("step", sweep_shapes(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_ITERATION,
+                                   TRAIN_BATCH), TRAIN_VIEWS, TRAIN_ITERATION, per_step))
+    for per, shapes, views, iteration, totals in plans:
+        for name, b, n, h, w, *_ in shapes:
+            init = name == "init"
+            launches = 1 if init else iteration
+            corrs, weights, grad = view_aggregate_inputs(b, views - 1, n, h * w, init, gen)
+            recs = hold_view_aggregate(f"{per}_{name}", corrs, weights, grad, init,
+                                       launches, per)
+            for kname, rec in zip(("view_aggregate", "view_aggregate_grad"), recs):
+                if per == "map" and kname == "view_aggregate_grad":
+                    continue
+                tot = totals.setdefault(kname, {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                                                "library_ms": None, "launches": 0})
+                for key in ("ms", "device_ms", "call_ms", "plain_ms", "plain_device_ms",
+                            "bound_ms", "bytes", "ops"):
+                    tot[key] = tot.get(key, 0.0) + launches * rec[key]
+                for key in ("max_abs_err", "max_rel_err"):
+                    tot[key] = max(tot[key], rec.get(key, 0.0))
+                tot["launches"] += launches
+            del corrs, weights, grad
+            torch.cuda.empty_cache()
+    print(json.dumps({"view_aggregate_totals": {"per_map": per_map, "per_step": per_step}}))
+    for label, b, nv, n, p, stacked in VIEW_EDGE_CASES:
+        corrs, weights, grad = view_aggregate_inputs(b, nv, n, p, stacked, gen)
+        hold_view_aggregate(label, corrs, weights, grad, True, 0, "edge_case")
+    return per_map, per_step
+
+
 def valid_corners(base, h1, w1):
     """Per row, the count of its 4 corners that lie on the source map."""
     y, x = base // w1, base % w1
@@ -1641,6 +1825,8 @@ SWEEP_KERNELS = (sweep_premul, corr_epilogue, sweep_grad_ref, sweep_grad_src)
 # source's kernels are named `<name>_...kernel<T>`, T telling the dtype.
 TEMPLATED = ("depth_readout_grad", "depth_readout", "sweep_taps", "convex_upsample_grad",
              "convex_upsample")
+# The float32-only kernels, longest name first (K11's is a prefix of K12's).
+F32_ONLY = ("view_aggregate_grad", "view_aggregate")
 
 
 def planned_counts(**launches):
@@ -1651,10 +1837,12 @@ def planned_counts(**launches):
 def planned_map_counts(shapes, dtype, maps=1, iteration=ITERATION):
     """Launches of each kernel over `maps` depth maps at `shapes` in
     `dtype`: the forward sweep kernels once per chunk, K6 once per
-    prediction (1 + iteration), K8 once per sweep (1 + iteration) and K9
-    once."""
+    prediction (1 + iteration), K8 once per sweep (1 + iteration), K9
+    once, and K11 (float32 in both precisions) once per aggregation: the
+    init sweep's and each iteration's 3 levels', 1 + 3·iteration."""
     forward = sum(s[-1] for s in shapes) * maps
-    return planned_counts(**{kernel_name(k, dtype): n for k, n in (
+    return planned_counts(view_aggregate=(1 + len(LEVELS) * iteration) * maps,
+                          **{kernel_name(k, dtype): n for k, n in (
         ("sweep_premul", forward), ("corr_epilogue", forward),
         ("depth_readout", (1 + iteration) * maps), ("sweep_taps", (1 + iteration) * maps),
         ("convex_upsample", maps))})
@@ -1666,6 +1854,9 @@ def _category(name):
     for k in TEMPLATED:
         if f"::{k}_" in name and "kernel<" in name:
             return f"{k}_bf16" if "kernel<__nv_bfloat16" in name else k
+    for k in F32_ONLY:
+        if f"::{k}_kernel" in name:
+            return k
     for fn in SWEEP_KERNELS:
         if f"{fn.__name__}_bf16" in name:
             return f"{fn.__name__}_bf16"
@@ -1726,8 +1917,8 @@ def device_time(fn):
 
 
 # The chains that the model runs under record_function labels
-# (models/itermvs.py): K6, K8 and K9, one launch per call each.
-CHAINS = ("depth_readout", "fused_sweep_taps", "convex_upsample")
+# (models/itermvs.py): K6, K8, K9 and K11, one launch per call each.
+CHAINS = ("depth_readout", "fused_sweep_taps", "convex_upsample", "view_aggregate")
 
 
 def chain_time(events):
@@ -1763,18 +1954,23 @@ def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=F
     per sweep) reads the depth samples and writes the int32 base index
     and 4 taps in the table dtype per (source, sample, pixel);
     convex_upsample reads the 144 mask logits and the coarse depth and
-    writes the full-resolution depth. Their operations per byte are
-    below one, so bytes bound all three."""
+    writes the full-resolution depth; view_aggregate (the init sweep's
+    call and 3 per iteration) reads each source's float32 correlation
+    and weights and writes the aggregate. Their operations per byte are
+    below one, so bytes bound all four."""
     p4 = batch * (height // 4) * (width // 4)
     p8 = batch * (height // 8) * (width // 8)
     sources = views - 1
     readout = p4 * (256 * itemsize + 4 + (256 * 4 if train else 0))
     taps = lambda n, p: n * p * 4 + sources * n * p * (4 + 4 * itemsize)
     upsample = p4 * (144 * itemsize + 4) + 16 * p4 * 4
+    aggregate = lambda n, p: 4 * ((sources + 1) * n * GROUPS * p + sources * p)
     nbytes = {"depth_readout": (1 + iteration) * readout,
               "fused_sweep_taps": taps(NUM_INIT_SAMPLES, p8)
               + iteration * taps(sum(len(v) for v in CORR_INTERVALS.values()), p4),
-              "convex_upsample": upsample}
+              "convex_upsample": upsample,
+              "view_aggregate": aggregate(NUM_INIT_SAMPLES, p8) + iteration * sum(
+                  aggregate(len(CORR_INTERVALS[k]), p4) for k in LEVELS)}
     return {k: 1e3 * v / PEAK_BYTES_PER_S for k, v in nbytes.items()}
 
 
@@ -1888,10 +2084,13 @@ def planned_step_counts(shapes, dtype, iteration=TRAIN_ITERATION):
     """Launches of each kernel in one training step at `shapes` (the
     kernels of `dtype`: one forward sweep pair per chunk, one backward
     pair per sweep; K6, K7 and K8 once per prediction or sweep, 1 +
-    iteration; K9 and K10 once)."""
+    iteration; K9 and K10 once; K11 and K12, float32 in both precisions,
+    once per aggregation, 1 + 3·iteration)."""
     forward = sum(s[-1] for s in shapes)
     sweeps = sum(sweeps_of(shapes, dtype).values())
-    return planned_counts(**{kernel_name(k, dtype): n for k, n in (
+    aggregations = 1 + len(LEVELS) * iteration
+    return planned_counts(view_aggregate=aggregations, view_aggregate_grad=aggregations,
+                          **{kernel_name(k, dtype): n for k, n in (
         ("sweep_premul", forward), ("corr_epilogue", forward), ("sweep_grad_ref", sweeps),
         ("sweep_grad_src", sweeps), ("depth_readout", 1 + iteration),
         ("depth_readout_grad", 1 + iteration), ("sweep_taps", 1 + iteration),
@@ -1928,7 +2127,12 @@ def capture_sweeps(model, batch, iteration):
     model.zero_grad(set_to_none=True)
     if any(r[4] is None for r in captured):
         raise SystemExit("a captured sweep got no gradient")
-    return [tuple(r) for r in captured]
+    out = [tuple(r) for r in captured]
+    # Capture's class is a reference cycle that holds `captured` until the
+    # garbage collector runs: emptied here, the sweeps go with `out`, not
+    # into the peak memory of whatever runs next.
+    captured.clear()
+    return out
 
 
 def prob_grad_layouts(model, batch):
@@ -2975,6 +3179,54 @@ def eval_ddp_2rank(samples, card):
     return rec
 
 
+# The `kernels` line: the kernels reported per depth map (their launches
+# from the f32 and bf16 map runs) and per training step (from the
+# training runs); fusion_consistency has its own entry.
+REPORT_PER_MAP = ("corr_epilogue", "sweep_premul", "depth_readout", "sweep_taps",
+                  "convex_upsample", "view_aggregate", "corr_epilogue_bf16",
+                  "sweep_premul_bf16", "depth_readout_bf16", "sweep_taps_bf16",
+                  "convex_upsample_bf16")
+REPORT_PER_STEP = ("sweep_grad_ref", "sweep_grad_src", "depth_readout_grad",
+                   "convex_upsample_grad", "view_aggregate_grad", "sweep_grad_ref_bf16",
+                   "sweep_grad_src_bf16", "depth_readout_grad_bf16",
+                   "convex_upsample_grad_bf16")
+
+
+def kernel_sources():
+    """{report name: (source in the repo, file:line of what it replaces)}
+    of every kernel."""
+    sources = {"corr_epilogue": ("itermvs_tpu_torch/csrc/corr_epilogue.cu",
+                                 "itermvs_tpu/ops/sweep_epilogue.py:61"),
+               "sweep_premul": ("itermvs_tpu_torch/csrc/sweep_premul.cu",
+                                "itermvs_tpu/ops/grid_sample.py:472"),
+               "fusion_consistency": ("itermvs_tpu_torch/csrc/fusion_consistency.cu",
+                                      "itermvs_tpu/fusion.py:57"),
+               "sweep_grad_ref": ("itermvs_tpu_torch/csrc/sweep_grad_ref.cu",
+                                  "itermvs_tpu/models/itermvs.py:106"),
+               "sweep_grad_src": ("itermvs_tpu_torch/csrc/sweep_grad_src.cu",
+                                  "itermvs_tpu/models/itermvs.py:106"),
+               "depth_readout": ("itermvs_tpu_torch/csrc/depth_readout.cu",
+                                 "itermvs_tpu/models/itermvs.py:75"),
+               "depth_readout_grad": ("itermvs_tpu_torch/csrc/depth_readout_grad.cu",
+                                      "itermvs_tpu/models/itermvs.py:75"),
+               "sweep_taps": ("itermvs_tpu_torch/csrc/sweep_taps.cu",
+                              "itermvs_tpu/ops/warping.py:158"),
+               "convex_upsample": ("itermvs_tpu_torch/csrc/convex_upsample.cu",
+                                   "itermvs_tpu/ops/upsample.py:13"),
+               "convex_upsample_grad": ("itermvs_tpu_torch/csrc/convex_upsample_grad.cu",
+                                        "itermvs_tpu/ops/upsample.py:13"),
+               "view_aggregate": ("itermvs_tpu_torch/csrc/view_aggregate.cu",
+                                  "itermvs_tpu/models/itermvs.py:251"),
+               "view_aggregate_grad": ("itermvs_tpu_torch/csrc/view_aggregate_grad.cu",
+                                       "itermvs_tpu/models/itermvs.py:251")}
+    for name in ("corr_epilogue", "sweep_premul", "sweep_grad_ref", "sweep_grad_src"):
+        source, replaces = sources[name]
+        sources[f"{name}_bf16"] = (source.replace(".cu", "_bf16.cu"), replaces)
+    for name in TEMPLATED:                  # one templated source, both forms
+        sources[f"{name}_bf16"] = sources[name]
+    return sources
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -3005,6 +3257,9 @@ def main():
                                  "map", train=False))
     per_map.update(check_upsample(1, HEIGHT // 4, WIDTH // 4, torch.float32, 1, "map",
                                   train=False))
+    # K11 at a map's 13 aggregations and K11/K12 at a training step's.
+    view_map, view_step = check_view_aggregate()
+    per_map.update(view_map)
     # K3 at DTU's 10 sources, and at the 4 of the main path's fusion (the
     # shape its reported time and bound are taken at).
     k3 = check_consistency(WIDTH, HEIGHT, (DTU_SOURCES, VIEWS - 1))[VIEWS - 1]
@@ -3141,35 +3396,9 @@ def main():
         raise SystemExit(f"debug_nans launch counts {debug_counts} != planned {planned}")
     del model
 
-    sources = {"corr_epilogue": ("itermvs_tpu_torch/csrc/corr_epilogue.cu",
-                                 "itermvs_tpu/ops/sweep_epilogue.py:61"),
-               "sweep_premul": ("itermvs_tpu_torch/csrc/sweep_premul.cu",
-                                "itermvs_tpu/ops/grid_sample.py:472"),
-               "fusion_consistency": ("itermvs_tpu_torch/csrc/fusion_consistency.cu",
-                                      "itermvs_tpu/fusion.py:57"),
-               "sweep_grad_ref": ("itermvs_tpu_torch/csrc/sweep_grad_ref.cu",
-                                  "itermvs_tpu/models/itermvs.py:106"),
-               "sweep_grad_src": ("itermvs_tpu_torch/csrc/sweep_grad_src.cu",
-                                  "itermvs_tpu/models/itermvs.py:106"),
-               "depth_readout": ("itermvs_tpu_torch/csrc/depth_readout.cu",
-                                 "itermvs_tpu/models/itermvs.py:75"),
-               "depth_readout_grad": ("itermvs_tpu_torch/csrc/depth_readout_grad.cu",
-                                      "itermvs_tpu/models/itermvs.py:75"),
-               "sweep_taps": ("itermvs_tpu_torch/csrc/sweep_taps.cu",
-                              "itermvs_tpu/ops/warping.py:158"),
-               "convex_upsample": ("itermvs_tpu_torch/csrc/convex_upsample.cu",
-                                   "itermvs_tpu/ops/upsample.py:13"),
-               "convex_upsample_grad": ("itermvs_tpu_torch/csrc/convex_upsample_grad.cu",
-                                        "itermvs_tpu/ops/upsample.py:13")}
-    for name in ("corr_epilogue", "sweep_premul", "sweep_grad_ref", "sweep_grad_src"):
-        source, replaces = sources[name]
-        sources[f"{name}_bf16"] = (source.replace(".cu", "_bf16.cu"), replaces)
-    for name in TEMPLATED:                  # one templated source, both forms
-        sources[f"{name}_bf16"] = sources[name]
+    sources = kernel_sources()
     report = []
-    for name in ("corr_epilogue", "sweep_premul", "depth_readout", "sweep_taps",
-                 "convex_upsample", "corr_epilogue_bf16", "sweep_premul_bf16",
-                 "depth_readout_bf16", "sweep_taps_bf16", "convex_upsample_bf16"):
+    for name in REPORT_PER_MAP:
         tot = per_map[name]
         t_bytes, t_ops = tot["bytes"] / PEAK_BYTES_PER_S, tot["ops"] / PEAK_F32_PER_S
         report.append({
@@ -3178,7 +3407,8 @@ def main():
             "max_abs_err": tot["max_abs_err"], "ms": tot["ms"], "call_ms": tot["call_ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": tot["library_ms"], "per": "one depth map"})
+            "library_ms": tot["library_ms"], "per": "one depth map",
+            **{k: tot[k] for k in ("device_ms", "plain_device_ms") if k in tot}})
     report.append({
         "name": "fusion_consistency", "route": "cuda",
         "source": sources["fusion_consistency"][0],
@@ -3189,9 +3419,8 @@ def main():
         "bound_by": k3["bound_by"], "library_ms": None,
         "per": f"one {WIDTH}x{HEIGHT} reference view, {VIEWS - 1} sources"})
     per_step.update(readout_step)
-    for name in ("sweep_grad_ref", "sweep_grad_src", "depth_readout_grad",
-                 "convex_upsample_grad", "sweep_grad_ref_bf16", "sweep_grad_src_bf16",
-                 "depth_readout_grad_bf16", "convex_upsample_grad_bf16"):
+    per_step["view_aggregate_grad"] = view_step["view_aggregate_grad"]
+    for name in REPORT_PER_STEP:
         tot = per_step[name]
         t_bytes, t_ops = tot["bytes"] / PEAK_BYTES_PER_S, tot["ops"] / PEAK_F32_PER_S
         report.append({
@@ -3202,6 +3431,7 @@ def main():
             "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "launches_per_step": tot["launches"],
+            **{k: tot[k] for k in ("device_ms", "plain_device_ms") if k in tot},
             "per": f"one training step, {TRAIN_WIDTH}x{TRAIN_HEIGHT}, batch {TRAIN_BATCH}, "
                    f"{TRAIN_VIEWS} views, {TRAIN_ITERATION} iterations"})
     print(json.dumps({"kernels": report}))

@@ -31,7 +31,8 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("corr_epilogue", "sweep_premul", "fusion_consistency", "sweep_grad_ref",
            "sweep_grad_src", "corr_epilogue_bf16", "sweep_premul_bf16",
            "sweep_grad_ref_bf16", "sweep_grad_src_bf16", "depth_readout",
-           "depth_readout_grad", "sweep_taps", "convex_upsample", "convex_upsample_grad")
+           "depth_readout_grad", "sweep_taps", "convex_upsample", "convex_upsample_grad",
+           "view_aggregate", "view_aggregate_grad")
 # No --use_fast_math: fusion_consistency needs IEEE divides and sqrt.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -77,6 +78,9 @@ SIGNATURES = {
     "convex_upsample_grad_bf16": ("itermvs_convex_upsample_grad_bf16",
                                   (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
                                   "convex_upsample_grad"),
+    "view_aggregate": ("itermvs_view_aggregate", (_P, _I, _P, _P, _I, _I, _I, _L, _P)),
+    "view_aggregate_grad": ("itermvs_view_aggregate_grad",
+                            (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P)),
     # Not a kernel: 1 where K10's kernels are programmatic dependent launches.
     "convex_upsample_grad_programmatic": ("itermvs_convex_upsample_grad_programmatic", (),
                                           "convex_upsample_grad"),

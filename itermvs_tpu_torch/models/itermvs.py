@@ -8,12 +8,14 @@ K1 `corr_epilogue`; backward K4 `sweep_grad_ref` and K5
 `chunked_warp_corr`. Each depth prediction reads the 256-bin head out
 through `depth_readout` (K6; backward K7 `depth_readout_grad`), and the
 last is ×4 upsampled through `upsample_depth` (K9 `convex_upsample`;
-backward K10 `convex_upsample_grad`).
+backward K10 `convex_upsample_grad`). Each sweep's views are aggregated
+through `view_aggregate` (K11; backward K12 `view_aggregate_grad`).
 
 Numerical semantics kept from the JAX package:
   - init-branch view weights are bilinearly ×2 upsampled before reuse
     and frozen in the iterations;
-  - correlation aggregation divides by (1e-5 + Σ view weights);
+  - correlation aggregation divides by (1e-5 + Σ view weights), both
+    sums folded in view order;
   - the hidden state starts from the 32-channel level-3 CorrNet score
     volume, ×2 upsampled then tanh'd;
   - in test mode the confidence head runs only on the last iteration,
@@ -34,12 +36,13 @@ logits, every softmax, the windowed expectation, the convex upsampling
 weights (K9 reads the bfloat16 mask logits and softmaxes them in
 float32) and every depth and confidence map stay float32.
 
-Three chains run under `torch.profiler.record_function` labels, so that
+Four chains run under `torch.profiler.record_function` labels, so that
 a profile can sum their device time: `fused_sweep_taps` (K8),
-`depth_readout` (K6: the 256-bin softmax and the windowed expectation)
-and `convex_upsample` (K9: the 9-tap mask softmax and the ×4 convex
-upsample). A label only marks a range; it adds no sync and
-changes no result.
+`depth_readout` (K6: the 256-bin softmax and the windowed expectation),
+`convex_upsample` (K9: the 9-tap mask softmax and the ×4 convex
+upsample) and `view_aggregate` (K11: the view-weighted correlation
+aggregation of every sweep). A label only marks a range; it adds no sync
+and changes no result.
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ from itermvs_tpu_torch.ops.depth_readout import (  # noqa: F401 (windowed_expect
 from itermvs_tpu_torch.ops.resize import resize_bilinear, upsample_bilinear
 from itermvs_tpu_torch.ops.sweep_grad import SweepCorr
 from itermvs_tpu_torch.ops.upsample import upsample_depth
+from itermvs_tpu_torch.ops.view_aggregate import view_aggregate
 from itermvs_tpu_torch.ops.warping import device_constant, fused_sweep_taps
 
 NUM_INIT_SAMPLES = 32   # initialization sweep samples
@@ -165,14 +169,13 @@ class Evaluation(nn.Module):
                 (tuple(src_features[0].shape[1:3]),), src_features[0].dtype)
         corr = torch.stack([
             chunked_warp_corr(src, ref_feature, flat_idx[:, v], taps[:, :, v])
-            for v, src in enumerate(src_features)], dim=1)
-        corr = corr.reshape(b, len(src_features), n, GROUPS, h, w)
+            for v, src in enumerate(src_features)], dim=1)         # [B,V−1,N,G,HW]
         weight = self.pixel_view_weight(
-            corr.reshape(-1, n, GROUPS, h, w)).reshape(b, -1, h, w)
-        correlation = (corr * weight[:, :, None, None]).sum(dim=1) / (
-            1e-5 + weight.sum(dim=1))[:, None, None]
-        score = self.corr_conv1[2](correlation)                     # [B,N,H,W]
-        return upsample_bilinear(weight, 2), score
+            corr.reshape(-1, n, GROUPS, h, w)).reshape(b, -1, h * w)
+        with record_function("view_aggregate"):
+            correlation = view_aggregate(corr.unbind(1), weight)    # [B,N,G,HW]
+        score = self.corr_conv1[2](correlation.reshape(b, n, GROUPS, h, w))
+        return upsample_bilinear(weight.reshape(b, -1, h, w), 2), score
 
     @staticmethod
     def init_depth(score, idmin_b, idmax_b):
@@ -202,9 +205,8 @@ class Evaluation(nn.Module):
 
         Returns correlation scores [B, 10, H4, W4].
         """
-        view_weights = view_weights.detach()
         b, _, h, w = depth_samples.shape
-        weight_sum = 1e-5 + view_weights.sum(dim=1)                # [B,H,W]
+        weights = view_weights.detach().reshape(b, -1, h * w)      # [B,V−1,HW]
         rel_stack = torch.stack([rel_projs[k] for k in LEVELS], dim=2)
         src_hws = tuple(tuple(src_features[k][0].shape[1:3]) for k in LEVELS)
         counts = [len(CORR_INTERVALS[k]) for k in LEVELS]
@@ -217,14 +219,12 @@ class Evaluation(nn.Module):
         off = 0
         for i, key in enumerate(LEVELS):
             n = counts[i]
-            agg = None
-            for v, src in enumerate(src_features[key]):
-                corr_v = chunked_warp_corr(
-                    src, ref_features[key], flat_idx[:, v, off:off + n],
-                    taps[:, :, v, off:off + n]).reshape(b, n, GROUPS, h, w)
-                wv = view_weights[:, v][:, None, None]              # [B,1,1,H,W]
-                agg = corr_v * wv if agg is None else agg + corr_v * wv
-            scores.append(self.corr_conv1[i](agg / weight_sum[:, None, None]))
+            corrs = [chunked_warp_corr(src, ref_features[key], flat_idx[:, v, off:off + n],
+                                       taps[:, :, v, off:off + n])
+                     for v, src in enumerate(src_features[key])]
+            with record_function("view_aggregate"):
+                agg = view_aggregate(corrs, weights)                # [B,n,G,HW]
+            scores.append(self.corr_conv1[i](agg.reshape(b, n, GROUPS, h, w)))
             off += n
         return torch.cat(scores, dim=1)
 

@@ -15,26 +15,31 @@ from itermvs_tpu_torch.ops.sweep import sweep_premul
 from itermvs_tpu_torch.ops.sweep_epilogue import corr_epilogue
 from itermvs_tpu_torch.ops.sweep_grad import sweep_grad_ref, sweep_grad_src
 from itermvs_tpu_torch.ops.upsample import convex_upsample_grad, upsample_depth
+from itermvs_tpu_torch.ops.view_aggregate import view_aggregate, view_aggregate_grad
 from itermvs_tpu_torch.ops.warping import fused_sweep_taps
 
-# Every counted wrapper by its kernel's report name (without `_bf16`).
+# Every counted wrapper of a kernel with both dtype forms by its report
+# name (without `_bf16`), then those of the float32-only kernels.
 COUNTERS = {"sweep_premul": sweep_premul, "corr_epilogue": corr_epilogue,
             "sweep_grad_ref": sweep_grad_ref, "sweep_grad_src": sweep_grad_src,
             "depth_readout": depth_readout, "depth_readout_grad": depth_readout_grad,
             "sweep_taps": fused_sweep_taps, "convex_upsample": upsample_depth,
             "convex_upsample_grad": convex_upsample_grad}
+F32_COUNTERS = {"view_aggregate": view_aggregate, "view_aggregate_grad": view_aggregate_grad}
 # Every kernel's report name, float32 forms first.
 KERNEL_NAMES = ("sweep_premul", "corr_epilogue", "fusion_consistency", "sweep_grad_ref",
                 "sweep_grad_src", "depth_readout", "depth_readout_grad", "sweep_taps",
-                "convex_upsample", "convex_upsample_grad",
+                "convex_upsample", "convex_upsample_grad", "view_aggregate",
+                "view_aggregate_grad",
                 "sweep_premul_bf16", "corr_epilogue_bf16", "sweep_grad_ref_bf16",
                 "sweep_grad_src_bf16", "depth_readout_bf16", "depth_readout_grad_bf16",
                 "sweep_taps_bf16", "convex_upsample_bf16", "convex_upsample_grad_bf16")
 
 
 def launch_counts() -> dict[str, int]:
-    """{report name: launches} of all nineteen kernels."""
+    """{report name: launches} of all twenty-one kernels."""
     counts = {"fusion_consistency": consistency.launches}
+    counts.update({name: fn.launches for name, fn in F32_COUNTERS.items()})
     for name, fn in COUNTERS.items():
         counts[name] = fn.launches
         counts[f"{name}_bf16"] = fn.launches_bf16
@@ -47,3 +52,5 @@ def reset_launch_counts() -> None:
     depth_readout_grad.copies = 0
     for fn in COUNTERS.values():
         fn.launches = fn.launches_bf16 = 0
+    for fn in F32_COUNTERS.values():
+        fn.launches = 0

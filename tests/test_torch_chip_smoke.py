@@ -5,10 +5,12 @@ The scene copy must equal tests/synthetic_scene.py exactly (same numpy
 arithmetic); the depth check uses the same 0.05 bar as the JAX
 package's verify recipe.
 """
+import gc
 import os
 import subprocess
 import sys
 import tempfile
+import weakref
 
 import numpy as np
 import pytest
@@ -234,15 +236,18 @@ def test_bf16_plans_launch_as_many_kernels():
 
 
 def test_launch_counts_name_all_nine_kernels():
-    """All nineteen report names since K6-K10 joined the nine: the sweep
-    and fusion kernels, the depth readout forward and backward, the sweep
-    taps and the convex upsample forward and backward, each but
-    fusion_consistency in both dtypes."""
+    """All twenty-one report names since K6-K12 joined the nine: the
+    sweep and fusion kernels, the depth readout forward and backward, the
+    sweep taps and the convex upsample forward and backward, each but
+    fusion_consistency in both dtypes, and the view aggregation forward
+    and backward (float32 only)."""
     chip_smoke.reset_launch_counts()
     counts = chip_smoke.launch_counts()
-    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 19
+    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 21
     assert {"depth_readout", "depth_readout_grad_bf16", "sweep_taps_bf16", "convex_upsample",
-            "convex_upsample_grad_bf16"} <= set(counts)
+            "convex_upsample_grad_bf16", "view_aggregate",
+            "view_aggregate_grad"} <= set(counts)
+    assert not {"view_aggregate_bf16", "view_aggregate_grad_bf16"} & set(counts)
     assert counts == chip_smoke.planned_counts()
     assert chip_smoke.planned_counts(sweep_premul_bf16=3)["sweep_premul_bf16"] == 3
     for name in counts:
@@ -298,11 +303,11 @@ def test_map_plan_counts_k6_and_k8_per_prediction_and_sweep():
     plan = chip_smoke.planned_map_counts(shapes, torch.float32, maps=5)
     assert plan == chip_smoke.planned_counts(sweep_premul=260, corr_epilogue=260,
                                              depth_readout=25, sweep_taps=25,
-                                             convex_upsample=5)
+                                             convex_upsample=5, view_aggregate=65)
     plan16 = chip_smoke.planned_map_counts(shapes, torch.bfloat16)
     assert plan16 == chip_smoke.planned_counts(sweep_premul_bf16=52, corr_epilogue_bf16=52,
                                                depth_readout_bf16=5, sweep_taps_bf16=5,
-                                               convex_upsample_bf16=1)
+                                               convex_upsample_bf16=1, view_aggregate=13)
 
 
 def test_readout_logits_plant_their_cases():
@@ -418,7 +423,8 @@ def test_ddp_sample_keeps_another_share_in_each_sample():
 
 def test_ddp_plan_is_52_launches_per_rank_per_step():
     """52 of each sweep kernel, 5 (one per prediction, one per sweep)
-    of K6, K7 and K8, and one of K9 and K10 per rank per step."""
+    of K6, K7 and K8, one of K9 and K10, and 13 (one per aggregation) of
+    K11 and K12, float32 in both precisions, per rank per step."""
     for dtype in (torch.float32, torch.bfloat16):
         shapes = chip_smoke.sweep_shapes(640, 512, 5, 4, 2, itemsize=dtype.itemsize)
         plan = chip_smoke.planned_step_counts(shapes, dtype)
@@ -430,7 +436,8 @@ def test_ddp_plan_is_52_launches_per_rank_per_step():
                     ("convex_upsample", "convex_upsample_grad")]
         assert plan == chip_smoke.planned_counts(**{k: 52 for k in names},
                                                  **{k: 5 for k in heads},
-                                                 **{k: 1 for k in upsample})
+                                                 **{k: 1 for k in upsample},
+                                                 view_aggregate=13, view_aggregate_grad=13)
 
 
 def _record(loss, value, launches=None, copies=0):
@@ -628,6 +635,15 @@ def test_capture_sweeps_returns_one_tuple_per_sweep(dtype):
             assert base.dtype == torch.int32 and grad.dtype == torch.float32
             assert all(t.is_contiguous() for t in (src, ref, base, taps, grad))
             assert bool(torch.isfinite(grad).all()) and bool(grad.abs().sum() > 0)
+    # The captures go with the returned list, without waiting for the
+    # garbage collector (else they count in the next phase's peak memory).
+    gc.disable()
+    try:
+        kept = weakref.ref(caps[0][4])
+        del caps, mine, src, ref, base, taps, grad
+        assert kept() is None
+    finally:
+        gc.enable()
 
 
 def test_uint8_samples_normalise_to_the_float32_samples_plane():
@@ -708,7 +724,8 @@ def test_chain_time_takes_the_kernels_inside_each_labelled_range():
     chains = chip_smoke.chain_time(events)
     assert chains == {"depth_readout": {"device_ms": 0.014, "launches": 2},
                       "fused_sweep_taps": {"device_ms": 0.018, "launches": 2},
-                      "convex_upsample": {"device_ms": 0.0, "launches": 0}}
+                      "convex_upsample": {"device_ms": 0.0, "launches": 0},
+                      "view_aggregate": {"device_ms": 0.0, "launches": 0}}
     by_name, by_cat, busy = chip_smoke.device_summary(events)
     assert "fused_sweep_taps" not in by_name and "depth_readout" not in by_name
     assert busy == pytest.approx((10 + 8 + 1 + 29 + 9 + 5) / 1e3)
@@ -889,7 +906,7 @@ def test_eval_rank_on_two_cpu_ranks():
 
 def test_entry_plan_is_52_per_call_at_128x160():
     """entry()'s forward (128x160, 5 views, 4 iterations): 52 launches of
-    K1 and K2, 5 of K6 and K8, one of K9."""
+    K1 and K2, 5 of K6 and K8, one of K9, 13 of K11."""
     shapes = chip_smoke.sweep_shapes(chip_smoke.ENTRY_WIDTH, chip_smoke.ENTRY_HEIGHT,
                                      chip_smoke.ENTRY_VIEWS, chip_smoke.ITERATION)
     assert [s[:8] for s in shapes] == [
@@ -898,13 +915,15 @@ def test_entry_plan_is_52_per_call_at_128x160():
         ("iter_level2", 1, 4, 32, 40, 32, 40, 32),
         ("iter_level3", 1, 2, 32, 40, 16, 20, 48)]
     assert chip_smoke.planned_map_counts(shapes, torch.float32) == chip_smoke.planned_counts(
-        sweep_premul=52, corr_epilogue=52, depth_readout=5, sweep_taps=5, convex_upsample=1)
+        sweep_premul=52, corr_epilogue=52, depth_readout=5, sweep_taps=5, convex_upsample=1,
+        view_aggregate=13)
 
 
 def test_dryrun_plan_per_rank_per_step():
     """The dry run's step on one rank (64x96, 3 views, 2 iterations, batch
     1): 2 + 2·2·3 = 14 launches of each sweep kernel, forward and
-    backward, 3 of K6, K7 and K8, one of K9 and K10."""
+    backward, 3 of K6, K7 and K8, one of K9 and K10, 1 + 3·2 = 7 of K11
+    and K12."""
     shapes = chip_smoke.sweep_shapes(port_entry.DRYRUN_WIDTH, port_entry.DRYRUN_HEIGHT,
                                      port_entry.DRYRUN_VIEWS, port_entry.DRYRUN_ITERATION)
     plan = chip_smoke.planned_step_counts(shapes, torch.float32,
@@ -912,7 +931,7 @@ def test_dryrun_plan_per_rank_per_step():
     assert plan == chip_smoke.planned_counts(
         sweep_premul=14, corr_epilogue=14, sweep_grad_ref=14, sweep_grad_src=14,
         depth_readout=3, depth_readout_grad=3, sweep_taps=3, convex_upsample=1,
-        convex_upsample_grad=1)
+        convex_upsample_grad=1, view_aggregate=7, view_aggregate_grad=7)
 
 
 def test_largest_patch_finds_the_biggest_connected_block():
@@ -970,3 +989,88 @@ def test_hold_dryrun_gates():
                        ({"loss": 164.77 * (1 + 2e-4)}, "step 1 disagrees")):
         with pytest.raises(SystemExit, match=match):
             chip_smoke.hold_dryrun({**rec, **bad}, plan, 164.77)
+
+
+def test_view_aggregate_chain_is_labelled_and_bounded():
+    """K11's label is one of the profiled chains; its bound over a map is
+    each source's correlation and the weights read once and the aggregate
+    written once, at the init sweep (32 samples on the 1/8 grid) and the 3
+    levels of each of 4 iterations (10 samples on the 1/4 grid): ≈ 0.91
+    GB, 0.271 ms."""
+    assert "view_aggregate" in chip_smoke.CHAINS
+    p8, p4 = 144 * 200, 288 * 400
+    nbytes = 4 * ((5 * 32 * 8 * p8 + 4 * p8) + 4 * (5 * 10 * 8 * p4 + 3 * 4 * p4))
+    bounds = chip_smoke.chain_bound_ms(1600, 1152, 5, 4)
+    assert bounds["view_aggregate"] == pytest.approx(
+        1e3 * nbytes / chip_smoke.PEAK_BYTES_PER_S)
+    assert bounds["view_aggregate"] == pytest.approx(0.271, abs=1e-3)
+    # float32 in both precisions: the itemsize does not enter it.
+    assert chip_smoke.chain_bound_ms(640, 512, 5, 4, 4, itemsize=2, train=True)[
+        "view_aggregate"] == pytest.approx(chip_smoke.chain_bound_ms(640, 512, 5, 4, 4)[
+            "view_aggregate"])
+
+
+def test_profile_categories_name_the_view_aggregate_kernels():
+    """K11's name is a prefix of K12's; neither has a bf16 form."""
+    cat = chip_smoke._category
+    assert cat("void (anonymous namespace)::view_aggregate_kernel<4>((anonymous "
+               "namespace)::Views, float const*, float*, int, int, int, long long)") == \
+        "view_aggregate"
+    assert cat("void (anonymous namespace)::view_aggregate_grad_kernel<1, true>((anonymous "
+               "namespace)::Views, float const*)") == "view_aggregate_grad"
+    assert cat("void (anonymous namespace)::view_aggregate_grad_kernel<4, false>(float "
+               "const*)") == "view_aggregate_grad"
+
+
+def test_view_aggregate_work_counts_each_input_and_output_once():
+    """K11: every view's correlation and weight read, the output written;
+    K12: the weights and the gradient read, every view's ∂c written, and
+    with ∂w the views and the output read and ∂w written too."""
+    e, px = 4 * 256 * 5120, 4 * 5120
+    assert chip_smoke.view_aggregate_work(4, 4, 256, 5120, grad=False) == (
+        4 * (4 * e + 4 * px + e), 8 * e + 4 * px)
+    assert chip_smoke.view_aggregate_work(4, 4, 256, 5120, grad=True) == (
+        4 * (4 * px + e + 4 * e), 4 * px + 8 * e)
+    assert chip_smoke.view_aggregate_work(4, 4, 256, 5120, grad=True, weight_grad=True) == (
+        4 * (4 * px + e + 4 * e + 4 * e + e + 4 * px), 4 * px + 20 * e)
+
+
+def test_view_aggregate_inputs_and_cases():
+    """chip_smoke's K11/K12 inputs, made on the CPU: stacked views are
+    slices of one tensor (strided by the batch, no copy), weights lie in
+    a softmax maximum's range [1/V, 1]; the edge cases hold an odd P and
+    6 sources, and the main path's shapes keep n·G a multiple of K11's 8
+    rows per thread."""
+    gen = torch.Generator().manual_seed(0)
+    corrs, weights, grad = chip_smoke.view_aggregate_inputs(4, 3, 2, 10, True, gen, "cpu")
+    assert len(corrs) == 3 and corrs[0].shape == grad.shape == (4, 2, 8, 10)
+    assert corrs[0].stride() == (3 * 2 * 8 * 10, 80, 10, 1)
+    assert corrs[1].data_ptr() - corrs[0].data_ptr() == 2 * 8 * 10 * 4
+    assert weights.shape == (4, 3, 10) and (weights >= 1 / 3).all() and (weights <= 1).all()
+    corrs, _, _ = chip_smoke.view_aggregate_inputs(1, 6, 4, 7, False, gen, "cpu")
+    assert len(corrs) == 6 and all(c.is_contiguous() for c in corrs)
+    cases = {c[0]: c for c in chip_smoke.VIEW_EDGE_CASES}
+    assert cases["odd_p"][4] % 2 == 1 and cases["odd_p"][5]
+    assert cases["six_sources"][2] == 6
+    for args in ((1600, 1152, 5, 4), (640, 512, 5, 4, 4)):
+        assert all(s[2] * chip_smoke.GROUPS % 8 == 0 for s in chip_smoke.sweep_shapes(*args))
+
+
+def test_kernels_line_names_every_kernel_once():
+    """The `kernels` line reports K11 per depth map and K12 per training
+    step, every other kernel as before (fusion_consistency in its own
+    entry), each with a source in the repo and the file:line it
+    replaces."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert "view_aggregate" in chip_smoke.REPORT_PER_MAP
+    assert "view_aggregate_grad" in chip_smoke.REPORT_PER_STEP
+    named = chip_smoke.REPORT_PER_MAP + chip_smoke.REPORT_PER_STEP + ("fusion_consistency",)
+    assert sorted(named) == sorted(chip_smoke.KERNEL_NAMES)
+    sources = chip_smoke.kernel_sources()
+    assert set(sources) == set(chip_smoke.KERNEL_NAMES)
+    assert sources["view_aggregate"][0] == "itermvs_tpu_torch/csrc/view_aggregate.cu"
+    for source, replaces in sources.values():
+        assert os.path.exists(os.path.join(root, source))
+        path, line = replaces.split(":")
+        with open(os.path.join(root, path)) as f:
+            assert int(line) <= len(f.readlines())
