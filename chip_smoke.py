@@ -29,11 +29,13 @@
    slices of one stacked tensor, each iteration level's n = 4, 4, 2 at
    288*400) and of a training step's (640x512, batch 4: the init sweep's
    slices strided by the batch), and K12 view_aggregate_grad there (with
-   the weights' gradient at the init sweeps), at an odd P and with 6
-   sources: the output and every view's gradient bit for bit against the
-   plain versions, the weights' gradient within 1e-5 (relative L2), two
-   K12 launches bit-equal; bare ms against the byte bound, the plain
-   chain's ms and device ms.
+   the weights' gradient at the init sweeps), then both, K12 with and
+   without the weights' gradient, at VIEW_EDGE_CASES (an odd P, 6
+   sources, 24 rows, one sample, one view): the output and every view's
+   gradient bit for bit against the plain versions, the weights'
+   gradient within 1e-5 (relative L2), two K12 launches bit-equal; bare
+   ms against the byte bound, the profiler's device µs per kernel
+   function, the plain chain's ms and device ms.
 4. Runs the port's eval core loop (`itermvs_tpu_torch.eval.run_depth`)
    with the vendored DTU weights and the feature cache on a 5-view
    textured-plane scene made in memory at 1600x1152, one depth map per
@@ -1231,9 +1233,16 @@ def check_edge_shapes():
 VIEW_GRAD_REL = 1e-5
 # K11/K12 beside the main path's shapes (label, batch, views, samples n,
 # P, stacked): an odd P (the scalar path) on strided views at batch 2,
-# and 6 sources (eval_tanks.sh's --n_views 7) at the map's iteration P.
+# 6 sources (eval_tanks.sh's --n_views 7; two of K12's view groups) at
+# the map's iteration P, and the rows K12's blocks split: 3 samples (24
+# rows: a part-filled block of 32 rows without ∂w, 3 rows per thread
+# with it) at the training init's stacked layout, one sample (8 rows)
+# and one view.
 VIEW_EDGE_CASES = (("odd_p", 2, 3, 4, 7 * 11, True),
-                   ("six_sources", 1, 6, 4, 288 * 400, False))
+                   ("six_sources", 1, 6, 4, 288 * 400, False),
+                   ("rows_24", 4, 4, 3, 64 * 80, True),
+                   ("one_sample", 2, 4, 1, 128 * 160, False),
+                   ("one_view", 2, 1, 4, 128 * 160, False))
 
 
 def view_aggregate_work(b, nv, rows, p, grad, weight_grad=False):
@@ -1272,10 +1281,32 @@ def bare_launch(name, args):
     return lambda: kernels.check_launch(name, fn(*args))
 
 
-def launch_device_ms(fn, reps=20):
-    """The profiler's device ms per call of `fn` over `reps` calls."""
+def device_us(fn, reps=20):
+    """{kernel function: the profiler's device µs per launch} over `reps`
+    calls of `fn`, after one call outside the profile. A programmatic
+    dependent launch counts from its blocks' start, so its wait for the
+    kernel before it is included."""
     fn()
-    return device_time(lambda: [fn() for _ in range(reps)])[2] / reps
+    by_name = device_time(lambda: [fn() for _ in range(reps)])[0]
+    short = lambda name: name.removeprefix("void ").replace(
+        "(anonymous namespace)::", "").split("(")[0]
+    return {short(name): us / calls for name, (calls, us) in by_name.items()}
+
+
+def hold_view_grad(run, d_corr, d_w, want_c, want_w):
+    """K12's gates on one launcher `run` writing `d_corr` (and `d_w`, or
+    None): launched twice, (every ∂c_v bit-equal to `want_c`, the two
+    launches bit-equal, ∂w's max |err| and relative L2 against `want_w`)."""
+    run()
+    same = all(torch.equal(bits(d_corr[v]), bits(want_c[v])) for v in range(len(want_c)))
+    first = [d_corr.clone()] + ([] if d_w is None else [d_w.clone()])
+    run()
+    torch.cuda.synchronize()
+    repeats = all(torch.equal(bits(a), bits(z)) for a, z in zip(first, (d_corr, d_w)))
+    if d_w is None:
+        return same, repeats, 0.0, 0.0
+    return (same, repeats, (d_w - want_w).abs().max().item(),
+            ((d_w - want_w).norm() / want_w.norm()).item())
 
 
 def hold_view_aggregate(label, corrs, weights, grad, weight_grad, launches, per):
@@ -1286,9 +1317,9 @@ def hold_view_aggregate(label, corrs, weights, grad, weight_grad, launches, per)
     bare launches (`ms`: the C launcher called with its arguments built
     once, outputs allocated beforehand, so that the host's Python does not
     pace the ~25 µs calls; `device_ms`: the profiler's kernel time per
-    launch), the wrappers (`call_ms`) and the plain versions (`plain_ms`,
-    and `plain_device_ms` from the profiler). One JSON line per kernel;
-    returns both records."""
+    launch, for K12 also `device_us` per kernel function), the wrappers
+    (`call_ms`) and the plain versions (`plain_ms`, and `plain_device_ms`
+    from the profiler). One JSON line per kernel; returns both records."""
     b, n, g, p = corrs[0].shape
     nv = len(corrs)
     out = torch.empty(b, n, g, p, device="cuda")
@@ -1298,7 +1329,7 @@ def hold_view_aggregate(label, corrs, weights, grad, weight_grad, launches, per)
     same = torch.equal(bits(out), bits(want))
     wrapper = torch.equal(bits(view_aggregate(corrs, weights)), bits(out))
     nbytes, ops = view_aggregate_work(b, nv, n * g, p, grad=False)
-    k11 = {"ms": time_ms(bare), "device_ms": launch_device_ms(bare),
+    k11 = {"ms": time_ms(bare), "device_ms": sum(device_us(bare).values()) / 1e3,
            "call_ms": time_ms(lambda: view_aggregate(corrs, weights)),
            "plain_ms": time_ms(lambda: view_aggregate_plain(corrs, weights)),
            "plain_device_ms": device_time(lambda: view_aggregate_plain(corrs, weights))[2],
@@ -1318,24 +1349,16 @@ def hold_view_aggregate(label, corrs, weights, grad, weight_grad, launches, per)
     more = dict(corrs=corrs, out=out, d_weights=d_w) if weight_grad else {}
     bare = bare_launch("view_aggregate_grad",
                        view_aggregate_grad_args(weights, grad, d_corr, **more))
-    bare()
     want_c, want_w = view_aggregate_grad_plain(corrs, weights, grad, weight_grad)
-    same = all(torch.equal(bits(d_corr[v]), bits(want_c[v])) for v in range(nv))
-    first = [d_corr.clone()] + ([d_w.clone()] if weight_grad else [])
-    bare()
-    torch.cuda.synchronize()
-    repeats = all(torch.equal(bits(a), bits(z)) for a, z in zip(first, (d_corr, d_w)))
+    same, repeats, err, rel = hold_view_grad(bare, d_corr, d_w, want_c, want_w)
     call = lambda: view_aggregate_grad(weights, grad, *((corrs, out) if weight_grad else ()))
     got_c, got_w = call()
     wrapper = all(torch.equal(bits(a), bits(z)) for a, z in zip(got_c, d_corr)) and (
         not weight_grad or torch.equal(bits(got_w), bits(d_w)))
-    err = rel = 0.0
-    if weight_grad:
-        err = (d_w - want_w).abs().max().item()
-        rel = ((d_w - want_w).norm() / want_w.norm()).item()
     nbytes, ops = view_aggregate_work(b, nv, n * g, p, grad=True, weight_grad=weight_grad)
     plain = lambda: view_aggregate_grad_plain(corrs, weights, grad, weight_grad)
-    k12 = {"ms": time_ms(bare), "device_ms": launch_device_ms(bare),
+    us = device_us(bare)
+    k12 = {"ms": time_ms(bare), "device_ms": sum(us.values()) / 1e3, "device_us": us,
            "call_ms": time_ms(call), "plain_ms": time_ms(plain),
            "plain_device_ms": device_time(plain)[2], "library_ms": None,
            "bytes": nbytes, "ops": ops, "max_abs_err": err, "max_rel_err": rel}
@@ -1361,8 +1384,9 @@ def check_view_aggregate():
     4, 2 at 288·400, views of their own) and of a 640x512 batch-4 training
     step (the init sweep's slices strided by the batch), K12 with ∂w at
     the init sweeps (where the weights take a gradient), then at
-    VIEW_EDGE_CASES with ∂w. Returns the per-map totals of K11 and the
-    per-step totals of K11 and K12 (each shape times its launches)."""
+    VIEW_EDGE_CASES with and without ∂w. Returns the per-map totals of
+    K11 and the per-step totals of K11 and K12 (each shape times its
+    launches; K12's `device_us` per kernel function)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 6)
     per_map, per_step = {}, {}
@@ -1386,13 +1410,17 @@ def check_view_aggregate():
                     tot[key] = tot.get(key, 0.0) + launches * rec[key]
                 for key in ("max_abs_err", "max_rel_err"):
                     tot[key] = max(tot[key], rec.get(key, 0.0))
+                for fn, us in rec.get("device_us", {}).items():
+                    fns = tot.setdefault("device_us", {})
+                    fns[fn] = fns.get(fn, 0.0) + launches * us
                 tot["launches"] += launches
             del corrs, weights, grad
             torch.cuda.empty_cache()
     print(json.dumps({"view_aggregate_totals": {"per_map": per_map, "per_step": per_step}}))
     for label, b, nv, n, p, stacked in VIEW_EDGE_CASES:
         corrs, weights, grad = view_aggregate_inputs(b, nv, n, p, stacked, gen)
-        hold_view_aggregate(label, corrs, weights, grad, True, 0, "edge_case")
+        for weight_grad in (True, False):
+            hold_view_aggregate(label, corrs, weights, grad, weight_grad, 0, "edge_case")
     return per_map, per_step
 
 

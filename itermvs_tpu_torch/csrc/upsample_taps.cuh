@@ -2,7 +2,7 @@
 // convex_upsample_grad (convex_upsample_grad.cu) share: the mask logits'
 // layout, the pairs of pixels a thread owns, their loads and stores, the
 // 9-tap softmax, which K10 recomputes and so must compute exactly as K9
-// does, and the launch.
+// does, and the launch (launch.cuh).
 //
 // Layout: mask logits [B, 144, H, W], channel k*16 + i*4 + j for tap k =
 // (dy+1)*3 + (dx+1) and sub-pixel (i, j) of the x4 upsample.
@@ -20,6 +20,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -172,27 +174,6 @@ __device__ __forceinline__ void neighbourhoods(const float* __restrict__ plane, 
 #pragma unroll
       for (int c = 0; c < 3; ++c) t[e][r * 3 + c] = v[e + c];
   }
-}
-
-// Launches `kernel` on `stream`; where `programmatic`, as a programmatic
-// dependent launch: its blocks may start while the stream's previous
-// kernel drains, so they must call cudaGridDependencySynchronize()
-// before they touch global memory. Returns the launch's error; a failed
-// launch is reported, never retried another way.
-template <typename... Params, typename... Args>
-cudaError_t launch_kernel(bool programmatic, void (*kernel)(Params...), dim3 grid, dim3 block,
-                          cudaStream_t stream, Args... args) {
-  cudaLaunchConfig_t config = {};
-  config.gridDim = grid;
-  config.blockDim = block;
-  config.stream = stream;
-  cudaLaunchAttribute attribute[1];
-  attribute[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attribute[0].val.programmaticStreamSerializationAllowed = 1;
-  config.attrs = attribute;
-  config.numAttrs = programmatic ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(&config, kernel, args...);
-  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace

@@ -52,6 +52,13 @@ def bind(lib: str, symbol: str, argtypes):
     return fn
 
 
+def query(lib: str, symbol: str) -> bool:
+    """The value of a library's exported query `symbol` (an `int (void)`
+    function), False where the library predates it."""
+    fn = getattr(ctypes.CDLL(lib), symbol, None)
+    return bool(fn()) if fn is not None else False
+
+
 def launcher_arity(tree: str, source: str, symbol: str) -> int:
     """The number of parameters of `tree`'s exported launcher `symbol`."""
     with open(source_path(tree, source)) as f:

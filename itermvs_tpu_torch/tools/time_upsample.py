@@ -42,7 +42,6 @@ without a CUDA device.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
@@ -50,13 +49,6 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SOURCES = ("convex_upsample", "convex_upsample_grad")
-
-
-def programmatic(lib: str):
-    """Whether a K10 library's fold is a programmatic dependent launch
-    (False for a library that predates the query)."""
-    fn = getattr(ctypes.CDLL(lib), "itermvs_convex_upsample_grad_programmatic", None)
-    return bool(fn()) if fn is not None else False
 
 
 def main() -> int:
@@ -152,8 +144,10 @@ def main() -> int:
                    cs.median_ms(lambda: convex_upsample_grad(x, logits, grad), args.rounds,
                                 args.reps),
                    {"max_rel_err": errs, "two_launches_bit_equal": True,
-                    "fold_programmatic": {v: programmatic(lib["convex_upsample_grad"])
-                                          for v, lib in libs.items()}})
+                    "fold_programmatic": {
+                        v: other_tree.query(lib["convex_upsample_grad"],
+                                            "itermvs_convex_upsample_grad_programmatic")
+                        for v, lib in libs.items()}})
             del x, logits, grad, runs
             torch.cuda.empty_cache()
     print(json.dumps({"sass_instructions": {v: {s: other_tree.sass_instructions(lib)
@@ -180,7 +174,7 @@ def report(cs, kname, per, b, h, w, dtype, grad, runs, order, args, call, gates)
         mean = sum(t[0] for t in turns[v]) / len(turns[v])
         line["versions"][v] = {"turns_ms": turns[v], "ms": mean, "share": bound / mean,
                                "cold_ms": cold_ms(runs[v], args.reps),
-                               "device_us": device_us(cs, runs[v], args.reps)}
+                               "device_us": cs.device_us(runs[v], args.reps)}
     print(json.dumps(line), flush=True)
 
 
@@ -202,19 +196,6 @@ def cold_ms(run, reps):
         end.record()
     torch.cuda.synchronize()
     return sorted(start.elapsed_time(end) for start, end in events)[reps // 2]
-
-
-def device_us(cs, run, reps):
-    """{kernel function: profiler device us per launch} over `reps`
-    launches of `run`."""
-    def many():
-        for _ in range(reps):
-            run()
-
-    by_name = cs.device_time(many)[0]
-    short = lambda name: name.removeprefix("void ").replace(
-        "(anonymous namespace)::", "").split("(")[0]
-    return {short(name): us / calls for name, (calls, us) in by_name.items()}
 
 
 if __name__ == "__main__":

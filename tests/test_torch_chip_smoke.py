@@ -796,6 +796,17 @@ def test_upsample_timing_script_needs_a_card():
     assert "versions" not in out.stdout and "sass_instructions" not in out.stdout
 
 
+def test_view_aggregate_timing_script_needs_a_card():
+    """Without a CUDA device the K11/K12 A/B timing script exits non-zero
+    and prints no timing line."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "itermvs_tpu_torch", "tools", "time_view_aggregate.py")
+    out = subprocess.run([sys.executable, script, "--tree", root], capture_output=True,
+                         text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert "versions" not in out.stdout and "totals" not in out.stdout
+
+
 def test_upsample_work_counts_each_input_and_output_once():
     """K9: 144 logits, the pixel's depth and its 16 sub-pixels; K10: the
     logits read and their gradient written, g's 16 values, the depth and
@@ -1052,6 +1063,10 @@ def test_view_aggregate_inputs_and_cases():
     cases = {c[0]: c for c in chip_smoke.VIEW_EDGE_CASES}
     assert cases["odd_p"][4] % 2 == 1 and cases["odd_p"][5]
     assert cases["six_sources"][2] == 6
+    # K12's row splits: 24 rows on the init's stacked layout, 8 rows, one view.
+    assert cases["rows_24"][3] * chip_smoke.GROUPS == 24 and cases["rows_24"][5]
+    assert cases["one_sample"][3] * chip_smoke.GROUPS == 8
+    assert cases["one_view"][2] == 1
     for args in ((1600, 1152, 5, 4), (640, 512, 5, 4, 4)):
         assert all(s[2] * chip_smoke.GROUPS % 8 == 0 for s in chip_smoke.sweep_shapes(*args))
 
