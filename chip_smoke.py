@@ -35,7 +35,15 @@
    gradient bit for bit against the plain versions, the weights'
    gradient within 1e-5 (relative L2), two K12 launches bit-equal; bare
    ms against the byte bound, the profiler's device µs per kernel
-   function, the plain chain's ms and device ms.
+   function, the plain chain's ms and device ms. Then `check_conv_gru`:
+   the ConvGRU's gates K13 gru_reset, K14 gru_update and their
+   backwards K15 gru_update_grad, K16 gru_reset_grad, in float32 and
+   bfloat16, at a map's GRU call [1, ·, 288, 400], a training step's
+   [4, ·, 128, 160] and GRU_EDGE_SHAPES (H·W not a multiple of the
+   vector word at B = 3 and B = 1, a small map at B = 2), on seeded
+   logits with saturating and tiny values planted: every output bit for
+   bit against the plain versions, two launches bit-equal; bare ms,
+   device ms, bound and share, the plain version's ms.
 4. Runs the port's eval core loop (`itermvs_tpu_torch.eval.run_depth`)
    with the vendored DTU weights and the feature cache on a 5-view
    textured-plane scene made in memory at 1600x1152, one depth map per
@@ -43,7 +51,7 @@
    (as save_depth's loader delivers them on a card); reads the PFMs back
    and checks them against the scene's analytic depth; checks that each
    kernel launched as often as the chunk plan predicts (K6 and K8 5 times
-   per map, K9 once, K11 13 times); prints per map
+   per map, K9 once, K11 13 times, K13 and K14 4 times); prints per map
    the host ms of run_depth's `dispatch` (uploads and eager launches)
    and `finalize` (wait, dequantization, writer handoff).
 5. Fuses those 5 depth maps (`itermvs_tpu_torch.fusion.fuse_views`,
@@ -91,7 +99,7 @@
    on one in-memory DTU-layout batch of the plane scene: the loss must
    fall, and each of the four sweep kernels must launch 52 times per
    step, K6, K7 and K8 5 times each, K9 and K10 once, K11 and K12 13
-   times each, and K7's wrapper
+   times each, K13-K16 4 times each, and K7's wrapper
    must copy no probability gradient (K7 reads the loss's in place; so
    in step 10 too), and the layout of each one K7 gets is printed
    (`prob_grad_layouts`); ms per step, steps/s, peak memory and one profiled step's
@@ -218,7 +226,9 @@ from itermvs_tpu_torch.io import read_pfm, read_ply
 from itermvs_tpu_torch.models import Pipeline
 from itermvs_tpu_torch.models import itermvs as itermvs_model
 from itermvs_tpu_torch.models.itermvs import (
-    CORR_INTERVALS, GROUPS, INTERVAL_SCALE, LEVELS, NUM_INIT_SAMPLES, initial_depth_samples)
+    CORR_INTERVALS, GROUPS, HIDDEN_DIM, INTERVAL_SCALE, LEVELS, NUM_INIT_SAMPLES,
+    initial_depth_samples)
+from itermvs_tpu_torch.ops import conv_gru
 from itermvs_tpu_torch.ops.consistency import (
     MAX_SOURCES, consistency, consistency_plain, launch_consistency, record)
 from itermvs_tpu_torch.ops.counts import KERNEL_NAMES, launch_counts, reset_launch_counts
@@ -1281,13 +1291,33 @@ def bare_launch(name, args):
     return lambda: kernels.check_launch(name, fn(*args))
 
 
-def device_us(fn, reps=20):
+# The profiler now and then records no device event, or only some, for
+# the captures of about 0.1 s that start every ten seconds or so (seen
+# on the card: 3 of 640 short captures empty, runs of one to three);
+# a capture taken after this pause has held every event.
+CAPTURE_PAUSE_S = 1.0
+
+
+def device_capture(fn, phase):
+    """`device_time(fn)`, taken once more after CAPTURE_PAUSE_S where it
+    holds no device event; raises naming `phase` if that one is empty
+    too, so that no timing line prints from nothing."""
+    for attempt in range(2):
+        got = device_time(fn)
+        if got[0]:
+            return got
+        print(json.dumps({"empty_capture": phase, "attempt": attempt + 1}))
+        time.sleep(CAPTURE_PAUSE_S)
+    raise SystemExit(f"{phase}: the profiler recorded no device event in two captures")
+
+
+def device_us(fn, reps=20, phase="device_us"):
     """{kernel function: the profiler's device µs per launch} over `reps`
-    calls of `fn`, after one call outside the profile. A programmatic
-    dependent launch counts from its blocks' start, so its wait for the
-    kernel before it is included."""
+    calls of `fn`, after one call outside the profile (`device_capture`).
+    A programmatic dependent launch counts from its blocks' start, so its
+    wait for the kernel before it is included."""
     fn()
-    by_name = device_time(lambda: [fn() for _ in range(reps)])[0]
+    by_name = device_capture(lambda: [fn() for _ in range(reps)], phase)[0]
     short = lambda name: name.removeprefix("void ").replace(
         "(anonymous namespace)::", "").split("(")[0]
     return {short(name): us / calls for name, (calls, us) in by_name.items()}
@@ -1329,10 +1359,12 @@ def hold_view_aggregate(label, corrs, weights, grad, weight_grad, launches, per)
     same = torch.equal(bits(out), bits(want))
     wrapper = torch.equal(bits(view_aggregate(corrs, weights)), bits(out))
     nbytes, ops = view_aggregate_work(b, nv, n * g, p, grad=False)
-    k11 = {"ms": time_ms(bare), "device_ms": sum(device_us(bare).values()) / 1e3,
+    k11 = {"ms": time_ms(bare),
+           "device_ms": sum(device_us(bare, phase=f"view_aggregate at {label}").values()) / 1e3,
            "call_ms": time_ms(lambda: view_aggregate(corrs, weights)),
            "plain_ms": time_ms(lambda: view_aggregate_plain(corrs, weights)),
-           "plain_device_ms": device_time(lambda: view_aggregate_plain(corrs, weights))[2],
+           "plain_device_ms": device_capture(lambda: view_aggregate_plain(corrs, weights),
+                                             f"view_aggregate_plain at {label}")[2],
            "library_ms": None, "bytes": nbytes, "ops": ops}
     k11["bound_ms"], k11["bound_by"] = bound_ms(nbytes, ops)
     print(json.dumps({"kernel": "view_aggregate", "shape": label, "batch": b, "views": nv,
@@ -1357,10 +1389,11 @@ def hold_view_aggregate(label, corrs, weights, grad, weight_grad, launches, per)
         not weight_grad or torch.equal(bits(got_w), bits(d_w)))
     nbytes, ops = view_aggregate_work(b, nv, n * g, p, grad=True, weight_grad=weight_grad)
     plain = lambda: view_aggregate_grad_plain(corrs, weights, grad, weight_grad)
-    us = device_us(bare)
+    us = device_us(bare, phase=f"view_aggregate_grad at {label}")
     k12 = {"ms": time_ms(bare), "device_ms": sum(us.values()) / 1e3, "device_us": us,
            "call_ms": time_ms(call), "plain_ms": time_ms(plain),
-           "plain_device_ms": device_time(plain)[2], "library_ms": None,
+           "plain_device_ms": device_capture(plain, f"view_aggregate_grad_plain at {label}")[2],
+           "library_ms": None,
            "bytes": nbytes, "ops": ops, "max_abs_err": err, "max_rel_err": rel}
     k12["bound_ms"], k12["bound_by"] = bound_ms(nbytes, ops)
     print(json.dumps({"kernel": "view_aggregate_grad", "shape": label, "batch": b,
@@ -1421,6 +1454,159 @@ def check_view_aggregate():
         corrs, weights, grad = view_aggregate_inputs(b, nv, n, p, stacked, gen)
         for weight_grad in (True, False):
             hold_view_aggregate(label, corrs, weights, grad, weight_grad, 0, "edge_case")
+    return per_map, per_step
+
+
+# The ConvGRU's input channels: the normalized depth and the correlation
+# of every level's intervals (models/itermvs.py `Update.forward`).
+GRU_INPUT = 1 + sum(len(v) for v in CORR_INTERVALS.values())
+GRU_CHANNELS = HIDDEN_DIM + GRU_INPUT
+# K13-K16 beside the main path's shapes (batch, H, W): H·W = 1961, not a
+# multiple of either dtype's word (the one-element path), at B = 3 and
+# B = 1, and a small map whose H·W = 96 takes the word path at B = 2.
+GRU_EDGE_SHAPES = ((3, 37, 53), (1, 37, 53), (2, 8, 12))
+# Logits planted at every 97th element of z_l, r_l and q_l: σ and tanh
+# saturated both ways, zero and tiny magnitudes.
+GRU_PLANTED = (-100.0, -30.0, -1e-8, 0.0, 1e-8, 30.0, 100.0)
+# Operations per hidden element (σ counts 4: a negation, expf, an add
+# and a divide; tanhf 1): K13 σ and a product; K14 σ, tanh, 1 − z, two
+# products and the sum; K15 σ, tanh, the 3 of ∂z's two terms, 3 of
+# sigmoid_backward, g·z, 3 of tanh_backward, 1 − z and g·(1 − z); K16 σ,
+# G·h, 3 of sigmoid_backward and G·r.
+GRU_OPS = {"gru_reset": 5, "gru_update": 9, "gru_update_grad": 17, "gru_reset_grad": 9}
+
+
+def gru_work(name, b, p, itemsize):
+    """(bytes, operations) of K13-K16 on [b, ·, p]: each input read once,
+    each output written once (elements of hidden and of hidden + input
+    channels: K13 reads r_l and hx and writes rh_x, K14 reads z_l, q_l, h
+    and writes h', K15 reads g, z_l, q_l, h and writes 3 gradients, K16
+    reads G, r_l, h and writes ∂r_l, ∂hx)."""
+    hid, ch = HIDDEN_DIM, GRU_CHANNELS
+    elements = {"gru_reset": hid + 2 * ch, "gru_update": 4 * hid, "gru_update_grad": 7 * hid,
+                "gru_reset_grad": 3 * hid + 2 * ch}[name]
+    return itemsize * b * p * elements, GRU_OPS[name] * b * p * hid
+
+
+def gru_inputs(b, h, w, dtype, gen, dev="cuda"):
+    """Seeded K13-K16 inputs in `dtype` (drawn in float32, then rounded):
+    logits z_l, r_l, q_l [b, hidden, h, w] N(0, 4) with GRU_PLANTED, the
+    hidden state tanh(N(0, 1)), hx = [h, x] with x N(0, 1), and the
+    gradients g [b, hidden, h, w] and G [b, hidden + input, h, w] N(0,
+    1)."""
+    draw = lambda c, scale=1.0: scale * torch.randn(b, c, h, w, device=dev, generator=gen)
+    logits = []
+    for _ in range(3):
+        t = draw(HIDDEN_DIM, 2.0).flatten()
+        plant = torch.tensor(GRU_PLANTED, device=dev).repeat(t.numel() // 97 // 7 + 1)
+        t[::97] = plant[:t[::97].numel()]
+        logits.append(t.view(b, HIDDEN_DIM, h, w).to(dtype))
+    z_l, r_l, q_l = logits
+    hidden = torch.tanh(draw(HIDDEN_DIM)).to(dtype)
+    hx = torch.cat([hidden, draw(GRU_INPUT).to(dtype)], dim=1)
+    return dict(z_l=z_l, r_l=r_l, q_l=q_l, h=hidden, hx=hx, g=draw(HIDDEN_DIM).to(dtype),
+                big_g=draw(GRU_CHANNELS).to(dtype))
+
+
+def gru_cases(t):
+    """{kernel: (its inputs, its outputs allocated, the function of its C
+    arguments, its plain version, its wrapper)} of K13-K16 on the inputs
+    `t` (`gru_inputs`)."""
+    return {
+        "gru_reset": ((t["r_l"], t["hx"]), [torch.empty_like(t["hx"])],
+                      conv_gru.gru_reset_args, conv_gru.gru_reset_plain, conv_gru.gru_reset),
+        "gru_update": ((t["z_l"], t["q_l"], t["h"]), [torch.empty_like(t["h"])],
+                       conv_gru.gru_update_args, conv_gru.gru_update_plain,
+                       conv_gru.gru_update),
+        "gru_update_grad": ((t["g"], t["z_l"], t["q_l"], t["h"]),
+                            [torch.empty_like(t["h"]) for _ in range(3)],
+                            conv_gru.gru_update_grad_args, conv_gru.gru_update_grad_plain,
+                            conv_gru.gru_update_grad),
+        "gru_reset_grad": ((t["big_g"], t["r_l"], t["hx"]),
+                           [torch.empty_like(t["r_l"]), torch.empty_like(t["hx"])],
+                           conv_gru.gru_reset_grad_args, conv_gru.gru_reset_grad_plain,
+                           conv_gru.gru_reset_grad)}
+
+
+def hold_gru(label, b, h, w, dtype, launches, gen):
+    """K13-K16 in `dtype` against their plain versions at [b, ·, h, w]:
+    every output bit for bit (the kernels round each operation to the
+    compute dtype in the plain version's order), the wrapper's equal to
+    the bare launch's, two launches bit-equal. Times the bare launch
+    (`ms`: the C launcher on arguments built once, outputs allocated
+    beforehand; `device_ms` the profiler's), the wrapper (`call_ms`) and
+    the plain version (`plain_ms`, `plain_device_ms`). One JSON line per
+    kernel; returns {report name: record}."""
+    inp = gru_inputs(b, h, w, dtype, gen)
+    itemsize = torch.finfo(dtype).bits // 8
+    recs = {}
+    for name, (ins, outs, args, plain, wrapper) in gru_cases(inp).items():
+        kname = kernel_name(name, dtype)
+        bare = bare_launch(kname, args(*ins, *outs))
+        bare()
+        want = plain(*ins)
+        want = want if isinstance(want, tuple) else (want,)
+        same = all(torch.equal(bits(o), bits(v)) for o, v in zip(outs, want))
+        err = max((o.float() - v.float()).abs().max().item() for o, v in zip(outs, want))
+        first = [o.clone() for o in outs]
+        bare()
+        torch.cuda.synchronize()
+        repeats = all(torch.equal(bits(a), bits(z)) for a, z in zip(first, outs))
+        got = wrapper(*ins)
+        got = got if isinstance(got, tuple) else (got,)
+        wrapper_equal = all(torch.equal(bits(a), bits(z)) for a, z in zip(got, outs))
+        nbytes, ops = gru_work(name, b, h * w, itemsize)
+        rec = {"ms": time_ms(bare),
+               "device_ms": sum(device_us(bare, phase=f"{kname} at {label}").values()) / 1e3,
+               "call_ms": time_ms(lambda: wrapper(*ins)),
+               "plain_ms": time_ms(lambda: plain(*ins)),
+               "plain_device_ms": device_capture(lambda: plain(*ins),
+                                                 f"{kname} plain at {label}")[2],
+               "library_ms": None, "bytes": nbytes, "ops": ops, "max_abs_err": err,
+               "max_rel_err": 0.0}
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops)
+        print(json.dumps({"kernel": kname, "shape": label, "batch": b, "h": h, "w": w,
+                          "launches": launches, "bit_equal": same,
+                          "two_launches_bit_equal": repeats, "wrapper_equal": wrapper_equal,
+                          "tolerance": "bit-equal", **rec,
+                          "share": rec["bound_ms"] / rec["ms"]}))
+        if not (same and repeats and wrapper_equal):
+            raise SystemExit(f"{kname} at {label}: bit-equal to its plain version {same} "
+                             f"(max |err| {err}), launches bit-equal {repeats}, wrapper "
+                             f"equal {wrapper_equal}")
+        recs[kname] = rec
+    return recs
+
+
+def check_conv_gru():
+    """K13-K16 against their plain versions on the card (`hold_gru`), in
+    float32 and bfloat16, at a 1600x1152 map's GRU call ([1, ·, 288,
+    400], 4 calls per map), at a 640x512 batch-4 training step's ([4, ·,
+    128, 160], 4 calls per step), then at GRU_EDGE_SHAPES. Returns the
+    per-map totals of K13 and K14 and the per-step totals of K15 and K16
+    in both dtypes (each call times its launches)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    per_map, per_step = {}, {}
+    plans = (("map", 1, HEIGHT // 4, WIDTH // 4, ITERATION, per_map,
+              ("gru_reset", "gru_update")),
+             ("step", TRAIN_BATCH, TRAIN_HEIGHT // 4, TRAIN_WIDTH // 4, TRAIN_ITERATION,
+              per_step, ("gru_update_grad", "gru_reset_grad")))
+    for dtype in (torch.float32, BF16):
+        for per, b, h, w, calls, totals, names in plans:
+            recs = hold_gru(f"{per}_call", b, h, w, dtype, calls, gen)
+            for name in names:
+                rec = recs[kernel_name(name, dtype)]
+                tot = {k: calls * rec[k] for k in ("ms", "device_ms", "call_ms", "plain_ms",
+                                                   "plain_device_ms", "bound_ms", "bytes",
+                                                   "ops")}
+                tot.update(max_abs_err=rec["max_abs_err"], max_rel_err=rec["max_rel_err"],
+                           library_ms=None, launches=calls)
+                totals[kernel_name(name, dtype)] = tot
+            torch.cuda.empty_cache()
+        for b, h, w in GRU_EDGE_SHAPES:
+            hold_gru(f"edge_{b}x{h}x{w}", b, h, w, dtype, 0, gen)
+    print(json.dumps({"conv_gru_totals": {"per_map": per_map, "per_step": per_step}}))
     return per_map, per_step
 
 
@@ -1852,7 +2038,7 @@ SWEEP_KERNELS = (sweep_premul, corr_epilogue, sweep_grad_ref, sweep_grad_src)
 # The templated kernels (one source, both dtypes), longest name first: a
 # source's kernels are named `<name>_...kernel<T>`, T telling the dtype.
 TEMPLATED = ("depth_readout_grad", "depth_readout", "sweep_taps", "convex_upsample_grad",
-             "convex_upsample")
+             "convex_upsample", "gru_update_grad", "gru_reset_grad", "gru_update", "gru_reset")
 # The float32-only kernels, longest name first (K11's is a prefix of K12's).
 F32_ONLY = ("view_aggregate_grad", "view_aggregate")
 
@@ -1866,14 +2052,16 @@ def planned_map_counts(shapes, dtype, maps=1, iteration=ITERATION):
     """Launches of each kernel over `maps` depth maps at `shapes` in
     `dtype`: the forward sweep kernels once per chunk, K6 once per
     prediction (1 + iteration), K8 once per sweep (1 + iteration), K9
-    once, and K11 (float32 in both precisions) once per aggregation: the
-    init sweep's and each iteration's 3 levels', 1 + 3·iteration."""
+    once, K11 (float32 in both precisions) once per aggregation: the
+    init sweep's and each iteration's 3 levels', 1 + 3·iteration, and
+    K13 and K14 once per GRU call, iteration."""
     forward = sum(s[-1] for s in shapes) * maps
     return planned_counts(view_aggregate=(1 + len(LEVELS) * iteration) * maps,
                           **{kernel_name(k, dtype): n for k, n in (
         ("sweep_premul", forward), ("corr_epilogue", forward),
         ("depth_readout", (1 + iteration) * maps), ("sweep_taps", (1 + iteration) * maps),
-        ("convex_upsample", maps))})
+        ("convex_upsample", maps), ("gru_reset", iteration * maps),
+        ("gru_update", iteration * maps))})
 
 
 def _category(name):
@@ -1945,8 +2133,10 @@ def device_time(fn):
 
 
 # The chains that the model runs under record_function labels
-# (models/itermvs.py): K6, K8, K9 and K11, one launch per call each.
-CHAINS = ("depth_readout", "fused_sweep_taps", "convex_upsample", "view_aggregate")
+# (models/itermvs.py, models/blocks.py): K6, K8, K9 and K11, one launch
+# per call each, and K13 and K14 under `conv_gru`, two per GRU call.
+CHAINS = ("depth_readout", "fused_sweep_taps", "convex_upsample", "view_aggregate",
+          "conv_gru")
 
 
 def chain_time(events):
@@ -1984,8 +2174,9 @@ def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=F
     convex_upsample reads the 144 mask logits and the coarse depth and
     writes the full-resolution depth; view_aggregate (the init sweep's
     call and 3 per iteration) reads each source's float32 correlation
-    and weights and writes the aggregate. Their operations per byte are
-    below one, so bytes bound all four."""
+    and weights and writes the aggregate; conv_gru (one GRU call per
+    iteration) is K13 and K14 (`gru_work`). Their operations per byte
+    are far below the card's, so bytes bound all five."""
     p4 = batch * (height // 4) * (width // 4)
     p8 = batch * (height // 8) * (width // 8)
     sources = views - 1
@@ -1998,7 +2189,9 @@ def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=F
               + iteration * taps(sum(len(v) for v in CORR_INTERVALS.values()), p4),
               "convex_upsample": upsample,
               "view_aggregate": aggregate(NUM_INIT_SAMPLES, p8) + iteration * sum(
-                  aggregate(len(CORR_INTERVALS[k]), p4) for k in LEVELS)}
+                  aggregate(len(CORR_INTERVALS[k]), p4) for k in LEVELS),
+              "conv_gru": iteration * sum(gru_work(k, 1, p4, itemsize)[0]
+                                          for k in ("gru_reset", "gru_update"))}
     return {k: 1e3 * v / PEAK_BYTES_PER_S for k, v in nbytes.items()}
 
 
@@ -2113,7 +2306,8 @@ def planned_step_counts(shapes, dtype, iteration=TRAIN_ITERATION):
     kernels of `dtype`: one forward sweep pair per chunk, one backward
     pair per sweep; K6, K7 and K8 once per prediction or sweep, 1 +
     iteration; K9 and K10 once; K11 and K12, float32 in both precisions,
-    once per aggregation, 1 + 3·iteration)."""
+    once per aggregation, 1 + 3·iteration; K13-K16 once per GRU call,
+    iteration)."""
     forward = sum(s[-1] for s in shapes)
     sweeps = sum(sweeps_of(shapes, dtype).values())
     aggregations = 1 + len(LEVELS) * iteration
@@ -2122,7 +2316,9 @@ def planned_step_counts(shapes, dtype, iteration=TRAIN_ITERATION):
         ("sweep_premul", forward), ("corr_epilogue", forward), ("sweep_grad_ref", sweeps),
         ("sweep_grad_src", sweeps), ("depth_readout", 1 + iteration),
         ("depth_readout_grad", 1 + iteration), ("sweep_taps", 1 + iteration),
-        ("convex_upsample", 1), ("convex_upsample_grad", 1))})
+        ("convex_upsample", 1), ("convex_upsample_grad", 1), ("gru_reset", iteration),
+        ("gru_update", iteration), ("gru_update_grad", iteration),
+        ("gru_reset_grad", iteration))})
 
 
 def capture_sweeps(model, batch, iteration):
@@ -2298,6 +2494,7 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
         rec["profile_step"] = {
             "device_busy_ms": busy_ms, "wall_ms_unprofiled_median": wall_ms,
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "kernels": sum(c for k, (c, _) in by_name.items() if _category(k) != "memcpy"),
             "chains_forward": {k: dict(v, bound_ms=bounds[k])
                                for k, v in chain_time(events).items()},
             "by_category_ms": {k: v / 1e3 for k, v in
@@ -3211,13 +3408,15 @@ def eval_ddp_2rank(samples, card):
 # from the f32 and bf16 map runs) and per training step (from the
 # training runs); fusion_consistency has its own entry.
 REPORT_PER_MAP = ("corr_epilogue", "sweep_premul", "depth_readout", "sweep_taps",
-                  "convex_upsample", "view_aggregate", "corr_epilogue_bf16",
-                  "sweep_premul_bf16", "depth_readout_bf16", "sweep_taps_bf16",
-                  "convex_upsample_bf16")
+                  "convex_upsample", "view_aggregate", "gru_reset", "gru_update",
+                  "corr_epilogue_bf16", "sweep_premul_bf16", "depth_readout_bf16",
+                  "sweep_taps_bf16", "convex_upsample_bf16", "gru_reset_bf16",
+                  "gru_update_bf16")
 REPORT_PER_STEP = ("sweep_grad_ref", "sweep_grad_src", "depth_readout_grad",
-                   "convex_upsample_grad", "view_aggregate_grad", "sweep_grad_ref_bf16",
-                   "sweep_grad_src_bf16", "depth_readout_grad_bf16",
-                   "convex_upsample_grad_bf16")
+                   "convex_upsample_grad", "view_aggregate_grad", "gru_update_grad",
+                   "gru_reset_grad", "sweep_grad_ref_bf16", "sweep_grad_src_bf16",
+                   "depth_readout_grad_bf16", "convex_upsample_grad_bf16",
+                   "gru_update_grad_bf16", "gru_reset_grad_bf16")
 
 
 def kernel_sources():
@@ -3246,7 +3445,15 @@ def kernel_sources():
                "view_aggregate": ("itermvs_tpu_torch/csrc/view_aggregate.cu",
                                   "itermvs_tpu/models/itermvs.py:251"),
                "view_aggregate_grad": ("itermvs_tpu_torch/csrc/view_aggregate_grad.cu",
-                                       "itermvs_tpu/models/itermvs.py:251")}
+                                       "itermvs_tpu/models/itermvs.py:251"),
+               "gru_reset": ("itermvs_tpu_torch/csrc/gru_reset.cu",
+                             "itermvs_tpu/models/blocks.py:178"),
+               "gru_update": ("itermvs_tpu_torch/csrc/gru_update.cu",
+                              "itermvs_tpu/models/blocks.py:176"),
+               "gru_update_grad": ("itermvs_tpu_torch/csrc/gru_update_grad.cu",
+                                   "itermvs_tpu/models/blocks.py:176"),
+               "gru_reset_grad": ("itermvs_tpu_torch/csrc/gru_reset_grad.cu",
+                                  "itermvs_tpu/models/blocks.py:178")}
     for name in ("corr_epilogue", "sweep_premul", "sweep_grad_ref", "sweep_grad_src"):
         source, replaces = sources[name]
         sources[f"{name}_bf16"] = (source.replace(".cu", "_bf16.cu"), replaces)
@@ -3288,6 +3495,9 @@ def main():
     # K11 at a map's 13 aggregations and K11/K12 at a training step's.
     view_map, view_step = check_view_aggregate()
     per_map.update(view_map)
+    # K13-K16 at a map's and a training step's GRU calls, both dtypes.
+    gru_map, gru_step = check_conv_gru()
+    per_map.update(gru_map)
     # K3 at DTU's 10 sources, and at the 4 of the main path's fusion (the
     # shape its reported time and bound are taken at).
     k3 = check_consistency(WIDTH, HEIGHT, (DTU_SOURCES, VIEWS - 1))[VIEWS - 1]
@@ -3378,7 +3588,8 @@ def main():
         torch.cuda.empty_cache()
     counts.update({k: counts16[k] for k in ("sweep_premul_bf16", "corr_epilogue_bf16",
                                             "depth_readout_bf16", "sweep_taps_bf16",
-                                            "convex_upsample_bf16")})
+                                            "convex_upsample_bf16", "gru_reset_bf16",
+                                            "gru_update_bf16")})
     # The same maps as a data-parallel eval: two gloo ranks on the card.
     eval_ddp_2rank(samples, smi)
 
@@ -3408,7 +3619,9 @@ def main():
     train_counts.update({k: train_counts16[k] for k in ("sweep_grad_ref_bf16",
                                                         "sweep_grad_src_bf16",
                                                         "depth_readout_grad_bf16",
-                                                        "convex_upsample_grad_bf16")})
+                                                        "convex_upsample_grad_bf16",
+                                                        "gru_update_grad_bf16",
+                                                        "gru_reset_grad_bf16")})
 
     # Data-parallel training (two gloo ranks on the card; one NCCL rank in
     # bf16), then --debug_nans on one depth map.
@@ -3448,6 +3661,7 @@ def main():
         "per": f"one {WIDTH}x{HEIGHT} reference view, {VIEWS - 1} sources"})
     per_step.update(readout_step)
     per_step["view_aggregate_grad"] = view_step["view_aggregate_grad"]
+    per_step.update(gru_step)
     for name in REPORT_PER_STEP:
         tot = per_step[name]
         t_bytes, t_ops = tot["bytes"] / PEAK_BYTES_PER_S, tot["ops"] / PEAK_F32_PER_S

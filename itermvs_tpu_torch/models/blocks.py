@@ -20,7 +20,9 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
 
+from itermvs_tpu_torch.ops.conv_gru import gru_reset, gru_update
 from itermvs_tpu_torch.parallel.mesh import all_reduce_sum, is_initialized
 
 
@@ -165,7 +167,11 @@ class ResidualBlock(nn.Module):
 
 class ConvGRU(nn.Module):
     """Convolutional GRU with 3×3 dilation-2 gates. The input is cast to
-    the hidden state's dtype, and the update runs in it."""
+    the hidden state's dtype, and the update runs in it: the convolutions
+    in cuDNN, the gates' elementwise work in K13 `gru_reset` (convq's
+    input [σ(r_l)·h, x]) and K14 `gru_update` (the new hidden state), with
+    their backwards K15 and K16 (ops/conv_gru.py), each under the
+    `conv_gru` profiler label."""
 
     def __init__(self, hidden_dim: int, input_dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -175,9 +181,11 @@ class ConvGRU(nn.Module):
         self.convq = conv(cin, hidden_dim, 3, pad=2, dilation=2, dtype=dtype)
 
     def forward(self, h, x):
-        x = x.to(h.dtype)
-        hx = torch.cat([h, x], dim=1)
-        z = torch.sigmoid(self.convz(hx))
-        r = torch.sigmoid(self.convr(hx))
-        q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)))
-        return (1.0 - z) * h + z * q
+        hx = torch.cat([h, x.to(h.dtype)], dim=1)
+        z_l = self.convz(hx)
+        r_l = self.convr(hx)
+        with record_function("conv_gru"):
+            rh_x = gru_reset(r_l, hx)
+        q_l = self.convq(rh_x)
+        with record_function("conv_gru"):
+            return gru_update(z_l, q_l, h)

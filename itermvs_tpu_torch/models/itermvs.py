@@ -9,7 +9,10 @@ K1 `corr_epilogue`; backward K4 `sweep_grad_ref` and K5
 through `depth_readout` (K6; backward K7 `depth_readout_grad`), and the
 last is ×4 upsampled through `upsample_depth` (K9 `convex_upsample`;
 backward K10 `convex_upsample_grad`). Each sweep's views are aggregated
-through `view_aggregate` (K11; backward K12 `view_aggregate_grad`).
+through `view_aggregate` (K11; backward K12 `view_aggregate_grad`). The
+GRU's gates run K13 `gru_reset` and K14 `gru_update` between its
+convolutions (backward K15 `gru_update_grad`, K16 `gru_reset_grad`;
+models/blocks.py `ConvGRU`).
 
 Numerical semantics kept from the JAX package:
   - init-branch view weights are bilinearly ×2 upsampled before reuse
@@ -36,13 +39,14 @@ logits, every softmax, the windowed expectation, the convex upsampling
 weights (K9 reads the bfloat16 mask logits and softmaxes them in
 float32) and every depth and confidence map stay float32.
 
-Four chains run under `torch.profiler.record_function` labels, so that
+Five chains run under `torch.profiler.record_function` labels, so that
 a profile can sum their device time: `fused_sweep_taps` (K8),
 `depth_readout` (K6: the 256-bin softmax and the windowed expectation),
 `convex_upsample` (K9: the 9-tap mask softmax and the ×4 convex
-upsample) and `view_aggregate` (K11: the view-weighted correlation
-aggregation of every sweep). A label only marks a range; it adds no sync
-and changes no result.
+upsample), `view_aggregate` (K11: the view-weighted correlation
+aggregation of every sweep) and, in models/blocks.py, `conv_gru` (K13
+and K14, the GRU's elementwise work, not its convolutions). A label only
+marks a range; it adds no sync and changes no result.
 """
 from __future__ import annotations
 

@@ -26,6 +26,8 @@ from itermvs_tpu_torch.models import Pipeline
 from itermvs_tpu_torch.ops.sweep_grad import sweep_grad_src_plain
 from itermvs_tpu_torch.weights import load_npz_weights, pretrained_path
 
+BF16 = torch.bfloat16
+
 
 def test_scene_copy_equals_the_test_scene():
     cams = chip_smoke.make_cameras(3, 64, 48, np.random.RandomState(0))
@@ -236,17 +238,19 @@ def test_bf16_plans_launch_as_many_kernels():
 
 
 def test_launch_counts_name_all_nine_kernels():
-    """All twenty-one report names since K6-K12 joined the nine: the
+    """All twenty-nine report names since K6-K16 joined the nine: the
     sweep and fusion kernels, the depth readout forward and backward, the
-    sweep taps and the convex upsample forward and backward, each but
-    fusion_consistency in both dtypes, and the view aggregation forward
-    and backward (float32 only)."""
+    sweep taps, the convex upsample forward and backward and the ConvGRU's
+    gates forward and backward, each but fusion_consistency in both
+    dtypes, and the view aggregation forward and backward (float32
+    only)."""
     chip_smoke.reset_launch_counts()
     counts = chip_smoke.launch_counts()
-    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 21
+    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 29
     assert {"depth_readout", "depth_readout_grad_bf16", "sweep_taps_bf16", "convex_upsample",
-            "convex_upsample_grad_bf16", "view_aggregate",
-            "view_aggregate_grad"} <= set(counts)
+            "convex_upsample_grad_bf16", "view_aggregate", "view_aggregate_grad",
+            "gru_reset", "gru_update", "gru_update_grad", "gru_reset_grad", "gru_reset_bf16",
+            "gru_update_bf16", "gru_update_grad_bf16", "gru_reset_grad_bf16"} <= set(counts)
     assert not {"view_aggregate_bf16", "view_aggregate_grad_bf16"} & set(counts)
     assert counts == chip_smoke.planned_counts()
     assert chip_smoke.planned_counts(sweep_premul_bf16=3)["sweep_premul_bf16"] == 3
@@ -296,6 +300,12 @@ def test_profile_categories_name_the_templated_kernels():
                "float const*)") == "convex_upsample_grad"
     assert cat("void (anonymous namespace)::convex_upsample_grad_fold_kernel<__nv_bfloat16>("
                "float const*, float*, int, int, int)") == "convex_upsample_grad_bf16"
+    # K13-K16: K13's name is a prefix of K16's, K14's of K15's.
+    for name in ("gru_reset", "gru_update", "gru_update_grad", "gru_reset_grad"):
+        assert cat(f"void (anonymous namespace)::{name}_kernel<float, 4>(float const*, "
+                   "float*, long long)") == name
+        assert cat(f"void (anonymous namespace)::{name}_kernel<__nv_bfloat16, 1>("
+                   "__nv_bfloat16 const*)") == f"{name}_bf16"
 
 
 def test_map_plan_counts_k6_and_k8_per_prediction_and_sweep():
@@ -303,11 +313,13 @@ def test_map_plan_counts_k6_and_k8_per_prediction_and_sweep():
     plan = chip_smoke.planned_map_counts(shapes, torch.float32, maps=5)
     assert plan == chip_smoke.planned_counts(sweep_premul=260, corr_epilogue=260,
                                              depth_readout=25, sweep_taps=25,
-                                             convex_upsample=5, view_aggregate=65)
+                                             convex_upsample=5, view_aggregate=65,
+                                             gru_reset=20, gru_update=20)
     plan16 = chip_smoke.planned_map_counts(shapes, torch.bfloat16)
     assert plan16 == chip_smoke.planned_counts(sweep_premul_bf16=52, corr_epilogue_bf16=52,
                                                depth_readout_bf16=5, sweep_taps_bf16=5,
-                                               convex_upsample_bf16=1, view_aggregate=13)
+                                               convex_upsample_bf16=1, view_aggregate=13,
+                                               gru_reset_bf16=4, gru_update_bf16=4)
 
 
 def test_readout_logits_plant_their_cases():
@@ -423,8 +435,9 @@ def test_ddp_sample_keeps_another_share_in_each_sample():
 
 def test_ddp_plan_is_52_launches_per_rank_per_step():
     """52 of each sweep kernel, 5 (one per prediction, one per sweep)
-    of K6, K7 and K8, one of K9 and K10, and 13 (one per aggregation) of
-    K11 and K12, float32 in both precisions, per rank per step."""
+    of K6, K7 and K8, one of K9 and K10, 13 (one per aggregation) of
+    K11 and K12, float32 in both precisions, and 4 (one per GRU call) of
+    K13-K16, per rank per step."""
     for dtype in (torch.float32, torch.bfloat16):
         shapes = chip_smoke.sweep_shapes(640, 512, 5, 4, 2, itemsize=dtype.itemsize)
         plan = chip_smoke.planned_step_counts(shapes, dtype)
@@ -434,9 +447,12 @@ def test_ddp_plan_is_52_launches_per_rank_per_step():
                  ("depth_readout", "depth_readout_grad", "sweep_taps")]
         upsample = [chip_smoke.kernel_name(k, dtype) for k in
                     ("convex_upsample", "convex_upsample_grad")]
+        gru = [chip_smoke.kernel_name(k, dtype) for k in
+               ("gru_reset", "gru_update", "gru_update_grad", "gru_reset_grad")]
         assert plan == chip_smoke.planned_counts(**{k: 52 for k in names},
                                                  **{k: 5 for k in heads},
                                                  **{k: 1 for k in upsample},
+                                                 **{k: 4 for k in gru},
                                                  view_aggregate=13, view_aggregate_grad=13)
 
 
@@ -725,7 +741,8 @@ def test_chain_time_takes_the_kernels_inside_each_labelled_range():
     assert chains == {"depth_readout": {"device_ms": 0.014, "launches": 2},
                       "fused_sweep_taps": {"device_ms": 0.018, "launches": 2},
                       "convex_upsample": {"device_ms": 0.0, "launches": 0},
-                      "view_aggregate": {"device_ms": 0.0, "launches": 0}}
+                      "view_aggregate": {"device_ms": 0.0, "launches": 0},
+                      "conv_gru": {"device_ms": 0.0, "launches": 0}}
     by_name, by_cat, busy = chip_smoke.device_summary(events)
     assert "fused_sweep_taps" not in by_name and "depth_readout" not in by_name
     assert busy == pytest.approx((10 + 8 + 1 + 29 + 9 + 5) / 1e3)
@@ -742,6 +759,35 @@ def test_chain_bounds_count_each_input_and_output_once():
     train = chip_smoke.chain_bound_ms(640, 512, 5, 4, 4, itemsize=2, train=True)
     assert train["depth_readout"] == pytest.approx(
         1e3 * 5 * 4 * 128 * 160 * (256 * 2 + 4 + 256 * 4) / chip_smoke.PEAK_BYTES_PER_S)
+    # conv_gru: K13 reads r_l (32 channels) and hx (43), writes rh_x (43);
+    # K14 reads z_l, q_l, h and writes h' (32 each); 4 calls.
+    assert bounds["conv_gru"] == pytest.approx(
+        1e3 * 4 * p4 * 4 * (32 + 43 + 43 + 4 * 32) / chip_smoke.PEAK_BYTES_PER_S)
+    assert train["conv_gru"] == pytest.approx(
+        1e3 * 4 * 4 * 128 * 160 * 2 * (32 + 43 + 43 + 4 * 32) / chip_smoke.PEAK_BYTES_PER_S)
+
+
+def test_gru_plans_launch_k13_to_k16_once_per_gru_call():
+    """The GRU runs once per iteration: K13 and K14 4 times per map (also
+    under entry(), 128x160), K13-K16 4 times per training step and twice
+    per step of the dry run (2 iterations), in the kernels of the step's
+    dtype."""
+    gru = ("gru_reset", "gru_update", "gru_update_grad", "gru_reset_grad")
+    for dtype in (torch.float32, torch.bfloat16):
+        names = [chip_smoke.kernel_name(k, dtype) for k in gru]
+        for size in ((1600, 1152), (160, 128)):
+            plan = chip_smoke.planned_map_counts(chip_smoke.sweep_shapes(*size, 5, 4), dtype)
+            assert [plan[k] for k in names] == [4, 4, 0, 0]
+        plan = chip_smoke.planned_step_counts(
+            chip_smoke.sweep_shapes(640, 512, 5, 4, 4, itemsize=dtype.itemsize), dtype)
+        assert [plan[k] for k in names] == [4, 4, 4, 4]
+        other = [chip_smoke.kernel_name(k, torch.float32 if dtype != torch.float32 else BF16)
+                 for k in gru]
+        assert [plan[k] for k in other] == [0, 0, 0, 0]
+    plan = chip_smoke.planned_step_counts(chip_smoke.sweep_shapes(
+        port_entry.DRYRUN_WIDTH, port_entry.DRYRUN_HEIGHT, port_entry.DRYRUN_VIEWS,
+        port_entry.DRYRUN_ITERATION), torch.float32, iteration=port_entry.DRYRUN_ITERATION)
+    assert port_entry.DRYRUN_ITERATION == 2 and [plan[k] for k in gru] == [2, 2, 2, 2]
 
 
 def test_readout_timing_script_needs_a_card():
@@ -917,7 +963,7 @@ def test_eval_rank_on_two_cpu_ranks():
 
 def test_entry_plan_is_52_per_call_at_128x160():
     """entry()'s forward (128x160, 5 views, 4 iterations): 52 launches of
-    K1 and K2, 5 of K6 and K8, one of K9, 13 of K11."""
+    K1 and K2, 5 of K6 and K8, one of K9, 13 of K11, 4 of K13 and K14."""
     shapes = chip_smoke.sweep_shapes(chip_smoke.ENTRY_WIDTH, chip_smoke.ENTRY_HEIGHT,
                                      chip_smoke.ENTRY_VIEWS, chip_smoke.ITERATION)
     assert [s[:8] for s in shapes] == [
@@ -927,14 +973,14 @@ def test_entry_plan_is_52_per_call_at_128x160():
         ("iter_level3", 1, 2, 32, 40, 16, 20, 48)]
     assert chip_smoke.planned_map_counts(shapes, torch.float32) == chip_smoke.planned_counts(
         sweep_premul=52, corr_epilogue=52, depth_readout=5, sweep_taps=5, convex_upsample=1,
-        view_aggregate=13)
+        view_aggregate=13, gru_reset=4, gru_update=4)
 
 
 def test_dryrun_plan_per_rank_per_step():
     """The dry run's step on one rank (64x96, 3 views, 2 iterations, batch
     1): 2 + 2·2·3 = 14 launches of each sweep kernel, forward and
     backward, 3 of K6, K7 and K8, one of K9 and K10, 1 + 3·2 = 7 of K11
-    and K12."""
+    and K12, 2 of K13-K16."""
     shapes = chip_smoke.sweep_shapes(port_entry.DRYRUN_WIDTH, port_entry.DRYRUN_HEIGHT,
                                      port_entry.DRYRUN_VIEWS, port_entry.DRYRUN_ITERATION)
     plan = chip_smoke.planned_step_counts(shapes, torch.float32,
@@ -942,7 +988,8 @@ def test_dryrun_plan_per_rank_per_step():
     assert plan == chip_smoke.planned_counts(
         sweep_premul=14, corr_epilogue=14, sweep_grad_ref=14, sweep_grad_src=14,
         depth_readout=3, depth_readout_grad=3, sweep_taps=3, convex_upsample=1,
-        convex_upsample_grad=1, view_aggregate=7, view_aggregate_grad=7)
+        convex_upsample_grad=1, view_aggregate=7, view_aggregate_grad=7, gru_reset=2,
+        gru_update=2, gru_update_grad=2, gru_reset_grad=2)
 
 
 def test_largest_patch_finds_the_biggest_connected_block():
@@ -1089,3 +1136,29 @@ def test_kernels_line_names_every_kernel_once():
         path, line = replaces.split(":")
         with open(os.path.join(root, path)) as f:
             assert int(line) <= len(f.readlines())
+
+
+def test_device_us_takes_one_more_capture_then_raises(monkeypatch):
+    """An empty profiler capture is taken once more after a pause; a
+    second empty one raises naming the phase, and no timing comes back
+    from nothing."""
+    captures = []
+
+    def fake(results):
+        def device_time(fn):
+            fn()
+            captures.append(1)
+            return results.pop(0)
+        return device_time
+
+    monkeypatch.setattr(chip_smoke, "CAPTURE_PAUSE_S", 0.0)
+    full = ({"void (anonymous namespace)::k_kernel<float, 4>(float const*)": (20, 40.0)},
+            {}, 0.04)
+    monkeypatch.setattr(chip_smoke, "device_time", fake([({}, {}, 0.0), full]))
+    assert chip_smoke.device_us(lambda: None, phase="p") == {"k_kernel<float, 4>": 2.0}
+    assert len(captures) == 2
+    monkeypatch.setattr(chip_smoke, "device_time", fake([({}, {}, 0.0), ({}, {}, 0.0)]))
+    with pytest.raises(SystemExit, match="gru_update_bf16 at map_call: the profiler"):
+        chip_smoke.device_us(lambda: None, phase="gru_update_bf16 at map_call")
+    monkeypatch.setattr(chip_smoke, "device_time", fake([({}, {}, 0.0), full]))
+    assert chip_smoke.device_capture(lambda: None, "q")[2] == 0.04
