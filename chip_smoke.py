@@ -43,7 +43,20 @@
    vector word at B = 3 and B = 1, a small map at B = 2), on seeded
    logits with saturating and tiny values planted: every output bit for
    bit against the plain versions, two launches bit-equal; bare ms,
-   device ms, bound and share, the plain version's ms.
+   device ms, bound and share, the plain version's ms. Then
+   `check_bn_act`: FeatureNet's BN epilogue K17 bn_act and its backward
+   K18 bn_act_grad, in float32 and bfloat16, at each of the 13 BN
+   epilogues of a 1600x1152 image (`BN_CALLS`: the ReLU form, the
+   identity skip, the downsample's BN) and of a training step's 20
+   images at 640x512, then at BN_EDGE_CASES (odd H·W and N·C, a 1x1
+   plane, planes of two spans, a lone BN without the ReLU), on seeded
+   inputs with signed scales and ReLU inputs planted at exactly 0: K17's
+   output and K18's ∂y and ∂skip bit for bit against the plain versions,
+   K18's per-channel sums and vector gradients within 1e-5 of float64
+   (scaled by the absolute terms), two launches
+   bit-equal; bare ms, device ms, bound and share, the plain version's
+   ms and cuDNN's batch norm on the float32 tensor (the call K17 and K18
+   replaced; it computes the normalise only).
 4. Runs the port's eval core loop (`itermvs_tpu_torch.eval.run_depth`)
    with the vendored DTU weights and the feature cache on a 5-view
    textured-plane scene made in memory at 1600x1152, one depth map per
@@ -51,7 +64,8 @@
    (as save_depth's loader delivers them on a card); reads the PFMs back
    and checks them against the scene's analytic depth; checks that each
    kernel launched as often as the chunk plan predicts (K6 and K8 5 times
-   per map, K9 once, K11 13 times, K13 and K14 4 times); prints per map
+   per map, K9 once, K11 13 times, K13 and K14 4 times, K17 13 times per
+   image the feature cache extracts); prints per map
    the host ms of run_depth's `dispatch` (uploads and eager launches)
    and `finalize` (wait, dequantization, writer handoff).
 5. Fuses those 5 depth maps (`itermvs_tpu_torch.fusion.fuse_views`,
@@ -99,7 +113,7 @@
    on one in-memory DTU-layout batch of the plane scene: the loss must
    fall, and each of the four sweep kernels must launch 52 times per
    step, K6, K7 and K8 5 times each, K9 and K10 once, K11 and K12 13
-   times each, K13-K16 4 times each, and K7's wrapper
+   times each, K13-K16 4 times each, K17 and K18 13 times each, and K7's wrapper
    must copy no probability gradient (K7 reads the loss's in place; so
    in step 10 too), and the layout of each one K7 gets is printed
    (`prob_grad_layouts`); ms per step, steps/s, peak memory and one profiled step's
@@ -228,6 +242,7 @@ from itermvs_tpu_torch.models import itermvs as itermvs_model
 from itermvs_tpu_torch.models.itermvs import (
     CORR_INTERVALS, GROUPS, HIDDEN_DIM, INTERVAL_SCALE, LEVELS, NUM_INIT_SAMPLES,
     initial_depth_samples)
+from itermvs_tpu_torch.ops import bn_act as bn_ops
 from itermvs_tpu_torch.ops import conv_gru
 from itermvs_tpu_torch.ops.consistency import (
     MAX_SOURCES, consistency, consistency_plain, launch_consistency, record)
@@ -1610,6 +1625,254 @@ def check_conv_gru():
     return per_map, per_step
 
 
+# FeatureNet's BN epilogues per image, in the order it runs them (K17
+# launches; models/feature_net.py, models/blocks.py): (form, channels,
+# the scale s of its H/s x W/s plane), all with the ReLU. The stem's
+# ConvBnReLU, then per stage a stride-2 ResidualBlock (conv1's ReLU form;
+# conv2's BN + the downsample's BN) and a stride-1 one (conv1's; conv2's
+# BN + the identity skip).
+BN_CALLS = (("plain", 8, 1),
+            *((form, c, s) for c, s in ((16, 2), (32, 4), (48, 8))
+              for form in ("plain", "downsample", "plain", "residual")))
+BN_FORMS = {"plain": bn_ops.PLAIN, "residual": bn_ops.RESIDUAL,
+            "downsample": bn_ops.DOWNSAMPLE}
+# K17/K18 beside the main path's shapes, (label, form, relu, n, c, h, w):
+# H·W not a multiple of either dtype's word (the one-element path), N·C
+# odd, a 1x1 plane, planes of 2 spans (ragged on the word path too), and a
+# lone BN (no ReLU).
+BN_EDGE_CASES = (("odd_hw", "downsample", True, 3, 5, 7, 9),
+                 ("one_pixel", "residual", True, 1, 3, 1, 1),
+                 ("two_spans_scalar", "residual", True, 1, 3, 67, 71),
+                 ("two_spans_words", "plain", True, 3, 3, 40, 123),
+                 ("lone_bn", "plain", False, 2, 7, 5, 13),
+                 ("lone_bn_words", "downsample", False, 2, 3, 16, 16))
+# K18's per-channel rows (its sums and the vectors' gradients) against
+# float64: |err| <= BN_ROWS_REL times the row's formula on |terms|.
+BN_ROWS_REL = 1e-5
+# Operations per element: K17 the normalise (3), the ReLU, the add, a
+# second normalise; K18 the mask, ∂y, Σg', Σg'·(y − mean) (3), and in
+# form c ∂xd and the third sum (3).
+BN_OPS = {"plain": (4, 6), "residual": (5, 6), "downsample": (8, 10)}
+
+
+def bn_work(form, n, c, p, itemsize, grad=False, relu=True):
+    """(bytes, operations) of K17 (or K18, `grad`) on [n, c, p] in `form`:
+    each input read once, each output written once. K17 reads y (and the
+    skip) and writes the output; K18 reads g, the output (for the ReLU's
+    mask), y (and xd) and writes ∂y (and ∂skip); plus the float32
+    per-channel vectors (K17 reads 4 per BN; K18 reads 3 and writes 5 rows
+    per BN)."""
+    bns = 2 if form == "downsample" else 1
+    if grad:
+        tensors = 3 + relu + (form == "downsample") + (form != "plain")
+        vectors = 8 * bns
+    else:
+        tensors = 2 + (form != "plain")
+        vectors = 4 * bns
+    return (itemsize * n * c * p * tensors + 4 * c * vectors,
+            BN_OPS[form][grad] * n * c * p)
+
+
+def bn_image_bytes(width, height, itemsize):
+    """K17's bytes over one image's 13 launches (`BN_CALLS`)."""
+    return sum(bn_work(form, 1, c, (height // s) * (width // s), itemsize)[0]
+               for form, c, s in BN_CALLS)
+
+
+def bn_inputs(form, n, c, h, w, dtype, gen, dev="cuda"):
+    """Seeded K17/K18 inputs: y and the skip N(0.3, 1.5) in `dtype`
+    (drawn in float32, rounded); per BN float32 w in ±[0.5, 1.5] (odd
+    channels negative), b N(0, 0.5) with channel 0's 0, mean N(0, 1), var
+    in [0.1, 2.1]; every 37th element of channel 0 of y set to its mean
+    (so bn(y) there is exactly 0 in form a: the ReLU's edge); the
+    gradient g N(0, 1)."""
+    draw = lambda: (0.3 + 1.5 * torch.randn(n, c, h, w, device=dev, generator=gen)).to(dtype)
+
+    def vectors():
+        sign = torch.tensor([1.0, -1.0], device=dev).repeat(c)[:c]
+        wv = sign * (0.5 + torch.rand(c, device=dev, generator=gen))
+        b = 0.5 * torch.randn(c, device=dev, generator=gen)
+        b[0] = 0.0
+        mean = torch.randn(c, device=dev, generator=gen).to(dtype).float()
+        var = 0.1 + 2.0 * torch.rand(c, device=dev, generator=gen)
+        return wv, b, mean, var
+
+    y = draw()
+    first = vectors()
+    y[:, 0].view(n, -1)[:, ::37] = first[2][0].to(dtype)
+    skip = None if form == "plain" else draw()
+    skip_bn = vectors() if form == "downsample" else None
+    return dict(y=y, bn=first, skip=skip, skip_bn=skip_bn,
+                g=torch.randn(n, c, h, w, device=dev, generator=gen).to(dtype))
+
+
+def hold_bn_rows(got, t, out, form, relu):
+    """K18's rows [5·B, C] (per BN: Σg', Σg'·(x − mean), ∂w, ∂mean, ∂var)
+    against the float64 plain version's: the largest |err| / scale, each
+    row's scale its formula on absolute terms (Σ|g'|, Σ|g'·(x − mean)|,
+    |w|); and the same of the float32 plain version, as a control."""
+    f64 = {k: (v.double() if isinstance(v, torch.Tensor) else
+               tuple(x.double() for x in v) if v is not None else None) for k, v in t.items()}
+    code = BN_FORMS[form]
+    xd = f64["skip"] if code == bn_ops.DOWNSAMPLE else None
+    want = bn_ops.bn_act_grad_plain(f64["g"], f64["y"], out.double(), f64["bn"][0],
+                                    f64["bn"][2], f64["bn"][3], code, xd, f64["skip_bn"],
+                                    relu)[2]
+    masked = torch.ops.aten.threshold_backward(f64["g"], out.double(), 0) if relu else f64["g"]
+    scales = []
+    for x, (w, _, mean, var) in [(f64["y"], f64["bn"])] + (
+            [(xd, f64["skip_bn"])] if xd is not None else []):
+        centred = masked * (x - mean.view(1, -1, 1, 1))
+        scales += bn_ops.bn_vector_rows(masked.abs().sum((0, 2, 3)),
+                                        centred.abs().sum((0, 2, 3)), w.abs(), var)
+    scale = torch.stack(scales).abs() + 1e-30
+    plain = bn_ops.bn_act_grad_plain(t["g"], t["y"], out, t["bn"][0], t["bn"][2], t["bn"][3],
+                                     code, t["skip"] if xd is not None else None,
+                                     t["skip_bn"], relu)[2]
+    return (((got.double() - want).abs() / scale).max().item(),
+            ((plain.double() - want).abs() / scale).max().item())
+
+
+def hold_bn_act(label, form, relu, n, c, h, w, dtype, gen, timed=True):
+    """K17 and K18 in `dtype` and `form` against their plain versions at
+    [n, c, h, w]: K17's output, K18's ∂y and ∂skip bit for bit, K18's
+    rows within BN_ROWS_REL of float64 (`hold_bn_rows`), two launches
+    bit-equal, the wrappers' outputs equal to the bare launches'. Where
+    `timed`: the bare launch (`ms`: the C launcher on arguments built
+    once, outputs allocated beforehand; `device_ms` the profiler's), the
+    wrapper (`call_ms`), the plain version (`plain_ms`) and cuDNN's batch
+    norm on the float32 tensor, as the port ran it before K17
+    (`library_ms`; it computes the normalise only: eval mode for K17, the
+    training backward for K18). One JSON line per kernel; returns {report
+    name: record}."""
+    import torch.nn.functional as F
+
+    t = bn_inputs(form, n, c, h, w, dtype, gen)
+    y, (wv, b, mean, var), skip, skip_bn = t["y"], t["bn"], t["skip"], t["skip_bn"]
+    code = BN_FORMS[form]
+    xd = skip if code == bn_ops.DOWNSAMPLE else None
+    itemsize = torch.finfo(dtype).bits // 8
+    out = torch.empty_like(y)
+    k17 = kernel_name("bn_act", dtype)
+    fwd = bare_launch(k17, bn_ops.bn_act_args(y, wv, b, mean, var, skip, skip_bn, relu, out))
+    fwd()
+    want = bn_ops.bn_act_plain(y, wv, b, mean, var, skip, skip_bn, relu)
+    same = torch.equal(bits(out), bits(want))
+    err = (out.float() - want.float()).abs().max().item()
+    first = out.clone()
+    fwd()
+    torch.cuda.synchronize()
+    repeats = torch.equal(bits(first), bits(out))
+    wrapper_equal = torch.equal(bits(bn_ops.bn_act(y, wv, b, mean, var, skip, skip_bn, relu)),
+                                bits(out))
+    recs, lines = {}, []
+    nbytes, ops = bn_work(form, n, c, h * w, itemsize, relu=relu)
+    rec = {"max_abs_err": err, "max_rel_err": 0.0, "bytes": nbytes, "ops": ops,
+           "library_ms": None}
+    if timed:
+        yf = y.float()
+        rec.update(ms=time_ms(fwd),
+                   device_ms=sum(device_us(fwd, phase=f"{k17} at {label}").values()) / 1e3,
+                   call_ms=time_ms(lambda: bn_ops.bn_act(y, wv, b, mean, var, skip, skip_bn,
+                                                         relu)),
+                   plain_ms=time_ms(lambda: bn_ops.bn_act_plain(y, wv, b, mean, var, skip,
+                                                                skip_bn, relu)),
+                   library_ms=time_ms(lambda: F.batch_norm(yf, mean, var, wv, b, False, 0.0,
+                                                           bn_ops.EPS)))
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops)
+    lines.append((k17, rec, {"bit_equal": same, "two_launches_bit_equal": repeats,
+                             "wrapper_equal": wrapper_equal, "tolerance": "bit-equal"}))
+    ok = same and repeats and wrapper_equal
+
+    k18 = kernel_name("bn_act_grad", dtype)
+    g = t["g"]
+    d_y, d_skip, rows, partials = bn_ops.grad_buffers(y, code)
+    bwd = bare_launch(k18, bn_ops.bn_act_grad_args(g, y, out, wv, mean, var, code, xd, skip_bn,
+                                                   relu, d_y, d_skip, rows, partials))
+    bwd()
+    want_y, want_skip, _ = bn_ops.bn_act_grad_plain(g, y, out, wv, mean, var, code, xd, skip_bn,
+                                                    relu)
+    grads, wants = [d_y] + ([d_skip] if d_skip is not None else []), [want_y, want_skip]
+    same = all(torch.equal(bits(a), bits(z)) for a, z in zip(grads, wants))
+    err = max((a.float() - z.float()).abs().max().item() for a, z in zip(grads, wants))
+    rows_rel, plain_rel = hold_bn_rows(rows, t, out, form, relu)
+    first = [x.clone() for x in (*grads, rows)]
+    bwd()
+    torch.cuda.synchronize()
+    repeats = all(torch.equal(bits(a), bits(z)) for a, z in zip(first, (*grads, rows)))
+    got = bn_ops.bn_act_grad(g, y, out, wv, mean, var, code, xd, skip_bn, relu)
+    wrapper_equal = all(torch.equal(bits(a), bits(z)) for a, z in
+                        zip([x for x in got if x is not None], (*grads, rows)))
+    nbytes, ops = bn_work(form, n, c, h * w, itemsize, grad=True, relu=relu)
+    rec = {"max_abs_err": err, "max_rel_err": rows_rel, "bytes": nbytes, "ops": ops,
+           "library_ms": None}
+    if timed:
+        yf = y.float().requires_grad_()
+        wl, bl = wv.clone().requires_grad_(), b.clone().requires_grad_()
+        lib_out = F.batch_norm(yf, None, None, wl, bl, True, 0.0, bn_ops.EPS)
+        gf = g.float()
+        rec.update(ms=time_ms(bwd),
+                   device_ms=sum(device_us(bwd, phase=f"{k18} at {label}").values()) / 1e3,
+                   call_ms=time_ms(lambda: bn_ops.bn_act_grad(g, y, out, wv, mean, var, code,
+                                                              xd, skip_bn, relu)),
+                   plain_ms=time_ms(lambda: bn_ops.bn_act_grad_plain(
+                       g, y, out, wv, mean, var, code, xd, skip_bn, relu)),
+                   library_ms=time_ms(lambda: torch.autograd.grad(
+                       lib_out, (yf, wl, bl), gf, retain_graph=True)))
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops)
+    lines.append((k18, rec, {"bit_equal": same, "two_launches_bit_equal": repeats,
+                             "wrapper_equal": wrapper_equal, "rows_rel_err": rows_rel,
+                             "plain_rows_rel_err": plain_rel,
+                             "tolerance": f"bit-equal; rows {BN_ROWS_REL} of |terms|"}))
+    for kname, rec, gates in lines:
+        extra = {"share": rec["bound_ms"] / rec["ms"]} if timed else {}
+        print(json.dumps({"kernel": kname, "shape": label, "form": form, "relu": relu,
+                          "n": n, "c": c, "h": h, "w": w, **gates, **rec, **extra}))
+        recs[kname] = rec
+    if not (ok and same and repeats and wrapper_equal and rows_rel <= BN_ROWS_REL):
+        raise SystemExit(f"bn_act/bn_act_grad {dtype} at {label}: {lines}")
+    return recs
+
+
+def check_bn_act():
+    """K17 and K18 against their plain versions on the card
+    (`hold_bn_act`), in float32 and bfloat16, at every BN call of
+    FeatureNet (`BN_CALLS`) on a 1600x1152 image (K17: one image per map,
+    the feature cache on) and on a 640x512 training step's batch-4 x
+    5-view fold (K17 and K18), then at BN_EDGE_CASES. Returns the per-map
+    totals of K17 and the per-step totals of K18 in both dtypes (each
+    shape times its calls)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 8)
+    calls = {}
+    for call in BN_CALLS:
+        calls[call] = calls.get(call, 0) + 1
+    per_map, per_step = {}, {}
+    plans = (("map", 1, HEIGHT, WIDTH, per_map, "bn_act"),
+             ("step", TRAIN_BATCH * TRAIN_VIEWS, TRAIN_HEIGHT, TRAIN_WIDTH, per_step,
+              "bn_act_grad"))
+    keys = ("ms", "device_ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bytes", "ops")
+    for dtype in (torch.float32, BF16):
+        for per, n, height, width, totals, name in plans:
+            kname = kernel_name(name, dtype)
+            tot = dict.fromkeys(keys, 0.0)
+            tot.update(max_abs_err=0.0, max_rel_err=0.0, launches=0)
+            for (form, c, s), k in calls.items():
+                rec = hold_bn_act(f"{per}_{form}_{c}", form, True, n, c, height // s,
+                                  width // s, dtype, gen)[kname]
+                for key in keys:
+                    tot[key] += k * rec[key]
+                tot["max_abs_err"] = max(tot["max_abs_err"], rec["max_abs_err"])
+                tot["max_rel_err"] = max(tot["max_rel_err"], rec["max_rel_err"])
+                tot["launches"] += k
+                torch.cuda.empty_cache()
+            totals[kname] = tot
+        for label, form, relu, n, c, h, w in BN_EDGE_CASES:
+            hold_bn_act(f"edge_{label}", form, relu, n, c, h, w, dtype, gen, timed=False)
+    print(json.dumps({"bn_act_totals": {"per_map": per_map, "per_step": per_step}}))
+    return per_map, per_step
+
+
 def valid_corners(base, h1, w1):
     """Per row, the count of its 4 corners that lie on the source map."""
     y, x = base // w1, base % w1
@@ -2038,7 +2301,8 @@ SWEEP_KERNELS = (sweep_premul, corr_epilogue, sweep_grad_ref, sweep_grad_src)
 # The templated kernels (one source, both dtypes), longest name first: a
 # source's kernels are named `<name>_...kernel<T>`, T telling the dtype.
 TEMPLATED = ("depth_readout_grad", "depth_readout", "sweep_taps", "convex_upsample_grad",
-             "convex_upsample", "gru_update_grad", "gru_reset_grad", "gru_update", "gru_reset")
+             "convex_upsample", "gru_update_grad", "gru_reset_grad", "gru_update", "gru_reset",
+             "bn_act_grad", "bn_act")
 # The float32-only kernels, longest name first (K11's is a prefix of K12's).
 F32_ONLY = ("view_aggregate_grad", "view_aggregate")
 
@@ -2048,20 +2312,24 @@ def planned_counts(**launches):
     return {k: launches.get(k, 0) for k in KERNEL_NAMES}
 
 
-def planned_map_counts(shapes, dtype, maps=1, iteration=ITERATION):
+def planned_map_counts(shapes, dtype, maps=1, iteration=ITERATION, features=None):
     """Launches of each kernel over `maps` depth maps at `shapes` in
     `dtype`: the forward sweep kernels once per chunk, K6 once per
     prediction (1 + iteration), K8 once per sweep (1 + iteration), K9
     once, K11 (float32 in both precisions) once per aggregation: the
-    init sweep's and each iteration's 3 levels', 1 + 3·iteration, and
-    K13 and K14 once per GRU call, iteration."""
+    init sweep's and each iteration's 3 levels', 1 + 3·iteration, K13 and
+    K14 once per GRU call, iteration, and K17 13 times per FeatureNet
+    call (`BN_CALLS`): `features` calls, by default one per map (a
+    forward's views in one call, or the feature cache's one new image
+    per map)."""
     forward = sum(s[-1] for s in shapes) * maps
+    features = maps if features is None else features
     return planned_counts(view_aggregate=(1 + len(LEVELS) * iteration) * maps,
                           **{kernel_name(k, dtype): n for k, n in (
         ("sweep_premul", forward), ("corr_epilogue", forward),
         ("depth_readout", (1 + iteration) * maps), ("sweep_taps", (1 + iteration) * maps),
         ("convex_upsample", maps), ("gru_reset", iteration * maps),
-        ("gru_update", iteration * maps))})
+        ("gru_update", iteration * maps), ("bn_act", len(BN_CALLS) * features))})
 
 
 def _category(name):
@@ -2134,9 +2402,10 @@ def device_time(fn):
 
 # The chains that the model runs under record_function labels
 # (models/itermvs.py, models/blocks.py): K6, K8, K9 and K11, one launch
-# per call each, and K13 and K14 under `conv_gru`, two per GRU call.
+# per call each, K13 and K14 under `conv_gru`, two per GRU call, and K17
+# under `bn_act`, one per BN epilogue.
 CHAINS = ("depth_readout", "fused_sweep_taps", "convex_upsample", "view_aggregate",
-          "conv_gru")
+          "conv_gru", "bn_act")
 
 
 def chain_time(events):
@@ -2175,8 +2444,11 @@ def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=F
     writes the full-resolution depth; view_aggregate (the init sweep's
     call and 3 per iteration) reads each source's float32 correlation
     and weights and writes the aggregate; conv_gru (one GRU call per
-    iteration) is K13 and K14 (`gru_work`). Their operations per byte
-    are far below the card's, so bytes bound all five."""
+    iteration) is K13 and K14 (`gru_work`); bn_act is K17's 13 launches
+    per image (`bn_image_bytes`) over one image per map (the feature
+    cache extracts each image once) or the step's batch·views images.
+    Their operations per byte are far below the card's, so bytes bound
+    all six."""
     p4 = batch * (height // 4) * (width // 4)
     p8 = batch * (height // 8) * (width // 8)
     sources = views - 1
@@ -2191,7 +2463,9 @@ def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=F
               "view_aggregate": aggregate(NUM_INIT_SAMPLES, p8) + iteration * sum(
                   aggregate(len(CORR_INTERVALS[k]), p4) for k in LEVELS),
               "conv_gru": iteration * sum(gru_work(k, 1, p4, itemsize)[0]
-                                          for k in ("gru_reset", "gru_update"))}
+                                          for k in ("gru_reset", "gru_update")),
+              "bn_act": (batch * views if train else batch)
+              * bn_image_bytes(width, height, itemsize)}
     return {k: 1e3 * v / PEAK_BYTES_PER_S for k, v in nbytes.items()}
 
 
@@ -2307,7 +2581,8 @@ def planned_step_counts(shapes, dtype, iteration=TRAIN_ITERATION):
     pair per sweep; K6, K7 and K8 once per prediction or sweep, 1 +
     iteration; K9 and K10 once; K11 and K12, float32 in both precisions,
     once per aggregation, 1 + 3·iteration; K13-K16 once per GRU call,
-    iteration)."""
+    iteration; K17 and K18 13 times, FeatureNet's one call over the
+    batch's views)."""
     forward = sum(s[-1] for s in shapes)
     sweeps = sum(sweeps_of(shapes, dtype).values())
     aggregations = 1 + len(LEVELS) * iteration
@@ -2318,7 +2593,8 @@ def planned_step_counts(shapes, dtype, iteration=TRAIN_ITERATION):
         ("depth_readout_grad", 1 + iteration), ("sweep_taps", 1 + iteration),
         ("convex_upsample", 1), ("convex_upsample_grad", 1), ("gru_reset", iteration),
         ("gru_update", iteration), ("gru_update_grad", iteration),
-        ("gru_reset_grad", iteration))})
+        ("gru_reset_grad", iteration), ("bn_act", len(BN_CALLS)),
+        ("bn_act_grad", len(BN_CALLS)))})
 
 
 def capture_sweeps(model, batch, iteration):
@@ -3408,15 +3684,16 @@ def eval_ddp_2rank(samples, card):
 # from the f32 and bf16 map runs) and per training step (from the
 # training runs); fusion_consistency has its own entry.
 REPORT_PER_MAP = ("corr_epilogue", "sweep_premul", "depth_readout", "sweep_taps",
-                  "convex_upsample", "view_aggregate", "gru_reset", "gru_update",
+                  "convex_upsample", "view_aggregate", "gru_reset", "gru_update", "bn_act",
                   "corr_epilogue_bf16", "sweep_premul_bf16", "depth_readout_bf16",
                   "sweep_taps_bf16", "convex_upsample_bf16", "gru_reset_bf16",
-                  "gru_update_bf16")
+                  "gru_update_bf16", "bn_act_bf16")
 REPORT_PER_STEP = ("sweep_grad_ref", "sweep_grad_src", "depth_readout_grad",
                    "convex_upsample_grad", "view_aggregate_grad", "gru_update_grad",
-                   "gru_reset_grad", "sweep_grad_ref_bf16", "sweep_grad_src_bf16",
-                   "depth_readout_grad_bf16", "convex_upsample_grad_bf16",
-                   "gru_update_grad_bf16", "gru_reset_grad_bf16")
+                   "gru_reset_grad", "bn_act_grad", "sweep_grad_ref_bf16",
+                   "sweep_grad_src_bf16", "depth_readout_grad_bf16",
+                   "convex_upsample_grad_bf16", "gru_update_grad_bf16", "gru_reset_grad_bf16",
+                   "bn_act_grad_bf16")
 
 
 def kernel_sources():
@@ -3453,7 +3730,10 @@ def kernel_sources():
                "gru_update_grad": ("itermvs_tpu_torch/csrc/gru_update_grad.cu",
                                    "itermvs_tpu/models/blocks.py:176"),
                "gru_reset_grad": ("itermvs_tpu_torch/csrc/gru_reset_grad.cu",
-                                  "itermvs_tpu/models/blocks.py:178")}
+                                  "itermvs_tpu/models/blocks.py:178"),
+               "bn_act": ("itermvs_tpu_torch/csrc/bn_act.cu", "itermvs_tpu/models/blocks.py:90"),
+               "bn_act_grad": ("itermvs_tpu_torch/csrc/bn_act_grad.cu",
+                               "itermvs_tpu/models/blocks.py:165")}
     for name in ("corr_epilogue", "sweep_premul", "sweep_grad_ref", "sweep_grad_src"):
         source, replaces = sources[name]
         sources[f"{name}_bf16"] = (source.replace(".cu", "_bf16.cu"), replaces)
@@ -3498,6 +3778,9 @@ def main():
     # K13-K16 at a map's and a training step's GRU calls, both dtypes.
     gru_map, gru_step = check_conv_gru()
     per_map.update(gru_map)
+    # K17 at FeatureNet's BN calls on a map's image, K17/K18 on a step's.
+    bn_map, bn_step = check_bn_act()
+    per_map.update(bn_map)
     # K3 at DTU's 10 sources, and at the 4 of the main path's fusion (the
     # shape its reported time and bound are taken at).
     k3 = check_consistency(WIDTH, HEIGHT, (DTU_SOURCES, VIEWS - 1))[VIEWS - 1]
@@ -3589,7 +3872,7 @@ def main():
     counts.update({k: counts16[k] for k in ("sweep_premul_bf16", "corr_epilogue_bf16",
                                             "depth_readout_bf16", "sweep_taps_bf16",
                                             "convex_upsample_bf16", "gru_reset_bf16",
-                                            "gru_update_bf16")})
+                                            "gru_update_bf16", "bn_act_bf16")})
     # The same maps as a data-parallel eval: two gloo ranks on the card.
     eval_ddp_2rank(samples, smi)
 
@@ -3621,7 +3904,8 @@ def main():
                                                         "depth_readout_grad_bf16",
                                                         "convex_upsample_grad_bf16",
                                                         "gru_update_grad_bf16",
-                                                        "gru_reset_grad_bf16")})
+                                                        "gru_reset_grad_bf16",
+                                                        "bn_act_grad_bf16")})
 
     # Data-parallel training (two gloo ranks on the card; one NCCL rank in
     # bf16), then --debug_nans on one depth map.
@@ -3632,7 +3916,7 @@ def main():
     model = load_npz_weights(Pipeline(iteration=ITERATION), pretrained_path("dtu")).cuda()
     with tempfile.TemporaryDirectory() as tmp:
         debug_counts, _ = debug_nans_phase(model, samples[0], gt_depths[0], tmp)
-    planned = planned_map_counts(shapes, torch.float32)
+    planned = planned_map_counts(shapes, torch.float32, features=VIEWS)
     if debug_counts != planned:
         raise SystemExit(f"debug_nans launch counts {debug_counts} != planned {planned}")
     del model
@@ -3662,6 +3946,7 @@ def main():
     per_step.update(readout_step)
     per_step["view_aggregate_grad"] = view_step["view_aggregate_grad"]
     per_step.update(gru_step)
+    per_step.update(bn_step)
     for name in REPORT_PER_STEP:
         tot = per_step[name]
         t_bytes, t_ops = tot["bytes"] / PEAK_BYTES_PER_S, tot["ops"] / PEAK_F32_PER_S
@@ -3672,7 +3957,7 @@ def main():
             "ms": tot["ms"], "call_ms": tot["call_ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "launches_per_step": tot["launches"],
+            "library_ms": tot.get("library_ms"), "launches_per_step": tot["launches"],
             **{k: tot[k] for k in ("device_ms", "plain_device_ms") if k in tot},
             "per": f"one training step, {TRAIN_WIDTH}x{TRAIN_HEIGHT}, batch {TRAIN_BATCH}, "
                    f"{TRAIN_VIEWS} views, {TRAIN_ITERATION} iterations"})

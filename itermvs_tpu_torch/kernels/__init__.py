@@ -33,7 +33,7 @@ SOURCES = ("corr_epilogue", "sweep_premul", "fusion_consistency", "sweep_grad_re
            "sweep_grad_ref_bf16", "sweep_grad_src_bf16", "depth_readout",
            "depth_readout_grad", "sweep_taps", "convex_upsample", "convex_upsample_grad",
            "view_aggregate", "view_aggregate_grad", "gru_reset", "gru_update",
-           "gru_update_grad", "gru_reset_grad")
+           "gru_update_grad", "gru_reset_grad", "bn_act", "bn_act_grad")
 # No --use_fast_math: fusion_consistency needs IEEE divides and sqrt.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -93,6 +93,15 @@ SIGNATURES = {
     "gru_reset_grad": ("itermvs_gru_reset_grad", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "gru_reset_grad_bf16": ("itermvs_gru_reset_grad_bf16",
                             (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), "gru_reset_grad"),
+    "bn_act": ("itermvs_bn_act", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I,
+                                  _I, _P)),
+    "bn_act_bf16": ("itermvs_bn_act_bf16", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                            _L, _I, _I, _P), "bn_act"),
+    "bn_act_grad": ("itermvs_bn_act_grad", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                            _P, _I, _I, _L, _I, _I, _I, _P)),
+    "bn_act_grad_bf16": ("itermvs_bn_act_grad_bf16",
+                         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L,
+                          _I, _I, _I, _P), "bn_act_grad"),
     # Not a kernel: 1 where K10's kernels are programmatic dependent launches.
     "convex_upsample_grad_programmatic": ("itermvs_convex_upsample_grad_programmatic", (),
                                           "convex_upsample_grad"),

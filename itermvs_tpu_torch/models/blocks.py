@@ -14,6 +14,10 @@ checkpoints); a convolution casts its input, weight and bias to the
 compute dtype (flax's `nn.Conv(dtype=...)`), and BatchNorm computes its
 statistics and normalisation in float32 and returns the compute dtype
 (flax's `nn.BatchNorm(dtype=...)`). In float32 every cast is a no-op.
+
+The BN normalise, the ReLU and the residual add after a convolution run
+as one launch of K17 `bn_act` (ops/bn_act.py, label `bn_act`), in
+training with K18 `bn_act_grad` as its backward.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from itermvs_tpu_torch.ops.bn_act import bn_act
 from itermvs_tpu_torch.ops.conv_gru import gru_reset, gru_update
 from itermvs_tpu_torch.parallel.mesh import all_reduce_sum, is_initialized
 
@@ -75,17 +80,20 @@ class BatchNorm(nn.BatchNorm2d):
     with its biased variance, but torch moves `running_var` towards the
     unbiased one (n/(n-1) larger); flax, and so this module, towards the
     biased one: running = 0.9·running + 0.1·batch for mean and variance.
-    Eval mode is `nn.BatchNorm2d`'s. Statistics, their update and the
-    normalisation run in float32 whatever the input's dtype; the output
-    is `dtype`.
+    Statistics, their update and the normalisation run in float32
+    whatever the input's dtype; the output is `dtype`.
 
-    In a process group (parallel/mesh.py) a training batch is the global
-    batch, as in the JAX step over a sharded batch: `_global_forward`
-    sums count and channel sums over the ranks for the mean, then the
-    squared deviations from it for the biased variance (two passes: at
-    these counts E[x²]−E[x]² in float32 loses the variance), through a
-    differentiable all-reduce, so the gradient carries the cross-rank
-    term. Without a group it is `F.batch_norm` (cuDNN on the card)."""
+    `statistics` gives the (weight, bias, mean, var) that normalise a
+    batch, which K17 `bn_act` consumes (`forward`, and the blocks below
+    with their ReLU and residual add): in eval the running statistics, in
+    training the batch's from `torch.var_mean`, differentiable, so that
+    autograd carries K18's ∂mean and ∂var back to the input. In a process
+    group (parallel/mesh.py) a training batch is the global batch, as in
+    the JAX step over a sharded batch: `_global_statistics` sums count and
+    channel sums over the ranks for the mean, then the squared deviations
+    from it for the biased variance (two passes: at these counts
+    E[x²]−E[x]² in float32 loses the variance), through a differentiable
+    all-reduce, so the gradient carries the cross-rank term."""
 
     def __init__(self, num_features: int, dtype: torch.dtype = torch.float32):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -97,28 +105,32 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.mul_(0.9).add_(0.1 * var)
             self.num_batches_tracked.add_(1)
 
-    def _global_forward(self, x):
+    def _global_statistics(self, x):
         c = x.shape[1]
         local = torch.cat([x.sum(dim=(0, 2, 3)), x.new_full((1,), x.numel() // c)])
         total = all_reduce_sum(local)
         count = total[c]
-        centred = x - (total[:c] / count).view(1, c, 1, 1)
-        var = all_reduce_sum(centred.square().sum(dim=(0, 2, 3))) / count
-        self._update_running(total[:c].detach() / count, var.detach())
-        scale = self.weight * torch.rsqrt(var + self.eps)
-        return centred * scale.view(1, c, 1, 1) + self.bias.view(1, c, 1, 1)
+        mean = total[:c] / count
+        var = all_reduce_sum((x - mean.view(1, c, 1, 1)).square().sum(dim=(0, 2, 3))) / count
+        return mean, var
+
+    def statistics(self, x):
+        """(weight, bias, mean, var), float32 [C], that normalise `x` in
+        this mode; in training also moves the running statistics."""
+        if not self.training:
+            return self.weight, self.bias, self.running_mean, self.running_var
+        x = x.float()
+        if is_initialized():
+            mean, var = self._global_statistics(x)
+        else:
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        self._update_running(mean.detach(), var.detach())
+        return self.weight, self.bias, mean, var
 
     def forward(self, x):
-        x = x.float()
-        if not self.training:
-            return super().forward(x).to(self.compute_dtype)
-        if is_initialized():
-            return self._global_forward(x).to(self.compute_dtype)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-        self._update_running(mean, var)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps).to(self.compute_dtype)
+        stats = self.statistics(x)
+        with record_function("bn_act"):
+            return bn_act(x.to(self.compute_dtype), *stats, relu=False)
 
 
 class ConvBn(nn.Module):
@@ -131,10 +143,17 @@ class ConvBn(nn.Module):
     def forward(self, x):
         return self.bn(self.conv(x))
 
+    def conv_statistics(self, x):
+        """(the convolution's output y, its BN's `statistics(y)`)."""
+        y = self.conv(x)
+        return y, self.bn.statistics(y)
+
 
 class ConvBnReLU(ConvBn):
     def forward(self, x):
-        return torch.relu(super().forward(x))
+        y, stats = self.conv_statistics(x)
+        with record_function("bn_act"):
+            return bn_act(y, *stats)
 
 
 class ConvReLU(nn.Module):
@@ -148,7 +167,8 @@ class ConvReLU(nn.Module):
 
 
 class ResidualBlock(nn.Module):
-    """ConvBnReLU → ConvBn, plus a strided ConvBn skip when stride != 1."""
+    """ConvBnReLU → ConvBn, plus a strided ConvBn skip when stride != 1;
+    conv2's BN, the skip's BN, the add and the ReLU are one K17 launch."""
 
     def __init__(self, cin: int, cout: int, stride: int = 1,
                  dtype: torch.dtype = torch.float32):
@@ -159,10 +179,13 @@ class ResidualBlock(nn.Module):
                            if stride != 1 else None)
 
     def forward(self, x):
-        y = self.conv2(self.conv1(x))
-        if self.downsample is not None:
-            x = self.downsample(x)
-        return torch.relu(x + y)
+        y, stats = self.conv2.conv_statistics(self.conv1(x))
+        if self.downsample is None:
+            with record_function("bn_act"):
+                return bn_act(y, *stats, skip=x)
+        xd, skip_stats = self.downsample.conv_statistics(x)
+        with record_function("bn_act"):
+            return bn_act(y, *stats, skip=xd, skip_bn=skip_stats)
 
 
 class ConvGRU(nn.Module):

@@ -238,19 +238,20 @@ def test_bf16_plans_launch_as_many_kernels():
 
 
 def test_launch_counts_name_all_nine_kernels():
-    """All twenty-nine report names since K6-K16 joined the nine: the
+    """All thirty-three report names since K6-K18 joined the nine: the
     sweep and fusion kernels, the depth readout forward and backward, the
-    sweep taps, the convex upsample forward and backward and the ConvGRU's
-    gates forward and backward, each but fusion_consistency in both
-    dtypes, and the view aggregation forward and backward (float32
-    only)."""
+    sweep taps, the convex upsample forward and backward, the ConvGRU's
+    gates forward and backward and the BN epilogue forward and backward,
+    each but fusion_consistency in both dtypes, and the view aggregation
+    forward and backward (float32 only)."""
     chip_smoke.reset_launch_counts()
     counts = chip_smoke.launch_counts()
-    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 29
+    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 33
     assert {"depth_readout", "depth_readout_grad_bf16", "sweep_taps_bf16", "convex_upsample",
             "convex_upsample_grad_bf16", "view_aggregate", "view_aggregate_grad",
             "gru_reset", "gru_update", "gru_update_grad", "gru_reset_grad", "gru_reset_bf16",
-            "gru_update_bf16", "gru_update_grad_bf16", "gru_reset_grad_bf16"} <= set(counts)
+            "gru_update_bf16", "gru_update_grad_bf16", "gru_reset_grad_bf16", "bn_act",
+            "bn_act_grad", "bn_act_bf16", "bn_act_grad_bf16"} <= set(counts)
     assert not {"view_aggregate_bf16", "view_aggregate_grad_bf16"} & set(counts)
     assert counts == chip_smoke.planned_counts()
     assert chip_smoke.planned_counts(sweep_premul_bf16=3)["sweep_premul_bf16"] == 3
@@ -314,12 +315,13 @@ def test_map_plan_counts_k6_and_k8_per_prediction_and_sweep():
     assert plan == chip_smoke.planned_counts(sweep_premul=260, corr_epilogue=260,
                                              depth_readout=25, sweep_taps=25,
                                              convex_upsample=5, view_aggregate=65,
-                                             gru_reset=20, gru_update=20)
+                                             gru_reset=20, gru_update=20, bn_act=65)
     plan16 = chip_smoke.planned_map_counts(shapes, torch.bfloat16)
     assert plan16 == chip_smoke.planned_counts(sweep_premul_bf16=52, corr_epilogue_bf16=52,
                                                depth_readout_bf16=5, sweep_taps_bf16=5,
                                                convex_upsample_bf16=1, view_aggregate=13,
-                                               gru_reset_bf16=4, gru_update_bf16=4)
+                                               gru_reset_bf16=4, gru_update_bf16=4,
+                                               bn_act_bf16=13)
 
 
 def test_readout_logits_plant_their_cases():
@@ -436,8 +438,9 @@ def test_ddp_sample_keeps_another_share_in_each_sample():
 def test_ddp_plan_is_52_launches_per_rank_per_step():
     """52 of each sweep kernel, 5 (one per prediction, one per sweep)
     of K6, K7 and K8, one of K9 and K10, 13 (one per aggregation) of
-    K11 and K12, float32 in both precisions, and 4 (one per GRU call) of
-    K13-K16, per rank per step."""
+    K11 and K12, float32 in both precisions, 4 (one per GRU call) of
+    K13-K16 and 13 (one per BN epilogue) of K17 and K18, per rank per
+    step."""
     for dtype in (torch.float32, torch.bfloat16):
         shapes = chip_smoke.sweep_shapes(640, 512, 5, 4, 2, itemsize=dtype.itemsize)
         plan = chip_smoke.planned_step_counts(shapes, dtype)
@@ -449,10 +452,12 @@ def test_ddp_plan_is_52_launches_per_rank_per_step():
                     ("convex_upsample", "convex_upsample_grad")]
         gru = [chip_smoke.kernel_name(k, dtype) for k in
                ("gru_reset", "gru_update", "gru_update_grad", "gru_reset_grad")]
+        bn = [chip_smoke.kernel_name(k, dtype) for k in ("bn_act", "bn_act_grad")]
         assert plan == chip_smoke.planned_counts(**{k: 52 for k in names},
                                                  **{k: 5 for k in heads},
                                                  **{k: 1 for k in upsample},
                                                  **{k: 4 for k in gru},
+                                                 **{k: 13 for k in bn},
                                                  view_aggregate=13, view_aggregate_grad=13)
 
 
@@ -742,7 +747,8 @@ def test_chain_time_takes_the_kernels_inside_each_labelled_range():
                       "fused_sweep_taps": {"device_ms": 0.018, "launches": 2},
                       "convex_upsample": {"device_ms": 0.0, "launches": 0},
                       "view_aggregate": {"device_ms": 0.0, "launches": 0},
-                      "conv_gru": {"device_ms": 0.0, "launches": 0}}
+                      "conv_gru": {"device_ms": 0.0, "launches": 0},
+                      "bn_act": {"device_ms": 0.0, "launches": 0}}
     by_name, by_cat, busy = chip_smoke.device_summary(events)
     assert "fused_sweep_taps" not in by_name and "depth_readout" not in by_name
     assert busy == pytest.approx((10 + 8 + 1 + 29 + 9 + 5) / 1e3)
@@ -851,6 +857,17 @@ def test_view_aggregate_timing_script_needs_a_card():
                          text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode != 0 and "no CUDA device" in out.stderr
     assert "versions" not in out.stdout and "totals" not in out.stdout
+
+
+def test_feature_net_timing_script_needs_a_card():
+    """Without a CUDA device FeatureNet's host and device A/B timing
+    script exits non-zero and prints no timing line."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "itermvs_tpu_torch", "tools", "time_feature_net.py")
+    out = subprocess.run([sys.executable, script, "--tree", root], capture_output=True,
+                         text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert "enqueue_ms" not in out.stdout and "summary" not in out.stdout
 
 
 def test_upsample_work_counts_each_input_and_output_once():
@@ -963,7 +980,8 @@ def test_eval_rank_on_two_cpu_ranks():
 
 def test_entry_plan_is_52_per_call_at_128x160():
     """entry()'s forward (128x160, 5 views, 4 iterations): 52 launches of
-    K1 and K2, 5 of K6 and K8, one of K9, 13 of K11, 4 of K13 and K14."""
+    K1 and K2, 5 of K6 and K8, one of K9, 13 of K11, 4 of K13 and K14, 13
+    of K17 (one FeatureNet call over the 5 views)."""
     shapes = chip_smoke.sweep_shapes(chip_smoke.ENTRY_WIDTH, chip_smoke.ENTRY_HEIGHT,
                                      chip_smoke.ENTRY_VIEWS, chip_smoke.ITERATION)
     assert [s[:8] for s in shapes] == [
@@ -973,14 +991,14 @@ def test_entry_plan_is_52_per_call_at_128x160():
         ("iter_level3", 1, 2, 32, 40, 16, 20, 48)]
     assert chip_smoke.planned_map_counts(shapes, torch.float32) == chip_smoke.planned_counts(
         sweep_premul=52, corr_epilogue=52, depth_readout=5, sweep_taps=5, convex_upsample=1,
-        view_aggregate=13, gru_reset=4, gru_update=4)
+        view_aggregate=13, gru_reset=4, gru_update=4, bn_act=13)
 
 
 def test_dryrun_plan_per_rank_per_step():
     """The dry run's step on one rank (64x96, 3 views, 2 iterations, batch
     1): 2 + 2·2·3 = 14 launches of each sweep kernel, forward and
     backward, 3 of K6, K7 and K8, one of K9 and K10, 1 + 3·2 = 7 of K11
-    and K12, 2 of K13-K16."""
+    and K12, 2 of K13-K16, 13 of K17 and K18."""
     shapes = chip_smoke.sweep_shapes(port_entry.DRYRUN_WIDTH, port_entry.DRYRUN_HEIGHT,
                                      port_entry.DRYRUN_VIEWS, port_entry.DRYRUN_ITERATION)
     plan = chip_smoke.planned_step_counts(shapes, torch.float32,
@@ -989,7 +1007,7 @@ def test_dryrun_plan_per_rank_per_step():
         sweep_premul=14, corr_epilogue=14, sweep_grad_ref=14, sweep_grad_src=14,
         depth_readout=3, depth_readout_grad=3, sweep_taps=3, convex_upsample=1,
         convex_upsample_grad=1, view_aggregate=7, view_aggregate_grad=7, gru_reset=2,
-        gru_update=2, gru_update_grad=2, gru_reset_grad=2)
+        gru_update=2, gru_update_grad=2, gru_reset_grad=2, bn_act=13, bn_act_grad=13)
 
 
 def test_largest_patch_finds_the_biggest_connected_block():
@@ -1162,3 +1180,93 @@ def test_device_us_takes_one_more_capture_then_raises(monkeypatch):
         chip_smoke.device_us(lambda: None, phase="gru_update_bf16 at map_call")
     monkeypatch.setattr(chip_smoke, "device_time", fake([({}, {}, 0.0), full]))
     assert chip_smoke.device_capture(lambda: None, "q")[2] == 0.04
+
+
+def test_bn_calls_are_featurenets_bn_epilogues(monkeypatch):
+    """BN_CALLS lists the K17 calls of one FeatureNet image in order:
+    their form, channels and plane scale, recorded from the port's
+    FeatureNet on the CPU (train mode: every BN takes batch statistics)."""
+    from itermvs_tpu_torch.models import blocks
+    from itermvs_tpu_torch.models.feature_net import FeatureNet
+
+    seen = []
+    plain = blocks.bn_act
+
+    def record(y, *args, skip=None, skip_bn=None, relu=True):
+        form = "plain" if skip is None else "residual" if skip_bn is None else "downsample"
+        seen.append((form, y.shape[1], 64 // y.shape[2], relu))
+        return plain(y, *args, skip=skip, skip_bn=skip_bn, relu=relu)
+
+    monkeypatch.setattr(blocks, "bn_act", record)
+    FeatureNet().train()(torch.zeros(1, 3, 64, 96))
+    assert seen == [(*call, True) for call in chip_smoke.BN_CALLS]
+
+
+def test_bn_work_counts_each_input_and_output_once():
+    """K17 reads y (and the skip) and writes the output; K18 reads g, the
+    output, y (and xd) and writes ∂y (and ∂skip), reads 3 per-channel
+    float32 vectors per BN and writes 5 rows per BN (K17 reads 4). The map's 13 calls on one
+    1600x1152 image: ≈ 154 M elements, 0.184 ms in float32."""
+    n, c, p = 2, 16, 100
+    e = n * c * p
+    assert chip_smoke.bn_work("plain", n, c, p, 4) == (4 * 2 * e + 16 * c, 4 * e)
+    assert chip_smoke.bn_work("residual", n, c, p, 2) == (2 * 3 * e + 16 * c, 5 * e)
+    assert chip_smoke.bn_work("downsample", n, c, p, 4) == (4 * 3 * e + 32 * c, 8 * e)
+    assert chip_smoke.bn_work("plain", n, c, p, 4, grad=True) == (4 * 4 * e + 32 * c, 6 * e)
+    assert chip_smoke.bn_work("plain", n, c, p, 4, grad=True, relu=False)[0] == \
+        4 * 3 * e + 32 * c
+    assert chip_smoke.bn_work("residual", n, c, p, 2, grad=True) == (2 * 5 * e + 32 * c, 6 * e)
+    assert chip_smoke.bn_work("downsample", n, c, p, 4, grad=True) == (
+        4 * 6 * e + 64 * c, 10 * e)
+    elements = sum({"plain": 2, "residual": 3, "downsample": 3}[f] * ch
+                   * (1152 // s) * (1600 // s) for f, ch, s in chip_smoke.BN_CALLS)
+    assert elements == pytest.approx(154e6, rel=2e-3)
+    bounds = chip_smoke.chain_bound_ms(1600, 1152, 5, 4)
+    assert bounds["bn_act"] == pytest.approx(0.184, abs=1e-3)
+    assert chip_smoke.chain_bound_ms(1600, 1152, 5, 4, itemsize=2)["bn_act"] == \
+        pytest.approx(0.092, abs=1e-3)
+    # A training step's forward: the batch's 4 x 5 images at 640x512.
+    step = chip_smoke.chain_bound_ms(640, 512, 5, 4, 4, train=True)["bn_act"]
+    assert step == pytest.approx(20 * 1e3 * chip_smoke.bn_image_bytes(640, 512, 4)
+                                 / chip_smoke.PEAK_BYTES_PER_S)
+    assert "bn_act" in chip_smoke.CHAINS
+
+
+def test_profile_categories_keep_k17_and_k18_out_of_batch_norm():
+    """K17's name is a prefix of K18's, and both hold "bn_", which files
+    cuDNN's batch norm: each is its own kernel, f32 or bf16 by its
+    template's first argument (K18's fold kernel too)."""
+    cat = chip_smoke._category
+    assert cat("void (anonymous namespace)::bn_act_kernel<float, 2, true, 4>((anonymous "
+               "namespace)::Channel)") == "bn_act"
+    assert cat("void (anonymous namespace)::bn_act_kernel<__nv_bfloat16, 0, true, 8>("
+               "__nv_bfloat16 const*)") == "bn_act_bf16"
+    assert cat("void (anonymous namespace)::bn_act_grad_kernel<float, 1, true, 1>(float "
+               "const*)") == "bn_act_grad"
+    assert cat("void (anonymous namespace)::bn_act_grad_fold_kernel<__nv_bfloat16, 3>(float "
+               "const*, float*, int, int, int)") == "bn_act_grad_bf16"
+    assert cat("void cudnn::bn_fw_inf_1C11_kernel_NCHW<float, float, true, 1>(float)") == \
+        "batch_norm"
+
+
+def test_bn_inputs_plant_the_relu_edge_and_signed_scales():
+    """chip_smoke's K17/K18 inputs, made on the CPU: every 37th element of
+    channel 0 equals its mean (bn = 0 there in form a: the ReLU's edge),
+    the scales alternate in sign, the variances are positive, and form c
+    has a second BN."""
+    gen = torch.Generator().manual_seed(0)
+    for dtype in (torch.float32, BF16):
+        t = chip_smoke.bn_inputs("downsample", 3, 5, 7, 9, dtype, gen, dev="cpu")
+        w, b, mean, var = t["bn"]
+        assert t["y"].dtype == t["skip"].dtype == t["g"].dtype == dtype
+        assert (t["y"][:, 0].reshape(3, -1)[:, ::37].float() == mean[0]).all()
+        assert b[0] == 0 and (w[::2] > 0).all() and (w[1::2] < 0).all() and (var > 0).all()
+        assert t["skip_bn"] is not None and t["skip_bn"][0].shape == (5,)
+        out = chip_smoke.bn_ops.bn_act(t["y"], *t["bn"])
+        assert (out[:, 0].reshape(3, -1)[:, ::37] == 0).all()
+    cases = {c[0]: c for c in chip_smoke.BN_EDGE_CASES}
+    assert cases["odd_hw"][5] * cases["odd_hw"][6] % 8 and cases["odd_hw"][3] * 5 % 2
+    assert cases["one_pixel"][5:] == (1, 1)
+    assert chip_smoke.bn_ops.spans_of(cases["two_spans_scalar"][5] * 71) == 2
+    assert chip_smoke.bn_ops.spans_of(40 * 123) == 2 and 40 * 123 % 8 == 0
+    assert not cases["lone_bn"][2]
