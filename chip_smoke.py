@@ -56,7 +56,18 @@
    (scaled by the absolute terms), two launches
    bit-equal; bare ms, device ms, bound and share, the plain version's
    ms and cuDNN's batch norm on the float32 tensor (the call K17 and K18
-   replaced; it computes the normalise only).
+   replaced; it computes the normalise only). Then `check_upsample2x`:
+   FeatureNet's FPN top-down add K19 upsample2x_add (bilinear x2 of x
+   plus the lateral) and its backward K20 upsample2x_grad, in float32
+   and bfloat16, at both FPN adds of a 1600x1152 image ([1, 48, 144,
+   200] and [1, 48, 288, 400]) and of a training step's 20 images at
+   640x512, then at UP2_EDGE_SHAPES (h or w of 1, 2 and odd, small maps
+   on the vector path), on seeded inputs whose exponents spread over
+   16 octaves: K19 bit for bit against its plain version, K20 within one
+   unit in the last place of the float64 sum of the same terms, two
+   launches bit-equal; bare ms, device ms, bound and share, the plain
+   version's ms and the library's (F.interpolate + add; F.interpolate's
+   autograd backward).
 4. Runs the port's eval core loop (`itermvs_tpu_torch.eval.run_depth`)
    with the vendored DTU weights and the feature cache on a 5-view
    textured-plane scene made in memory at 1600x1152, one depth map per
@@ -64,8 +75,8 @@
    (as save_depth's loader delivers them on a card); reads the PFMs back
    and checks them against the scene's analytic depth; checks that each
    kernel launched as often as the chunk plan predicts (K6 and K8 5 times
-   per map, K9 once, K11 13 times, K13 and K14 4 times, K17 13 times per
-   image the feature cache extracts); prints per map
+   per map, K9 once, K11 13 times, K13 and K14 4 times, K17 13 times and
+   K19 twice per image the feature cache extracts); prints per map
    the host ms of run_depth's `dispatch` (uploads and eager launches)
    and `finalize` (wait, dequantization, writer handoff).
 5. Fuses those 5 depth maps (`itermvs_tpu_torch.fusion.fuse_views`,
@@ -113,12 +124,13 @@
    on one in-memory DTU-layout batch of the plane scene: the loss must
    fall, and each of the four sweep kernels must launch 52 times per
    step, K6, K7 and K8 5 times each, K9 and K10 once, K11 and K12 13
-   times each, K13-K16 4 times each, K17 and K18 13 times each, and K7's wrapper
-   must copy no probability gradient (K7 reads the loss's in place; so
-   in step 10 too), and the layout of each one K7 gets is printed
-   (`prob_grad_layouts`); ms per step, steps/s, peak memory and one profiled step's
-   device time by kind, idle share and the labelled chains' forward
-   device time and launches; then a validation step and a
+   times each, K13-K16 4 times each, K17 and K18 13 times each, K19 and
+   K20 twice each, and K7's and K20's wrappers must copy no gradient (K7
+   reads the loss's in place; so in step 10 too), and the layout of each
+   one K7 and K20 get is printed (`prob_grad_layouts`,
+   `fpn_grad_layouts`); ms per step, steps/s, peak memory and one
+   profiled step's device time by kind, idle share and the labelled
+   chains' forward device time and launches; then a validation step and a
    checkpoint saved and restored on the card; then the backward kernels
    on that step's own sweeps (`capture_sweeps`: every (view, level)
    sweep's src, ref, base, taps and grad_corr), 10 launches each held
@@ -244,6 +256,7 @@ from itermvs_tpu_torch.models.itermvs import (
     initial_depth_samples)
 from itermvs_tpu_torch.ops import bn_act as bn_ops
 from itermvs_tpu_torch.ops import conv_gru
+from itermvs_tpu_torch.ops import resize as resize_ops
 from itermvs_tpu_torch.ops.consistency import (
     MAX_SOURCES, consistency, consistency_plain, launch_consistency, record)
 from itermvs_tpu_torch.ops.counts import KERNEL_NAMES, launch_counts, reset_launch_counts
@@ -1873,6 +1886,189 @@ def check_bn_act():
     return per_map, per_step
 
 
+# FeatureNet's FPN top-down adds per image, in the order it runs them
+# (K19 launches; models/feature_net.py): (channels, the scale s of x's
+# H/s x W/s plane). fea3 at 1/8 goes up to 1/4, that sum up to 1/2.
+FPN_CALLS = ((48, 8), (48, 4))
+# K19/K20 beside the main path's shapes, [n, c, h, w] of x: h or w of 1,
+# 2 and odd, where they take their scalar path, and small maps on their
+# run path (w a multiple of 4): one row, a 5x8 map and an odd row count
+# at w = 4 · 5.
+UP2_EDGE_SHAPES = ((2, 3, 1, 1), (1, 5, 1, 7), (3, 2, 5, 2), (2, 4, 7, 9), (1, 2, 2, 1),
+                   (1, 3, 3, 66), (1, 2, 1, 4), (2, 3, 5, 8), (1, 2, 7, 20))
+# Operations: K19 per output the resize's 6 products and 3 sums and the
+# add; K20 per ∂x element 16 multiply-adds in float64, over the card's
+# float64 rate outside the tensor cores (NVIDIA data sheet, H100 SXM).
+K19_OPS, K20_OPS = 10, 32
+PEAK_F64_PER_S = 34e12
+
+
+def up2_work(n, c, h, w, itemsize, grad=False):
+    """(bytes, operations, operations per second) of K19 (or K20, `grad`)
+    for x [n, c, h, w]: K19 reads x and the lateral and writes the output
+    (1 + 4 + 4 elements per element of x), K20 reads ∂out and writes ∂x
+    (4 + 1), each once."""
+    e = n * c * h * w
+    if grad:
+        return itemsize * 5 * e, K20_OPS * e, PEAK_F64_PER_S
+    return itemsize * 9 * e, K19_OPS * 4 * e, PEAK_F32_PER_S
+
+
+def up2_image_bytes(width, height, itemsize):
+    """K19's bytes over one image's 2 launches (`FPN_CALLS`)."""
+    return sum(up2_work(1, c, height // s, width // s, itemsize)[0] for c, s in FPN_CALLS)
+
+
+def up2_inputs(n, c, h, w, dtype, gen, dev="cuda"):
+    """Seeded K19/K20 inputs in `dtype` (drawn in float32, rounded): x and
+    ∂out N(0, 1) scaled by 2^k, k uniform in [-8, 8) per element (so that
+    neighbours differ in exponent and every rounding of the formula
+    shows), the lateral N(0, 1)."""
+    def spread(*shape):
+        k = torch.randint(-8, 8, shape, device=dev, generator=gen).float()
+        return (torch.randn(*shape, device=dev, generator=gen) * torch.exp2(k)).to(dtype)
+
+    return dict(x=spread(n, c, h, w),
+                lateral=torch.randn(n, c, 2 * h, 2 * w, device=dev, generator=gen).to(dtype),
+                g=spread(n, c, 2 * h, 2 * w))
+
+
+def ulps(got, exact, dtype):
+    """|got − exact| in units in the last place of `dtype` at each exact
+    (float64) value; subnormal spacing below the smallest normal."""
+    info = torch.finfo(dtype)
+    mant = {torch.float32: 23, BF16: 7}[dtype]
+    mag = exact.abs().clamp_min(info.tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - mant)
+    return ((got.double() - exact).abs() / ulp)
+
+
+def hold_upsample2x(label, n, c, h, w, dtype, gen, timed=True):
+    """K19 and K20 in `dtype` for x [n, c, h, w] on `up2_inputs`: K19 bit
+    for bit against its plain version (F.interpolate + add on the card),
+    K20 within one unit in the last place of `dtype` of the float64 sum of
+    the same terms (the plain version on float64 ∂out), each launched
+    twice bit-equal, the wrappers' outputs equal to the bare launches'.
+    Where `timed`: the bare launch (`ms`: the C launcher on arguments built
+    once, outputs allocated beforehand; `device_ms` the profiler's), the
+    wrapper (`call_ms`), the plain version (`plain_ms`) and the library
+    (`library_ms`: F.interpolate + add, which is K19's plain version; for
+    K20 F.interpolate's autograd backward, PyTorch's atomic
+    upsample_bilinear2d_backward). One JSON line per kernel; returns
+    {report name: record}."""
+    import torch.nn.functional as F
+
+    t = up2_inputs(n, c, h, w, dtype, gen)
+    x, lat, g = t["x"], t["lateral"], t["g"]
+    size = (2 * h, 2 * w)
+    itemsize = torch.finfo(dtype).bits // 8
+    recs, lines = {}, []
+
+    k19 = kernel_name("upsample2x_add", dtype)
+    out = torch.empty_like(lat)
+    fwd = bare_launch(k19, resize_ops.upsample2x_add_args(x, lat, out))
+    fwd()
+    want = resize_ops.upsample2x_add_plain(x, lat)
+    same = torch.equal(bits(out), bits(want))
+    err = (out.float() - want.float()).abs().max().item()
+    first = out.clone()
+    fwd()
+    torch.cuda.synchronize()
+    repeats = torch.equal(bits(first), bits(out))
+    wrapper_equal = torch.equal(bits(resize_ops.upsample2x_add(x, lat)), bits(out))
+    nbytes, ops, rate = up2_work(n, c, h, w, itemsize)
+    rec = {"max_abs_err": err, "max_rel_err": 0.0, "bytes": nbytes, "ops": ops,
+           "library_ms": None}
+    if timed:
+        rec.update(ms=time_ms(fwd),
+                   device_ms=sum(device_us(fwd, phase=f"{k19} at {label}").values()) / 1e3,
+                   call_ms=time_ms(lambda: resize_ops.upsample2x_add(x, lat)),
+                   plain_ms=time_ms(lambda: resize_ops.upsample2x_add_plain(x, lat)),
+                   library_ms=time_ms(lambda: F.interpolate(
+                       x, size=size, mode="bilinear", align_corners=False) + lat))
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops, rate)
+    lines.append((k19, rec, {"bit_equal": same, "two_launches_bit_equal": repeats,
+                             "wrapper_equal": wrapper_equal, "tolerance": "bit-equal"}))
+    ok = same and repeats and wrapper_equal
+
+    k20 = kernel_name("upsample2x_grad", dtype)
+    d_x = torch.empty_like(x)
+    bwd = bare_launch(k20, resize_ops.upsample2x_grad_args(g, d_x))
+    bwd()
+    exact = resize_ops.upsample2x_grad_plain(g.double(), (h, w))
+    err_ulps = ulps(d_x, exact, dtype).max().item()
+    plain = resize_ops.upsample2x_grad_plain(g, (h, w))
+    differ = (bits(d_x) != bits(plain)).sum().item()
+    err = (d_x.double() - exact).abs().max().item()
+    rel = err / max(exact.abs().max().item(), 1e-30)
+    first = d_x.clone()
+    bwd()
+    torch.cuda.synchronize()
+    repeats = torch.equal(bits(first), bits(d_x))
+    wrapper_equal = torch.equal(bits(resize_ops.upsample2x_grad(g, (h, w))), bits(d_x))
+    xr = x.detach().requires_grad_()
+    up = F.interpolate(xr, size=size, mode="bilinear", align_corners=False)
+    library_grad = lambda: torch.autograd.grad(up, xr, g, retain_graph=True)[0]
+    library_ulps = ulps(library_grad(), exact, dtype).max().item()
+    del exact
+    nbytes, ops, rate = up2_work(n, c, h, w, itemsize, grad=True)
+    rec = {"max_abs_err": err, "max_rel_err": rel, "bytes": nbytes, "ops": ops,
+           "library_ms": None}
+    if timed:
+        rec.update(ms=time_ms(bwd),
+                   device_ms=sum(device_us(bwd, phase=f"{k20} at {label}").values()) / 1e3,
+                   call_ms=time_ms(lambda: resize_ops.upsample2x_grad(g, (h, w))),
+                   plain_ms=time_ms(lambda: resize_ops.upsample2x_grad_plain(g, (h, w))),
+                   library_ms=time_ms(library_grad))
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops, rate)
+    lines.append((k20, rec, {"max_ulps": err_ulps, "library_max_ulps": library_ulps,
+                             "differ_from_plain": differ, "two_launches_bit_equal": repeats,
+                             "wrapper_equal": wrapper_equal,
+                             "tolerance": "1 ulp of the float64 sum"}))
+    for kname, rec, gates in lines:
+        extra = {"share": rec["bound_ms"] / rec["ms"]} if timed else {}
+        print(json.dumps({"kernel": kname, "shape": label, "x": [n, c, h, w], **gates, **rec,
+                          **extra}))
+        recs[kname] = rec
+    if not (ok and repeats and wrapper_equal and err_ulps <= 1.0):
+        raise SystemExit(f"upsample2x_add/upsample2x_grad {dtype} at {label}: {lines}")
+    return recs
+
+
+def check_upsample2x():
+    """K19 and K20 against their plain versions on the card
+    (`hold_upsample2x`), in float32 and bfloat16, at FeatureNet's two FPN
+    adds (`FPN_CALLS`) on a 1600x1152 image (K19: one image per map, the
+    feature cache on) and on a 640x512 training step's batch-4 x 5-view
+    fold (K19 and K20), then at UP2_EDGE_SHAPES. Returns the per-map
+    totals of K19 and the per-step totals of K20 in both dtypes."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+    per_map, per_step = {}, {}
+    plans = (("map", 1, HEIGHT, WIDTH, per_map, "upsample2x_add"),
+             ("step", TRAIN_BATCH * TRAIN_VIEWS, TRAIN_HEIGHT, TRAIN_WIDTH, per_step,
+              "upsample2x_grad"))
+    keys = ("ms", "device_ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bytes", "ops")
+    for dtype in (torch.float32, BF16):
+        for per, n, height, width, totals, name in plans:
+            kname = kernel_name(name, dtype)
+            tot = dict.fromkeys(keys, 0.0)
+            tot.update(max_abs_err=0.0, max_rel_err=0.0, launches=len(FPN_CALLS))
+            for c, s in FPN_CALLS:
+                h, w = height // s, width // s
+                rec = hold_upsample2x(f"{per}_{n}x{c}x{h}x{w}", n, c, h, w, dtype, gen)[kname]
+                for key in keys:
+                    tot[key] += rec[key]
+                for key in ("max_abs_err", "max_rel_err"):
+                    tot[key] = max(tot[key], rec[key])
+                torch.cuda.empty_cache()
+            totals[kname] = tot
+        for n, c, h, w in UP2_EDGE_SHAPES:
+            hold_upsample2x(f"edge_{n}x{c}x{h}x{w}", n, c, h, w, dtype, gen, timed=False)
+    print(json.dumps({"upsample2x_totals": {"per_map": per_map, "per_step": per_step}}))
+    return per_map, per_step
+
+
 def valid_corners(base, h1, w1):
     """Per row, the count of its 4 corners that lie on the source map."""
     y, x = base // w1, base % w1
@@ -2302,7 +2498,7 @@ SWEEP_KERNELS = (sweep_premul, corr_epilogue, sweep_grad_ref, sweep_grad_src)
 # source's kernels are named `<name>_...kernel<T>`, T telling the dtype.
 TEMPLATED = ("depth_readout_grad", "depth_readout", "sweep_taps", "convex_upsample_grad",
              "convex_upsample", "gru_update_grad", "gru_reset_grad", "gru_update", "gru_reset",
-             "bn_act_grad", "bn_act")
+             "bn_act_grad", "bn_act", "upsample2x_grad", "upsample2x_add")
 # The float32-only kernels, longest name first (K11's is a prefix of K12's).
 F32_ONLY = ("view_aggregate_grad", "view_aggregate")
 
@@ -2318,10 +2514,10 @@ def planned_map_counts(shapes, dtype, maps=1, iteration=ITERATION, features=None
     prediction (1 + iteration), K8 once per sweep (1 + iteration), K9
     once, K11 (float32 in both precisions) once per aggregation: the
     init sweep's and each iteration's 3 levels', 1 + 3·iteration, K13 and
-    K14 once per GRU call, iteration, and K17 13 times per FeatureNet
-    call (`BN_CALLS`): `features` calls, by default one per map (a
-    forward's views in one call, or the feature cache's one new image
-    per map)."""
+    K14 once per GRU call, iteration, and K17 13 times and K19 twice per
+    FeatureNet call (`BN_CALLS`, `FPN_CALLS`): `features` calls, by
+    default one per map (a forward's views in one call, or the feature
+    cache's one new image per map)."""
     forward = sum(s[-1] for s in shapes) * maps
     features = maps if features is None else features
     return planned_counts(view_aggregate=(1 + len(LEVELS) * iteration) * maps,
@@ -2329,7 +2525,8 @@ def planned_map_counts(shapes, dtype, maps=1, iteration=ITERATION, features=None
         ("sweep_premul", forward), ("corr_epilogue", forward),
         ("depth_readout", (1 + iteration) * maps), ("sweep_taps", (1 + iteration) * maps),
         ("convex_upsample", maps), ("gru_reset", iteration * maps),
-        ("gru_update", iteration * maps), ("bn_act", len(BN_CALLS) * features))})
+        ("gru_update", iteration * maps), ("bn_act", len(BN_CALLS) * features),
+        ("upsample2x_add", len(FPN_CALLS) * features))})
 
 
 def _category(name):
@@ -2402,10 +2599,11 @@ def device_time(fn):
 
 # The chains that the model runs under record_function labels
 # (models/itermvs.py, models/blocks.py): K6, K8, K9 and K11, one launch
-# per call each, K13 and K14 under `conv_gru`, two per GRU call, and K17
-# under `bn_act`, one per BN epilogue.
+# per call each, K13 and K14 under `conv_gru`, two per GRU call, K17
+# under `bn_act`, one per BN epilogue, and K19 under `fpn_add`, one per
+# FPN add.
 CHAINS = ("depth_readout", "fused_sweep_taps", "convex_upsample", "view_aggregate",
-          "conv_gru", "bn_act")
+          "conv_gru", "bn_act", "fpn_add")
 
 
 def chain_time(events):
@@ -2445,10 +2643,10 @@ def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=F
     call and 3 per iteration) reads each source's float32 correlation
     and weights and writes the aggregate; conv_gru (one GRU call per
     iteration) is K13 and K14 (`gru_work`); bn_act is K17's 13 launches
-    per image (`bn_image_bytes`) over one image per map (the feature
-    cache extracts each image once) or the step's batch·views images.
-    Their operations per byte are far below the card's, so bytes bound
-    all six."""
+    per image (`bn_image_bytes`) and fpn_add K19's 2 (`up2_image_bytes`),
+    over one image per map (the feature cache extracts each image once)
+    or the step's batch·views images. Their operations per byte are far
+    below the card's, so bytes bound all seven."""
     p4 = batch * (height // 4) * (width // 4)
     p8 = batch * (height // 8) * (width // 8)
     sources = views - 1
@@ -2465,7 +2663,9 @@ def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=F
               "conv_gru": iteration * sum(gru_work(k, 1, p4, itemsize)[0]
                                           for k in ("gru_reset", "gru_update")),
               "bn_act": (batch * views if train else batch)
-              * bn_image_bytes(width, height, itemsize)}
+              * bn_image_bytes(width, height, itemsize),
+              "fpn_add": (batch * views if train else batch)
+              * up2_image_bytes(width, height, itemsize)}
     return {k: 1e3 * v / PEAK_BYTES_PER_S for k, v in nbytes.items()}
 
 
@@ -2581,8 +2781,8 @@ def planned_step_counts(shapes, dtype, iteration=TRAIN_ITERATION):
     pair per sweep; K6, K7 and K8 once per prediction or sweep, 1 +
     iteration; K9 and K10 once; K11 and K12, float32 in both precisions,
     once per aggregation, 1 + 3·iteration; K13-K16 once per GRU call,
-    iteration; K17 and K18 13 times, FeatureNet's one call over the
-    batch's views)."""
+    iteration; K17 and K18 13 times and K19 and K20 twice, FeatureNet's
+    one call over the batch's views)."""
     forward = sum(s[-1] for s in shapes)
     sweeps = sum(sweeps_of(shapes, dtype).values())
     aggregations = 1 + len(LEVELS) * iteration
@@ -2594,7 +2794,8 @@ def planned_step_counts(shapes, dtype, iteration=TRAIN_ITERATION):
         ("convex_upsample", 1), ("convex_upsample_grad", 1), ("gru_reset", iteration),
         ("gru_update", iteration), ("gru_update_grad", iteration),
         ("gru_reset_grad", iteration), ("bn_act", len(BN_CALLS)),
-        ("bn_act_grad", len(BN_CALLS)))})
+        ("bn_act_grad", len(BN_CALLS)), ("upsample2x_add", len(FPN_CALLS)),
+        ("upsample2x_grad", len(FPN_CALLS)))})
 
 
 def capture_sweeps(model, batch, iteration):
@@ -2659,6 +2860,34 @@ def prob_grad_layouts(model, batch):
         loss.backward()
     finally:
         DepthReadout.backward = staticmethod(backward)
+    model.zero_grad(set_to_none=True)
+    return seen
+
+
+def fpn_grad_layouts(model, batch):
+    """The layout of each ∂out that reaches K20 in one stage-2 training
+    forward and backward of `model` on the device batch `batch` (no
+    optimizer step; the gradients are cleared after), in call order:
+    "dense" (what K20 reads), "channels-last" or "other" (each copied
+    once), with its shape and strides. `Upsample2xAdd.backward` is
+    wrapped for this call only."""
+    seen = []
+    backward = resize_ops.Upsample2xAdd.backward
+
+    def capture(ctx, grad):
+        layout = ("dense" if grad.is_contiguous() else "channels-last"
+                  if grad.is_contiguous(memory_format=torch.channels_last) else "other")
+        seen.append({"layout": layout, "shape": list(grad.shape),
+                     "strides": list(grad.stride())})
+        return backward(ctx, grad)
+
+    model.train()
+    resize_ops.Upsample2xAdd.backward = staticmethod(capture)
+    try:
+        loss, _ = forward_loss(model, batch, True)
+        loss.backward()
+    finally:
+        resize_ops.Upsample2xAdd.backward = staticmethod(backward)
     model.zero_grad(set_to_none=True)
     return seen
 
@@ -2749,6 +2978,7 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
         step_s.append(time.perf_counter() - t0)
     counts = launch_counts()
     copies = depth_readout_grad.copies
+    up2_copies = resize_ops.upsample2x_grad.copies
     peak = torch.cuda.max_memory_allocated()
     planned = {k: n * TRAIN_STEPS for k, n in planned_step_counts(shapes, dtype).items()}
     last = step_s[-5:]
@@ -2758,7 +2988,7 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
            "losses": losses, "step_s": step_s, "ms_per_step_last5": 1e3 * sum(last) / len(last),
            "steps_per_s_last5": len(last) / sum(last), "peak_mem_gib": peak / 2 ** 30,
            "batch_setup_s": setup_s, "launches": counts, "planned_launches": planned,
-           "depth_readout_grad_copies": copies}
+           "depth_readout_grad_copies": copies, "upsample2x_grad_copies": up2_copies}
 
     events = trace_events(
         lambda: train_step(model, optimizer, batch, TRAIN_LR, True, TRAIN_ITERATION))
@@ -2802,6 +3032,8 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
         raise SystemExit(f"training launch counts {counts} != planned {planned}")
     if copies != 0:
         raise SystemExit(f"K7's wrapper copied the probability's gradient {copies} times")
+    if up2_copies != 0:
+        raise SystemExit(f"K20's wrapper copied the FPN's gradient {up2_copies} times")
     if not all(np.isfinite(list(val.values()))):
         raise SystemExit(f"validation step not finite: {val}")
     if position != (0, TRAIN_STEPS) or not (same_model and same_opt):
@@ -2814,6 +3046,9 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
     if any(r["layout"] == "other" for r in rec["k7_prob_grad_layouts"]):
         raise SystemExit(f"K7 got a probability gradient it copies: "
                          f"{rec['k7_prob_grad_layouts']}")
+    # The layouts in which K20 gets the FPN adds' ∂out.
+    rec["k20_grad_layouts"] = fpn_grad_layouts(model, batch)
+    print(json.dumps({"k20_grad_layouts": rec["k20_grad_layouts"], "dtype": str(dtype)}))
 
     # K4 and K5 on this step's own sweeps.
     captures = capture_sweeps(model, batch, TRAIN_ITERATION)
@@ -3685,15 +3920,15 @@ def eval_ddp_2rank(samples, card):
 # training runs); fusion_consistency has its own entry.
 REPORT_PER_MAP = ("corr_epilogue", "sweep_premul", "depth_readout", "sweep_taps",
                   "convex_upsample", "view_aggregate", "gru_reset", "gru_update", "bn_act",
-                  "corr_epilogue_bf16", "sweep_premul_bf16", "depth_readout_bf16",
-                  "sweep_taps_bf16", "convex_upsample_bf16", "gru_reset_bf16",
-                  "gru_update_bf16", "bn_act_bf16")
+                  "upsample2x_add", "corr_epilogue_bf16", "sweep_premul_bf16",
+                  "depth_readout_bf16", "sweep_taps_bf16", "convex_upsample_bf16",
+                  "gru_reset_bf16", "gru_update_bf16", "bn_act_bf16", "upsample2x_add_bf16")
 REPORT_PER_STEP = ("sweep_grad_ref", "sweep_grad_src", "depth_readout_grad",
                    "convex_upsample_grad", "view_aggregate_grad", "gru_update_grad",
-                   "gru_reset_grad", "bn_act_grad", "sweep_grad_ref_bf16",
+                   "gru_reset_grad", "bn_act_grad", "upsample2x_grad", "sweep_grad_ref_bf16",
                    "sweep_grad_src_bf16", "depth_readout_grad_bf16",
                    "convex_upsample_grad_bf16", "gru_update_grad_bf16", "gru_reset_grad_bf16",
-                   "bn_act_grad_bf16")
+                   "bn_act_grad_bf16", "upsample2x_grad_bf16")
 
 
 def kernel_sources():
@@ -3733,7 +3968,11 @@ def kernel_sources():
                                   "itermvs_tpu/models/blocks.py:178"),
                "bn_act": ("itermvs_tpu_torch/csrc/bn_act.cu", "itermvs_tpu/models/blocks.py:90"),
                "bn_act_grad": ("itermvs_tpu_torch/csrc/bn_act_grad.cu",
-                               "itermvs_tpu/models/blocks.py:165")}
+                               "itermvs_tpu/models/blocks.py:165"),
+               "upsample2x_add": ("itermvs_tpu_torch/csrc/upsample2x_add.cu",
+                                  "itermvs_tpu/models/feature_net.py:98"),
+               "upsample2x_grad": ("itermvs_tpu_torch/csrc/upsample2x_grad.cu",
+                                   "itermvs_tpu/models/feature_net.py:98")}
     for name in ("corr_epilogue", "sweep_premul", "sweep_grad_ref", "sweep_grad_src"):
         source, replaces = sources[name]
         sources[f"{name}_bf16"] = (source.replace(".cu", "_bf16.cu"), replaces)
@@ -3781,6 +4020,9 @@ def main():
     # K17 at FeatureNet's BN calls on a map's image, K17/K18 on a step's.
     bn_map, bn_step = check_bn_act()
     per_map.update(bn_map)
+    # K19 at FeatureNet's FPN adds on a map's image, K19/K20 on a step's.
+    up2_map, up2_step = check_upsample2x()
+    per_map.update(up2_map)
     # K3 at DTU's 10 sources, and at the 4 of the main path's fusion (the
     # shape its reported time and bound are taken at).
     k3 = check_consistency(WIDTH, HEIGHT, (DTU_SOURCES, VIEWS - 1))[VIEWS - 1]
@@ -3872,7 +4114,8 @@ def main():
     counts.update({k: counts16[k] for k in ("sweep_premul_bf16", "corr_epilogue_bf16",
                                             "depth_readout_bf16", "sweep_taps_bf16",
                                             "convex_upsample_bf16", "gru_reset_bf16",
-                                            "gru_update_bf16", "bn_act_bf16")})
+                                            "gru_update_bf16", "bn_act_bf16",
+                                            "upsample2x_add_bf16")})
     # The same maps as a data-parallel eval: two gloo ranks on the card.
     eval_ddp_2rank(samples, smi)
 
@@ -3905,7 +4148,8 @@ def main():
                                                         "convex_upsample_grad_bf16",
                                                         "gru_update_grad_bf16",
                                                         "gru_reset_grad_bf16",
-                                                        "bn_act_grad_bf16")})
+                                                        "bn_act_grad_bf16",
+                                                        "upsample2x_grad_bf16")})
 
     # Data-parallel training (two gloo ranks on the card; one NCCL rank in
     # bf16), then --debug_nans on one depth map.
@@ -3947,6 +4191,7 @@ def main():
     per_step["view_aggregate_grad"] = view_step["view_aggregate_grad"]
     per_step.update(gru_step)
     per_step.update(bn_step)
+    per_step.update(up2_step)
     for name in REPORT_PER_STEP:
         tot = per_step[name]
         t_bytes, t_ops = tot["bytes"] / PEAK_BYTES_PER_S, tot["ops"] / PEAK_F32_PER_S

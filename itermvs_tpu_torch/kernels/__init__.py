@@ -33,7 +33,8 @@ SOURCES = ("corr_epilogue", "sweep_premul", "fusion_consistency", "sweep_grad_re
            "sweep_grad_ref_bf16", "sweep_grad_src_bf16", "depth_readout",
            "depth_readout_grad", "sweep_taps", "convex_upsample", "convex_upsample_grad",
            "view_aggregate", "view_aggregate_grad", "gru_reset", "gru_update",
-           "gru_update_grad", "gru_reset_grad", "bn_act", "bn_act_grad")
+           "gru_update_grad", "gru_reset_grad", "bn_act", "bn_act_grad", "upsample2x_add",
+           "upsample2x_grad")
 # No --use_fast_math: fusion_consistency needs IEEE divides and sqrt.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -102,6 +103,12 @@ SIGNATURES = {
     "bn_act_grad_bf16": ("itermvs_bn_act_grad_bf16",
                          (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L,
                           _I, _I, _I, _P), "bn_act_grad"),
+    "upsample2x_add": ("itermvs_upsample2x_add", (_P, _P, _P, _L, _I, _I, _P)),
+    "upsample2x_add_bf16": ("itermvs_upsample2x_add_bf16", (_P, _P, _P, _L, _I, _I, _P),
+                            "upsample2x_add"),
+    "upsample2x_grad": ("itermvs_upsample2x_grad", (_P, _P, _L, _I, _I, _P)),
+    "upsample2x_grad_bf16": ("itermvs_upsample2x_grad_bf16", (_P, _P, _L, _I, _I, _P),
+                             "upsample2x_grad"),
     # Not a kernel: 1 where K10's kernels are programmatic dependent launches.
     "convex_upsample_grad_programmatic": ("itermvs_convex_upsample_grad_programmatic", (),
                                           "convex_upsample_grad"),

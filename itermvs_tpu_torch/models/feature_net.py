@@ -2,7 +2,9 @@
 itermvs_tpu/models/feature_net.py, standard stem).
 
 Encoder: conv 3→8, then three 2-block residual stages 8→16→32→48 with
-stride-2 entries. FPN decoder with 1×1 laterals and ×2 bilinear adds.
+stride-2 entries. FPN decoder with 1×1 laterals and ×2 bilinear adds (K19
+`upsample2x_add`, and K20 `upsample2x_grad` as its backward in training,
+under the label `fpn_add`).
 Outputs `level3` 48ch @ H/8, `level2` 32ch @ H/4, `level1` 16ch @ H/2,
 NCHW, in the compute dtype `dtype` (the image is cast to it first, as
 the JAX FeatureNet does). The reference's unused `inner3` lateral is not
@@ -12,9 +14,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+from torch.profiler import record_function
 
 from itermvs_tpu_torch.models.blocks import ConvBnReLU, ResidualBlock, conv
-from itermvs_tpu_torch.ops.resize import upsample_bilinear
+from itermvs_tpu_torch.ops.resize import upsample2x_add
 
 
 class FeatureNet(nn.Module):
@@ -38,8 +41,12 @@ class FeatureNet(nn.Module):
         fea2 = self.layer2(fea1)
         fea3 = self.layer3(fea2)
         level3 = self.output3(fea3)
-        intra = upsample_bilinear(fea3, 2) + self.inner2(fea2)
+        lateral = self.inner2(fea2)
+        with record_function("fpn_add"):
+            intra = upsample2x_add(fea3, lateral)
         level2 = self.output2(intra)
-        intra = upsample_bilinear(intra, 2) + self.inner1(fea1)
+        lateral = self.inner1(fea1)
+        with record_function("fpn_add"):
+            intra = upsample2x_add(intra, lateral)
         level1 = self.output1(intra)
         return {"level1": level1, "level2": level2, "level3": level3}

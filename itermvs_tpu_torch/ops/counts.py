@@ -13,6 +13,7 @@ from itermvs_tpu_torch.ops.bn_act import bn_act, bn_act_grad
 from itermvs_tpu_torch.ops.consistency import consistency
 from itermvs_tpu_torch.ops.conv_gru import gru_reset, gru_reset_grad, gru_update, gru_update_grad
 from itermvs_tpu_torch.ops.depth_readout import depth_readout, depth_readout_grad
+from itermvs_tpu_torch.ops.resize import upsample2x_add, upsample2x_grad
 from itermvs_tpu_torch.ops.sweep import sweep_premul
 from itermvs_tpu_torch.ops.sweep_epilogue import corr_epilogue
 from itermvs_tpu_torch.ops.sweep_grad import sweep_grad_ref, sweep_grad_src
@@ -28,23 +29,25 @@ COUNTERS = {"sweep_premul": sweep_premul, "corr_epilogue": corr_epilogue,
             "sweep_taps": fused_sweep_taps, "convex_upsample": upsample_depth,
             "convex_upsample_grad": convex_upsample_grad, "gru_reset": gru_reset,
             "gru_update": gru_update, "gru_update_grad": gru_update_grad,
-            "gru_reset_grad": gru_reset_grad, "bn_act": bn_act, "bn_act_grad": bn_act_grad}
+            "gru_reset_grad": gru_reset_grad, "bn_act": bn_act, "bn_act_grad": bn_act_grad,
+            "upsample2x_add": upsample2x_add, "upsample2x_grad": upsample2x_grad}
 F32_COUNTERS = {"view_aggregate": view_aggregate, "view_aggregate_grad": view_aggregate_grad}
 # Every kernel's report name, float32 forms first.
 KERNEL_NAMES = ("sweep_premul", "corr_epilogue", "fusion_consistency", "sweep_grad_ref",
                 "sweep_grad_src", "depth_readout", "depth_readout_grad", "sweep_taps",
                 "convex_upsample", "convex_upsample_grad", "view_aggregate",
                 "view_aggregate_grad", "gru_reset", "gru_update", "gru_update_grad",
-                "gru_reset_grad", "bn_act", "bn_act_grad",
+                "gru_reset_grad", "bn_act", "bn_act_grad", "upsample2x_add", "upsample2x_grad",
                 "sweep_premul_bf16", "corr_epilogue_bf16", "sweep_grad_ref_bf16",
                 "sweep_grad_src_bf16", "depth_readout_bf16", "depth_readout_grad_bf16",
                 "sweep_taps_bf16", "convex_upsample_bf16", "convex_upsample_grad_bf16",
                 "gru_reset_bf16", "gru_update_bf16", "gru_update_grad_bf16",
-                "gru_reset_grad_bf16", "bn_act_bf16", "bn_act_grad_bf16")
+                "gru_reset_grad_bf16", "bn_act_bf16", "bn_act_grad_bf16", "upsample2x_add_bf16",
+                "upsample2x_grad_bf16")
 
 
 def launch_counts() -> dict[str, int]:
-    """{report name: launches} of all thirty-three kernels."""
+    """{report name: launches} of all thirty-seven kernels."""
     counts = {"fusion_consistency": consistency.launches}
     counts.update({name: fn.launches for name, fn in F32_COUNTERS.items()})
     for name, fn in COUNTERS.items():
@@ -54,9 +57,10 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Every launch counter to 0, and the count of K7's gradient copies."""
+    """Every launch counter to 0, and the counts of K7's and K20's gradient
+    copies."""
     consistency.launches = 0
-    depth_readout_grad.copies = 0
+    depth_readout_grad.copies = upsample2x_grad.copies = 0
     for fn in COUNTERS.values():
         fn.launches = fn.launches_bf16 = 0
     for fn in F32_COUNTERS.values():

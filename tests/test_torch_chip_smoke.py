@@ -238,20 +238,22 @@ def test_bf16_plans_launch_as_many_kernels():
 
 
 def test_launch_counts_name_all_nine_kernels():
-    """All thirty-three report names since K6-K18 joined the nine: the
+    """All thirty-seven report names since K6-K20 joined the nine: the
     sweep and fusion kernels, the depth readout forward and backward, the
     sweep taps, the convex upsample forward and backward, the ConvGRU's
-    gates forward and backward and the BN epilogue forward and backward,
-    each but fusion_consistency in both dtypes, and the view aggregation
-    forward and backward (float32 only)."""
+    gates forward and backward, the BN epilogue forward and backward and
+    the FPN add forward and backward, each but fusion_consistency in both
+    dtypes, and the view aggregation forward and backward (float32
+    only)."""
     chip_smoke.reset_launch_counts()
     counts = chip_smoke.launch_counts()
-    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 33
+    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 37
     assert {"depth_readout", "depth_readout_grad_bf16", "sweep_taps_bf16", "convex_upsample",
             "convex_upsample_grad_bf16", "view_aggregate", "view_aggregate_grad",
             "gru_reset", "gru_update", "gru_update_grad", "gru_reset_grad", "gru_reset_bf16",
             "gru_update_bf16", "gru_update_grad_bf16", "gru_reset_grad_bf16", "bn_act",
-            "bn_act_grad", "bn_act_bf16", "bn_act_grad_bf16"} <= set(counts)
+            "bn_act_grad", "bn_act_bf16", "bn_act_grad_bf16", "upsample2x_add",
+            "upsample2x_grad", "upsample2x_add_bf16", "upsample2x_grad_bf16"} <= set(counts)
     assert not {"view_aggregate_bf16", "view_aggregate_grad_bf16"} & set(counts)
     assert counts == chip_smoke.planned_counts()
     assert chip_smoke.planned_counts(sweep_premul_bf16=3)["sweep_premul_bf16"] == 3
@@ -315,13 +317,14 @@ def test_map_plan_counts_k6_and_k8_per_prediction_and_sweep():
     assert plan == chip_smoke.planned_counts(sweep_premul=260, corr_epilogue=260,
                                              depth_readout=25, sweep_taps=25,
                                              convex_upsample=5, view_aggregate=65,
-                                             gru_reset=20, gru_update=20, bn_act=65)
+                                             gru_reset=20, gru_update=20, bn_act=65,
+                                             upsample2x_add=10)
     plan16 = chip_smoke.planned_map_counts(shapes, torch.bfloat16)
     assert plan16 == chip_smoke.planned_counts(sweep_premul_bf16=52, corr_epilogue_bf16=52,
                                                depth_readout_bf16=5, sweep_taps_bf16=5,
                                                convex_upsample_bf16=1, view_aggregate=13,
                                                gru_reset_bf16=4, gru_update_bf16=4,
-                                               bn_act_bf16=13)
+                                               bn_act_bf16=13, upsample2x_add_bf16=2)
 
 
 def test_readout_logits_plant_their_cases():
@@ -439,8 +442,8 @@ def test_ddp_plan_is_52_launches_per_rank_per_step():
     """52 of each sweep kernel, 5 (one per prediction, one per sweep)
     of K6, K7 and K8, one of K9 and K10, 13 (one per aggregation) of
     K11 and K12, float32 in both precisions, 4 (one per GRU call) of
-    K13-K16 and 13 (one per BN epilogue) of K17 and K18, per rank per
-    step."""
+    K13-K16, 13 (one per BN epilogue) of K17 and K18 and 2 (one per FPN
+    add) of K19 and K20, per rank per step."""
     for dtype in (torch.float32, torch.bfloat16):
         shapes = chip_smoke.sweep_shapes(640, 512, 5, 4, 2, itemsize=dtype.itemsize)
         plan = chip_smoke.planned_step_counts(shapes, dtype)
@@ -453,11 +456,13 @@ def test_ddp_plan_is_52_launches_per_rank_per_step():
         gru = [chip_smoke.kernel_name(k, dtype) for k in
                ("gru_reset", "gru_update", "gru_update_grad", "gru_reset_grad")]
         bn = [chip_smoke.kernel_name(k, dtype) for k in ("bn_act", "bn_act_grad")]
+        fpn = [chip_smoke.kernel_name(k, dtype) for k in ("upsample2x_add", "upsample2x_grad")]
         assert plan == chip_smoke.planned_counts(**{k: 52 for k in names},
                                                  **{k: 5 for k in heads},
                                                  **{k: 1 for k in upsample},
                                                  **{k: 4 for k in gru},
                                                  **{k: 13 for k in bn},
+                                                 **{k: 2 for k in fpn},
                                                  view_aggregate=13, view_aggregate_grad=13)
 
 
@@ -748,7 +753,8 @@ def test_chain_time_takes_the_kernels_inside_each_labelled_range():
                       "convex_upsample": {"device_ms": 0.0, "launches": 0},
                       "view_aggregate": {"device_ms": 0.0, "launches": 0},
                       "conv_gru": {"device_ms": 0.0, "launches": 0},
-                      "bn_act": {"device_ms": 0.0, "launches": 0}}
+                      "bn_act": {"device_ms": 0.0, "launches": 0},
+                      "fpn_add": {"device_ms": 0.0, "launches": 0}}
     by_name, by_cat, busy = chip_smoke.device_summary(events)
     assert "fused_sweep_taps" not in by_name and "depth_readout" not in by_name
     assert busy == pytest.approx((10 + 8 + 1 + 29 + 9 + 5) / 1e3)
@@ -981,7 +987,7 @@ def test_eval_rank_on_two_cpu_ranks():
 def test_entry_plan_is_52_per_call_at_128x160():
     """entry()'s forward (128x160, 5 views, 4 iterations): 52 launches of
     K1 and K2, 5 of K6 and K8, one of K9, 13 of K11, 4 of K13 and K14, 13
-    of K17 (one FeatureNet call over the 5 views)."""
+    of K17 and 2 of K19 (one FeatureNet call over the 5 views)."""
     shapes = chip_smoke.sweep_shapes(chip_smoke.ENTRY_WIDTH, chip_smoke.ENTRY_HEIGHT,
                                      chip_smoke.ENTRY_VIEWS, chip_smoke.ITERATION)
     assert [s[:8] for s in shapes] == [
@@ -991,14 +997,14 @@ def test_entry_plan_is_52_per_call_at_128x160():
         ("iter_level3", 1, 2, 32, 40, 16, 20, 48)]
     assert chip_smoke.planned_map_counts(shapes, torch.float32) == chip_smoke.planned_counts(
         sweep_premul=52, corr_epilogue=52, depth_readout=5, sweep_taps=5, convex_upsample=1,
-        view_aggregate=13, gru_reset=4, gru_update=4, bn_act=13)
+        view_aggregate=13, gru_reset=4, gru_update=4, bn_act=13, upsample2x_add=2)
 
 
 def test_dryrun_plan_per_rank_per_step():
     """The dry run's step on one rank (64x96, 3 views, 2 iterations, batch
     1): 2 + 2·2·3 = 14 launches of each sweep kernel, forward and
     backward, 3 of K6, K7 and K8, one of K9 and K10, 1 + 3·2 = 7 of K11
-    and K12, 2 of K13-K16, 13 of K17 and K18."""
+    and K12, 2 of K13-K16, 13 of K17 and K18, 2 of K19 and K20."""
     shapes = chip_smoke.sweep_shapes(port_entry.DRYRUN_WIDTH, port_entry.DRYRUN_HEIGHT,
                                      port_entry.DRYRUN_VIEWS, port_entry.DRYRUN_ITERATION)
     plan = chip_smoke.planned_step_counts(shapes, torch.float32,
@@ -1007,7 +1013,8 @@ def test_dryrun_plan_per_rank_per_step():
         sweep_premul=14, corr_epilogue=14, sweep_grad_ref=14, sweep_grad_src=14,
         depth_readout=3, depth_readout_grad=3, sweep_taps=3, convex_upsample=1,
         convex_upsample_grad=1, view_aggregate=7, view_aggregate_grad=7, gru_reset=2,
-        gru_update=2, gru_update_grad=2, gru_reset_grad=2, bn_act=13, bn_act_grad=13)
+        gru_update=2, gru_update_grad=2, gru_reset_grad=2, bn_act=13, bn_act_grad=13,
+        upsample2x_add=2, upsample2x_grad=2)
 
 
 def test_largest_patch_finds_the_biggest_connected_block():
