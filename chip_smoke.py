@@ -56,7 +56,20 @@
    (scaled by the absolute terms), two launches
    bit-equal; bare ms, device ms, bound and share, the plain version's
    ms and cuDNN's batch norm on the float32 tensor (the call K17 and K18
-   replaced; it computes the normalise only). Then `check_upsample2x`:
+   replaced; it computes the normalise only). Then `check_bn_stats`:
+   BatchNorm's training statistics K21 bn_stats (one read of y: the
+   mean and the biased variance, spans merged by Chan's rule, and the
+   process group's sums) at each of FeatureNet's 16 BN
+   inputs (`BN_INPUTS`) and their backward K22 bn_stats_grad (their term
+   added in place to K18's ∂y, and ∂skip in form c) at each of its 13
+   epilogues, on a training step's 20 images at 640x512, in float32 and
+   bfloat16, then at BN_EDGE_CASES: K21 within 1e-6 of float64
+   (relative), K22 bit for bit against its plain version, two launches
+   bit-equal; the whole input gradient's error against float64 beside
+   that of the composition it replaced (var_mean's autograd backward
+   cast and added); bare ms, device ms, bound and share, the plain
+   version's ms and the library's (`torch.var_mean`; var_mean's backward
+   plus the add). Then `check_upsample2x`:
    FeatureNet's FPN top-down add K19 upsample2x_add (bilinear x2 of x
    plus the lateral) and its backward K20 upsample2x_grad, in float32
    and bfloat16, at both FPN adds of a 1600x1152 image ([1, 48, 144,
@@ -124,9 +137,11 @@
    on one in-memory DTU-layout batch of the plane scene: the loss must
    fall, and each of the four sweep kernels must launch 52 times per
    step, K6, K7 and K8 5 times each, K9 and K10 once, K11 and K12 13
-   times each, K13-K16 4 times each, K17 and K18 13 times each, K19 and
-   K20 twice each, and K7's and K20's wrappers must copy no gradient (K7
-   reads the loss's in place; so in step 10 too), and the layout of each
+   times each, K13-K16 4 times each, K17, K18 and K22 13 times each,
+   K21 16 times, K19 and K20 twice each, no var_mean op or kernel may
+   run in the profiled step, and K7's and K20's wrappers must copy no
+   gradient (K7 reads the loss's in place; so in step 10 too), and the
+   layout of each
    one K7 and K20 get is printed (`prob_grad_layouts`,
    `fpn_grad_layouts`); ms per step, steps/s, peak memory and one
    profiled step's device time by kind, idle share and the labelled
@@ -255,6 +270,7 @@ from itermvs_tpu_torch.models.itermvs import (
     CORR_INTERVALS, GROUPS, HIDDEN_DIM, INTERVAL_SCALE, LEVELS, NUM_INIT_SAMPLES,
     initial_depth_samples)
 from itermvs_tpu_torch.ops import bn_act as bn_ops
+from itermvs_tpu_torch.ops import bn_stats as stats_ops
 from itermvs_tpu_torch.ops import conv_gru
 from itermvs_tpu_torch.ops import resize as resize_ops
 from itermvs_tpu_torch.ops.consistency import (
@@ -1886,6 +1902,267 @@ def check_bn_act():
     return per_map, per_step
 
 
+# FeatureNet's BN inputs per image (K21 reads each once), in
+# the order its epilogues (`BN_CALLS`) take them: (channels, the scale s
+# of the H/s x W/s plane); form c's epilogue has two, y and the
+# downsample's xd.
+BN_INPUTS = tuple((c, s) for form, c, s in BN_CALLS
+                  for _ in range(2 if form == "downsample" else 1))
+# K21's mean and variance against float64: |err| / |exact| (bounded by a
+# few float32 roundings: float32 sums of at most 16 terms per thread,
+# float64 after); its group sums likewise, Σy relative to Σ|y|.
+BN_STATS_REL = 1e-6
+# Operations per element: K21 the sum (1), then the deviation and its
+# square's fused add (3); K22 the deviation, the product, two adds (4).
+BN_STATS_OPS, BN_STATS_GRAD_OPS = 4, 4
+
+
+def bn_stats_work(n, c, p, itemsize, grad=False, bns=1):
+    """(bytes, operations) of K21 on y [n, c, p] (or of K22 for `bns`
+    BNs, `grad`): K21 reads y once and writes the mean and the variance;
+    K22 reads ∂y and y and writes ∂y, and reads the mean, ∂mean and ∂var,
+    per BN."""
+    e = n * c * p
+    if grad:
+        return bns * (3 * itemsize * e + 12 * c), bns * BN_STATS_GRAD_OPS * e
+    return itemsize * e + 8 * c, BN_STATS_OPS * e
+
+
+def bn_stats_image_bytes(width, height, itemsize):
+    """K21's bytes over one image's 16 BN inputs (`BN_INPUTS`)."""
+    return sum(bn_stats_work(1, c, (height // s) * (width // s), itemsize)[0]
+               for c, s in BN_INPUTS)
+
+
+def hold_bn_stats(label, n, c, h, w, dtype, gen, timed=True):
+    """K21 on y [n, c, h, w] N(0.3, 1.5) in `dtype`, one read of y: the
+    mean and the biased variance within BN_STATS_REL of float64, and with
+    a divisor of 1 the process group's float64 sums (Σy relative to Σ|y|,
+    the squares about y's own mean relative), two launches bit-equal, the
+    wrappers (`bn_batch_stats`, `bn_sums`) equal to the bare launches; the
+    plain version's (var_mean of the float32 y) error against float64
+    printed as a control. Where `timed`: the bare launch (`ms`;
+    `device_ms` the profiler's), the wrapper (`call_ms`), the plain
+    version (`plain_ms`) and `torch.var_mean` on y in its own dtype
+    (`library_ms`). One JSON line; returns the record."""
+    y = (0.3 + 1.5 * torch.randn(n, c, h, w, device="cuda", generator=gen)).to(dtype)
+    count = n * h * w
+    kname = kernel_name("bn_stats", dtype)
+    (out, part), (sums, part2) = stats_ops.stats_buffers(y), stats_ops.stats_buffers(y, True)
+    run = bare_launch(kname, stats_ops.bn_stats_args(y, out, part, count))
+    run_sums = bare_launch(kname, stats_ops.bn_stats_args(y, sums, part2, 1))
+    run()
+    run_sums()
+    yd = y.double()
+    m64 = yd.mean((0, 2, 3))
+    q64 = (yd - m64.view(1, -1, 1, 1)).square().sum((0, 2, 3))
+    s64, a64 = yd.sum((0, 2, 3)), yd.abs().sum((0, 2, 3))
+    v64 = q64 / count
+    del yd
+    rel = lambda got, want, scale=None: ((got.double() - want).abs() / (
+        want.abs() if scale is None else scale).clamp_min(1e-300)).max().item()
+    plain = stats_ops.bn_batch_stats_plain(y)
+    mean, var = out
+    errs = {"mean_rel_err": rel(mean, m64), "var_rel_err": rel(var, v64),
+            "sums_rel_err": max(rel(sums[0], s64, a64), rel(sums[1], q64)),
+            "plain_mean_rel_err": rel(plain[0], m64), "plain_var_rel_err": rel(plain[1], v64)}
+    first = (out.clone(), sums.clone())
+    run()
+    run_sums()
+    torch.cuda.synchronize()
+    repeats = torch.equal(bits(first[0]), bits(out)) and torch.equal(bits(first[1]), bits(sums))
+    wrapper_equal = (all(torch.equal(bits(a), bits(b))
+                         for a, b in zip(stats_ops.bn_batch_stats(y), out))
+                     and torch.equal(bits(stats_ops.bn_sums(y)), bits(sums)))
+    err = max((a - b).abs().max().item() for a, b in zip(out, plain))
+    nbytes, ops = bn_stats_work(n, c, h * w, dtype.itemsize)
+    rec = {"max_abs_err": err,
+           "max_rel_err": max(errs["mean_rel_err"], errs["var_rel_err"], errs["sums_rel_err"]),
+           "bytes": nbytes, "ops": ops, "library_ms": None}
+    if timed:
+        rec.update(ms=time_ms(run),
+                   device_ms=sum(device_us(run, phase=f"{kname} at {label}").values()) / 1e3,
+                   call_ms=time_ms(lambda: stats_ops.bn_batch_stats(y)),
+                   plain_ms=time_ms(lambda: stats_ops.bn_batch_stats_plain(y)),
+                   library_ms=time_ms(lambda: torch.var_mean(y, dim=(0, 2, 3), unbiased=False)))
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops)
+    extra = {"share": rec["bound_ms"] / rec["ms"]} if timed else {}
+    line = {"kernel": kname, "shape": label, "y": [n, c, h, w], **errs,
+            "two_launches_bit_equal": repeats, "wrapper_equal": wrapper_equal,
+            "tolerance": f"{BN_STATS_REL} of float64, relative", **rec, **extra}
+    print(json.dumps(line))
+    if not (rec["max_rel_err"] <= BN_STATS_REL and repeats and wrapper_equal):
+        raise SystemExit(f"bn_stats {dtype} at {label}: {line}")
+    return rec
+
+
+def bn_full_grad_exact(t, out, count, form, relu):
+    """The float64 input gradient of a training epilogue on `bn_inputs`
+    `t` whose statistics are its vectors (K18's plain version then K22's
+    on float64): (∂y, ∂skip or None)."""
+    f64 = lambda v: None if v is None else v.double()
+    code = BN_FORMS[form]
+    xd = f64(t["skip"]) if code == bn_ops.DOWNSAMPLE else None
+    skip_bn = None if t["skip_bn"] is None else tuple(map(f64, t["skip_bn"]))
+    w, _, mean, var = map(f64, t["bn"])
+    y = f64(t["y"])
+    d_y, d_skip, rows = bn_ops.bn_act_grad_plain(f64(t["g"]), y, f64(out), w, mean, var, code,
+                                                 xd, skip_bn, relu)
+    d_y = stats_ops.bn_stats_grad_plain(d_y, y, mean, rows[3], rows[4], count)
+    if xd is not None:
+        d_skip = stats_ops.bn_stats_grad_plain(d_skip, xd, skip_bn[2], rows[8], rows[9], count)
+    return d_y, d_skip
+
+
+def grad_errors(got, exact, scale):
+    """(max |got − exact| / max |exact|, relative L2) over the tensors of
+    `got`; where the exact gradient is 0 (a one-element batch, where the
+    statistics' term cancels K18's) relative to the tensors `scale`
+    (K18's outputs) instead."""
+    refs = [b for _, b in zip(got, exact)]
+    diffs = [a.double() - b for a, b in zip(got, refs)]
+    if not any(b.any() for b in refs):
+        refs = [t.double() for t in scale]
+    top = max(b.abs().max().item() for b in refs)
+    norm = sum(float(b.square().sum()) for b in refs)
+    return (max(d.abs().max().item() for d in diffs) / top,
+            (sum(float(d.square().sum()) for d in diffs) / norm) ** 0.5)
+
+
+def hold_bn_stats_grad(label, form, relu, n, c, h, w, dtype, gen, timed=True):
+    """K22 in `dtype` and `form` on K18's ∂y (and ∂skip) of a training
+    epilogue on `bn_inputs` whose mean and variance are K21's (so y's
+    own): bit for bit against its plain version, two launches (each on a
+    fresh copy of K18's outputs) bit-equal, the wrapper (`bn_stats_grad_`)
+    equal to the bare launch. The error of the whole input gradient
+    against float64 (`bn_full_grad_exact`) is printed for K18 + K22 and
+    for the composition the port ran before (autograd of var_mean on the
+    float32 y with K18's ∂mean and ∂var, cast to `dtype`, added to K18's
+    ∂y). Where `timed`: the bare launch in place (`ms`, `device_ms`), the
+    wrapper (`call_ms`), the plain version (`plain_ms`) and that
+    composition's var_mean backward and add (`library_ms`). One JSON
+    line; returns the record."""
+    t = bn_inputs(form, n, c, h, w, dtype, gen)
+    code = BN_FORMS[form]
+    count = n * h * w
+    t["bn"] = (*t["bn"][:2], *stats_ops.bn_batch_stats(t["y"]))
+    xd = t["skip"] if code == bn_ops.DOWNSAMPLE else None
+    if xd is not None:
+        t["skip_bn"] = (*t["skip_bn"][:2], *stats_ops.bn_batch_stats(xd))
+    wv, b, mean, var = t["bn"]
+    out = bn_ops.bn_act(t["y"], wv, b, mean, var, t["skip"], t["skip_bn"], relu)
+    d_y0, d_skip0, rows = bn_ops.bn_act_grad(t["g"], t["y"], out, wv, mean, var, code, xd,
+                                             t["skip_bn"], relu)
+    second = None if xd is None else (t["skip_bn"][2], rows[8], rows[9])
+    d_y, d_skip = d_y0.clone(), None if xd is None else d_skip0.clone()
+    kname = kernel_name("bn_stats_grad", dtype)
+    launch = bare_launch(kname, stats_ops.bn_stats_grad_args(
+        d_y, t["y"], mean, rows[3], rows[4], count,
+        None if xd is None else (d_skip, xd, *second)))
+    outputs = [d_y] + ([] if xd is None else [d_skip])
+
+    def fresh():
+        d_y.copy_(d_y0)
+        if d_skip is not None:
+            d_skip.copy_(d_skip0)
+
+    launch()
+    want = [stats_ops.bn_stats_grad_plain(d_y0, t["y"], mean, rows[3], rows[4], count)]
+    if xd is not None:
+        want.append(stats_ops.bn_stats_grad_plain(d_skip0, xd, *second, count))
+    same = all(torch.equal(bits(a), bits(z)) for a, z in zip(outputs, want))
+    err = max((a.float() - z.float()).abs().max().item() for a, z in zip(outputs, want))
+    first = [x.clone() for x in outputs]
+    fresh()
+    launch()
+    torch.cuda.synchronize()
+    repeats = all(torch.equal(bits(a), bits(z)) for a, z in zip(first, outputs))
+    got = [d_y0.clone()] + ([] if xd is None else [d_skip0.clone()])
+    stats_ops.bn_stats_grad_(got[0], t["y"], mean, rows[3], rows[4], count,
+                             None if xd is None else (got[1], xd, *second))
+    wrapper_equal = all(torch.equal(bits(a), bits(z)) for a, z in zip(got, first))
+    exact = bn_full_grad_exact(t, out, count, form, relu)
+    # The composition the port ran before: var_mean with grad on float32
+    # copies, its backward cast to the compute dtype and added.
+    ins = [t["y"]] + ([] if xd is None else [xd])
+    vectors = [(rows[3], rows[4])] + ([] if xd is None else [(rows[8], rows[9])])
+    leaves = [x.float().detach().requires_grad_() for x in ins]
+    graphs = [torch.var_mean(x, dim=(0, 2, 3), unbiased=False) for x in leaves]
+
+    def library():
+        return [k + torch.autograd.grad(graph, leaf, (d_var, d_mean), retain_graph=True)[0]
+                .to(dtype) for k, leaf, graph, (d_mean, d_var)
+                in zip((d_y0, d_skip0), leaves, graphs, vectors)]
+
+    k18 = [d_y0] + ([] if xd is None else [d_skip0])
+    rel_max, rel_l2 = grad_errors(first, exact, k18)
+    before_max, before_l2 = grad_errors(library(), exact, k18)
+    nbytes, ops = bn_stats_work(n, c, h * w, dtype.itemsize, grad=True, bns=len(outputs))
+    rec = {"max_abs_err": err, "max_rel_err": rel_max, "bytes": nbytes, "ops": ops,
+           "library_ms": None}
+    if timed:
+        rec.update(ms=time_ms(launch),
+                   device_ms=sum(device_us(launch, phase=f"{kname} at {label}").values()) / 1e3,
+                   call_ms=time_ms(lambda: stats_ops.bn_stats_grad_(
+                       d_y, t["y"], mean, rows[3], rows[4], count,
+                       None if xd is None else (d_skip, xd, *second))),
+                   plain_ms=time_ms(lambda: [stats_ops.bn_stats_grad_plain(
+                       d_y0, t["y"], mean, rows[3], rows[4], count)] + (
+                       [] if xd is None else [stats_ops.bn_stats_grad_plain(
+                           d_skip0, xd, *second, count)])),
+                   library_ms=time_ms(library))
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops)
+    extra = {"share": rec["bound_ms"] / rec["ms"]} if timed else {}
+    line = {"kernel": kname, "shape": label, "form": form, "relu": relu, "n": n, "c": c,
+            "h": h, "w": w, "bit_equal": same, "two_launches_bit_equal": repeats,
+            "wrapper_equal": wrapper_equal, "tolerance": "bit-equal",
+            "grad_vs_float64_max_rel": rel_max, "grad_vs_float64_rel_l2": rel_l2,
+            "before_vs_float64_max_rel": before_max, "before_vs_float64_rel_l2": before_l2,
+            **rec, **extra}
+    print(json.dumps(line))
+    if not (same and repeats and wrapper_equal):
+        raise SystemExit(f"bn_stats_grad {dtype} at {label}: {line}")
+    return rec
+
+
+def check_bn_stats():
+    """K21 (`hold_bn_stats`) at each of FeatureNet's 16 BN inputs
+    (`BN_INPUTS`) and K22 (`hold_bn_stats_grad`) at each of its 13 BN
+    epilogues (`BN_CALLS`) on a 640x512 training step's batch-4 x 5-view
+    fold, in float32 and bfloat16, then both at BN_EDGE_CASES. Returns
+    the per-step totals of both kernels in both dtypes (each shape times
+    its calls)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 10)
+    n, per_step = TRAIN_BATCH * TRAIN_VIEWS, {}
+    keys = ("ms", "device_ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bytes", "ops")
+    for dtype in (torch.float32, BF16):
+        plans = (("bn_stats", BN_INPUTS, 1,
+                  lambda c, s: hold_bn_stats(f"step_{c}x{s}", n, c, TRAIN_HEIGHT // s,
+                                             TRAIN_WIDTH // s, dtype, gen)),
+                 ("bn_stats_grad", BN_CALLS, 1,
+                  lambda form, c, s: hold_bn_stats_grad(
+                      f"step_{form}_{c}", form, True, n, c, TRAIN_HEIGHT // s,
+                      TRAIN_WIDTH // s, dtype, gen)))
+        for name, calls, launches, hold in plans:
+            tot = dict.fromkeys(keys, 0.0)
+            tot.update(max_abs_err=0.0, max_rel_err=0.0, launches=launches * len(calls))
+            for call in dict.fromkeys(calls):
+                k = calls.count(call)
+                rec = hold(*call)
+                for key in keys:
+                    tot[key] += k * rec[key]
+                for key in ("max_abs_err", "max_rel_err"):
+                    tot[key] = max(tot[key], rec[key])
+                torch.cuda.empty_cache()
+            per_step[kernel_name(name, dtype)] = tot
+        for label, form, relu, en, c, h, w in BN_EDGE_CASES:
+            hold_bn_stats(f"edge_{label}", en, c, h, w, dtype, gen, timed=False)
+            hold_bn_stats_grad(f"edge_{label}", form, relu, en, c, h, w, dtype, gen, timed=False)
+    print(json.dumps({"bn_stats_totals": {"per_step": per_step}}))
+    return per_step
+
+
 # FeatureNet's FPN top-down adds per image, in the order it runs them
 # (K19 launches; models/feature_net.py): (channels, the scale s of x's
 # H/s x W/s plane). fea3 at 1/8 goes up to 1/4, that sum up to 1/2.
@@ -2498,7 +2775,8 @@ SWEEP_KERNELS = (sweep_premul, corr_epilogue, sweep_grad_ref, sweep_grad_src)
 # source's kernels are named `<name>_...kernel<T>`, T telling the dtype.
 TEMPLATED = ("depth_readout_grad", "depth_readout", "sweep_taps", "convex_upsample_grad",
              "convex_upsample", "gru_update_grad", "gru_reset_grad", "gru_update", "gru_reset",
-             "bn_act_grad", "bn_act", "upsample2x_grad", "upsample2x_add")
+             "bn_act_grad", "bn_act", "upsample2x_grad", "upsample2x_add", "bn_stats_grad",
+             "bn_stats")
 # The float32-only kernels, longest name first (K11's is a prefix of K12's).
 F32_ONLY = ("view_aggregate_grad", "view_aggregate")
 
@@ -2600,10 +2878,11 @@ def device_time(fn):
 # The chains that the model runs under record_function labels
 # (models/itermvs.py, models/blocks.py): K6, K8, K9 and K11, one launch
 # per call each, K13 and K14 under `conv_gru`, two per GRU call, K17
-# under `bn_act`, one per BN epilogue, and K19 under `fpn_add`, one per
-# FPN add.
+# under `bn_act`, one per BN epilogue, K19 under `fpn_add`, one per FPN
+# add, and in training K21 under `bn_stats`, one per BN (its sum and
+# its fold: two kernels).
 CHAINS = ("depth_readout", "fused_sweep_taps", "convex_upsample", "view_aggregate",
-          "conv_gru", "bn_act", "fpn_add")
+          "conv_gru", "bn_act", "fpn_add", "bn_stats")
 
 
 def chain_time(events):
@@ -2645,8 +2924,10 @@ def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=F
     iteration) is K13 and K14 (`gru_work`); bn_act is K17's 13 launches
     per image (`bn_image_bytes`) and fpn_add K19's 2 (`up2_image_bytes`),
     over one image per map (the feature cache extracts each image once)
-    or the step's batch·views images. Their operations per byte are far
-    below the card's, so bytes bound all seven."""
+    or the step's batch·views images; bn_stats, in training only, K21's
+    one read of each of the step's images' 16 BN inputs
+    (`bn_stats_image_bytes`). Their operations per byte are far below the
+    card's, so bytes bound all eight."""
     p4 = batch * (height // 4) * (width // 4)
     p8 = batch * (height // 8) * (width // 8)
     sources = views - 1
@@ -2665,7 +2946,9 @@ def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=F
               "bn_act": (batch * views if train else batch)
               * bn_image_bytes(width, height, itemsize),
               "fpn_add": (batch * views if train else batch)
-              * up2_image_bytes(width, height, itemsize)}
+              * up2_image_bytes(width, height, itemsize),
+              "bn_stats": batch * views * bn_stats_image_bytes(width, height, itemsize)
+              if train else 0}
     return {k: 1e3 * v / PEAK_BYTES_PER_S for k, v in nbytes.items()}
 
 
@@ -2781,8 +3064,8 @@ def planned_step_counts(shapes, dtype, iteration=TRAIN_ITERATION):
     pair per sweep; K6, K7 and K8 once per prediction or sweep, 1 +
     iteration; K9 and K10 once; K11 and K12, float32 in both precisions,
     once per aggregation, 1 + 3·iteration; K13-K16 once per GRU call,
-    iteration; K17 and K18 13 times and K19 and K20 twice, FeatureNet's
-    one call over the batch's views)."""
+    iteration; K17, K18 and K22 13 times, K21 once per BN (16) and K19
+    and K20 twice, FeatureNet's one call over the batch's views)."""
     forward = sum(s[-1] for s in shapes)
     sweeps = sum(sweeps_of(shapes, dtype).values())
     aggregations = 1 + len(LEVELS) * iteration
@@ -2795,7 +3078,8 @@ def planned_step_counts(shapes, dtype, iteration=TRAIN_ITERATION):
         ("gru_update", iteration), ("gru_update_grad", iteration),
         ("gru_reset_grad", iteration), ("bn_act", len(BN_CALLS)),
         ("bn_act_grad", len(BN_CALLS)), ("upsample2x_add", len(FPN_CALLS)),
-        ("upsample2x_grad", len(FPN_CALLS)))})
+        ("upsample2x_grad", len(FPN_CALLS)), ("bn_stats", len(BN_INPUTS)),
+        ("bn_stats_grad", len(BN_CALLS)))})
 
 
 def capture_sweeps(model, batch, iteration):
@@ -2951,6 +3235,18 @@ def check_real_sweeps(captures, shapes, dtype, synthetic_ms=None):
     return out
 
 
+def var_mean_events(events):
+    """{name: calls} of the host ops and device kernels among `events` that
+    belong to torch.var_mean or its backward (BatchNorm's statistics
+    before K21 and K22: `aten::var_mean`, autograd's `VarMeanBackward0`,
+    the Welford reduction kernels)."""
+    found = {}
+    for e in events:
+        if "var_mean" in e.name or "VarMean" in e.name or "Welford" in e.name:
+            found[e.name[:90]] = found.get(e.name[:90], 0) + 1
+    return found
+
+
 def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
     """The training path at full width (see TRAIN_*) in `dtype`:
     TRAIN_STEPS steps on one batch from a fresh seeded init; the loss must
@@ -2993,6 +3289,7 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
     events = trace_events(
         lambda: train_step(model, optimizer, batch, TRAIN_LR, True, TRAIN_ITERATION))
     by_name, by_cat, busy_ms = device_summary(events)
+    rec["var_mean_events"] = var_mean_events(events)
     wall_ms = 1e3 * sorted(last)[len(last) // 2]
     if busy_ms:
         bounds = chain_bound_ms(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_ITERATION,
@@ -3001,6 +3298,12 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
             "device_busy_ms": busy_ms, "wall_ms_unprofiled_median": wall_ms,
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
             "kernels": sum(c for k, (c, _) in by_name.items() if _category(k) != "memcpy"),
+            # K21's and K22's device kernels (two per K21 launch: its sums
+            # and its fold), beside the launch plan's count per step.
+            "bn_stats_kernels": {cat: sum(c for k, (c, _) in by_name.items()
+                                          if _category(k) == cat)
+                                 for cat in (kernel_name("bn_stats", dtype),
+                                             kernel_name("bn_stats_grad", dtype))},
             "chains_forward": {k: dict(v, bound_ms=bounds[k])
                                for k, v in chain_time(events).items()},
             "by_category_ms": {k: v / 1e3 for k, v in
@@ -3030,6 +3333,8 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
         raise SystemExit(f"training loss did not fall: {losses}")
     if counts != planned:
         raise SystemExit(f"training launch counts {counts} != planned {planned}")
+    if rec["var_mean_events"]:
+        raise SystemExit(f"var_mean ran in the training step: {rec['var_mean_events']}")
     if copies != 0:
         raise SystemExit(f"K7's wrapper copied the probability's gradient {copies} times")
     if up2_copies != 0:
@@ -3167,7 +3472,7 @@ def run_steps(job, rank=0, world=1, device="cuda"):
     `state` (rank 0's, broadcast in a process group) with a new Adam;
     `job["val"]` adds one val step of the first run's model before its
     steps, `job["profile"]` one more step of each run under
-    torch.profiler after them (`device_time`: busy ms and ms by kind).
+    torch.profiler after them (busy ms, ms by kind and `var_mean_events`).
     Records per step: the loss, ms (host clock to a sync), the launch
     counts, the state_dict and the gradients after the step (on the
     host)."""
@@ -3201,10 +3506,12 @@ def run_steps(job, rank=0, world=1, device="cuda"):
                                     for k, p in model.named_parameters()}})
         out["runs"].append(steps)
         if job.get("profile"):
-            _, by_cat, busy = device_time(lambda: train_step(
+            events = trace_events(lambda: train_step(
                 model, optimizer, batch, job["lr"], run["regress"], job["iteration"]))
+            _, by_cat, busy = device_summary(events)
             out["profile"] = {"device_busy_ms": busy, "by_category_ms": {
-                k: v / 1e3 for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])}}
+                k: v / 1e3 for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])},
+                "var_mean_events": var_mean_events(events)}
     return out
 
 
@@ -3379,6 +3686,9 @@ def train_ddp_nccl():
         if any(s["launches"] != planned or s["copies"] for s in plain["runs"][0]):
             raise SystemExit(f"train_ddp_nccl: plain launches per step != {planned}, or "
                              f"K7's wrapper copied the probability's gradient")
+        if any(r["profile"]["var_mean_events"] for r in (plain, synced)):
+            raise SystemExit(f"train_ddp_nccl: var_mean ran in a profiled step: "
+                             f"{[r['profile']['var_mean_events'] for r in (plain, synced)]}")
         ms = {name: float(np.mean([s["ms"] for s in r["runs"][0][1:]]))
               for name, r in (("synced", synced), ("plain", plain))}
         extra = {"dtype": str(dtype), "ms_per_step_synced_bn_nccl": ms["synced"],
@@ -3925,10 +4235,11 @@ REPORT_PER_MAP = ("corr_epilogue", "sweep_premul", "depth_readout", "sweep_taps"
                   "gru_reset_bf16", "gru_update_bf16", "bn_act_bf16", "upsample2x_add_bf16")
 REPORT_PER_STEP = ("sweep_grad_ref", "sweep_grad_src", "depth_readout_grad",
                    "convex_upsample_grad", "view_aggregate_grad", "gru_update_grad",
-                   "gru_reset_grad", "bn_act_grad", "upsample2x_grad", "sweep_grad_ref_bf16",
-                   "sweep_grad_src_bf16", "depth_readout_grad_bf16",
-                   "convex_upsample_grad_bf16", "gru_update_grad_bf16", "gru_reset_grad_bf16",
-                   "bn_act_grad_bf16", "upsample2x_grad_bf16")
+                   "gru_reset_grad", "bn_act_grad", "upsample2x_grad", "bn_stats",
+                   "bn_stats_grad", "sweep_grad_ref_bf16", "sweep_grad_src_bf16",
+                   "depth_readout_grad_bf16", "convex_upsample_grad_bf16",
+                   "gru_update_grad_bf16", "gru_reset_grad_bf16", "bn_act_grad_bf16",
+                   "upsample2x_grad_bf16", "bn_stats_bf16", "bn_stats_grad_bf16")
 
 
 def kernel_sources():
@@ -3972,7 +4283,11 @@ def kernel_sources():
                "upsample2x_add": ("itermvs_tpu_torch/csrc/upsample2x_add.cu",
                                   "itermvs_tpu/models/feature_net.py:98"),
                "upsample2x_grad": ("itermvs_tpu_torch/csrc/upsample2x_grad.cu",
-                                   "itermvs_tpu/models/feature_net.py:98")}
+                                   "itermvs_tpu/models/feature_net.py:98"),
+               "bn_stats": ("itermvs_tpu_torch/csrc/bn_stats.cu",
+                            "itermvs_tpu/models/blocks.py:96"),
+               "bn_stats_grad": ("itermvs_tpu_torch/csrc/bn_stats_grad.cu",
+                                 "itermvs_tpu/models/blocks.py:96")}
     for name in ("corr_epilogue", "sweep_premul", "sweep_grad_ref", "sweep_grad_src"):
         source, replaces = sources[name]
         sources[f"{name}_bf16"] = (source.replace(".cu", "_bf16.cu"), replaces)
@@ -4020,6 +4335,8 @@ def main():
     # K17 at FeatureNet's BN calls on a map's image, K17/K18 on a step's.
     bn_map, bn_step = check_bn_act()
     per_map.update(bn_map)
+    # K21 and K22 at FeatureNet's BN inputs and epilogues on a step's images.
+    bn_stats_step = check_bn_stats()
     # K19 at FeatureNet's FPN adds on a map's image, K19/K20 on a step's.
     up2_map, up2_step = check_upsample2x()
     per_map.update(up2_map)
@@ -4149,7 +4466,9 @@ def main():
                                                         "gru_update_grad_bf16",
                                                         "gru_reset_grad_bf16",
                                                         "bn_act_grad_bf16",
-                                                        "upsample2x_grad_bf16")})
+                                                        "upsample2x_grad_bf16",
+                                                        "bn_stats_bf16",
+                                                        "bn_stats_grad_bf16")})
 
     # Data-parallel training (two gloo ranks on the card; one NCCL rank in
     # bf16), then --debug_nans on one depth map.
@@ -4192,6 +4511,7 @@ def main():
     per_step.update(gru_step)
     per_step.update(bn_step)
     per_step.update(up2_step)
+    per_step.update(bn_stats_step)
     for name in REPORT_PER_STEP:
         tot = per_step[name]
         t_bytes, t_ops = tot["bytes"] / PEAK_BYTES_PER_S, tot["ops"] / PEAK_F32_PER_S

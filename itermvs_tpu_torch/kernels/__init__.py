@@ -34,14 +34,15 @@ SOURCES = ("corr_epilogue", "sweep_premul", "fusion_consistency", "sweep_grad_re
            "depth_readout_grad", "sweep_taps", "convex_upsample", "convex_upsample_grad",
            "view_aggregate", "view_aggregate_grad", "gru_reset", "gru_update",
            "gru_update_grad", "gru_reset_grad", "bn_act", "bn_act_grad", "upsample2x_add",
-           "upsample2x_grad")
+           "upsample2x_grad", "bn_stats", "bn_stats_grad")
 # No --use_fast_math: fusion_consistency needs IEEE divides and sqrt.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C signatures of the exported launchers: kernel -> (symbol, argtypes[,
 # source]); every launcher returns an int (cudaGetLastError()).
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_P, _I, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                      ctypes.c_double)
 SIGNATURES = {
     "corr_epilogue": ("itermvs_corr_epilogue", (_P, _P, _L, _I, _I, _P)),
     "sweep_premul": ("itermvs_sweep_premul",
@@ -109,6 +110,14 @@ SIGNATURES = {
     "upsample2x_grad": ("itermvs_upsample2x_grad", (_P, _P, _L, _I, _I, _P)),
     "upsample2x_grad_bf16": ("itermvs_upsample2x_grad_bf16", (_P, _P, _L, _I, _I, _P),
                              "upsample2x_grad"),
+    "bn_stats": ("itermvs_bn_stats", (_P, _P, _I, _P, _I, _I, _L, _I, _D, _P)),
+    "bn_stats_bf16": ("itermvs_bn_stats_bf16", (_P, _P, _I, _P, _I, _I, _L, _I, _D, _P),
+                      "bn_stats"),
+    "bn_stats_grad": ("itermvs_bn_stats_grad", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I,
+                                                _I, _L, _P)),
+    "bn_stats_grad_bf16": ("itermvs_bn_stats_grad_bf16",
+                           (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _L, _P),
+                           "bn_stats_grad"),
     # Not a kernel: 1 where K10's kernels are programmatic dependent launches.
     "convex_upsample_grad_programmatic": ("itermvs_convex_upsample_grad_programmatic", (),
                                           "convex_upsample_grad"),

@@ -17,9 +17,14 @@ statistics and normalisation in float32 and returns the compute dtype
 
 The BN normalise, the ReLU and the residual add after a convolution run
 as one launch of K17 `bn_act` (ops/bn_act.py, label `bn_act`), in
-training with K18 `bn_act_grad` as its backward.
+training with K18 `bn_act_grad` as its backward. In training each BN's
+batch statistics are one launch of K21 `bn_stats` (ops/bn_stats.py,
+label `bn_stats`) and their term of the input gradient one launch of K22
+`bn_stats_grad` per epilogue, after K18 (`bn_train`).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn as nn
@@ -27,6 +32,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from itermvs_tpu_torch.ops.bn_act import bn_act
+from itermvs_tpu_torch.ops.bn_stats import bn_batch_stats, bn_sums, bn_train
 from itermvs_tpu_torch.ops.conv_gru import gru_reset, gru_update
 from itermvs_tpu_torch.parallel.mesh import all_reduce_sum, is_initialized
 
@@ -83,17 +89,17 @@ class BatchNorm(nn.BatchNorm2d):
     Statistics, their update and the normalisation run in float32
     whatever the input's dtype; the output is `dtype`.
 
-    `statistics` gives the (weight, bias, mean, var) that normalise a
-    batch, which K17 `bn_act` consumes (`forward`, and the blocks below
-    with their ReLU and residual add): in eval the running statistics, in
-    training the batch's from `torch.var_mean`, differentiable, so that
-    autograd carries K18's ∂mean and ∂var back to the input. In a process
+    `statistics` gives the `Stats` that normalise a batch, which K17
+    `bn_act` consumes (`forward`, and the blocks below with their ReLU
+    and residual add, through `epilogue`): in eval the running
+    statistics, in training the batch's from K21 (`bn_batch_stats`, label
+    `bn_stats`) with their count, not differentiated: `bn_train`'s
+    backward adds their term of the input gradient (K22). In a process
     group (parallel/mesh.py) a training batch is the global batch, as in
-    the JAX step over a sharded batch: `_global_statistics` sums count and
-    channel sums over the ranks for the mean, then the squared deviations
-    from it for the biased variance (two passes: at these counts
-    E[x²]−E[x]² in float32 loses the variance), through a differentiable
-    all-reduce, so the gradient carries the cross-rank term."""
+    the JAX step over a sharded batch: `_global_statistics` merges each
+    rank's one-read sums by Chan's rule (not E[x²]−E[x]², which at these
+    counts loses the variance in float32), and the backward sums ∂mean
+    and ∂var over the ranks."""
 
     def __init__(self, num_features: int, dtype: torch.dtype = torch.float32):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -105,32 +111,59 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.mul_(0.9).add_(0.1 * var)
             self.num_batches_tracked.add_(1)
 
-    def _global_statistics(self, x):
-        c = x.shape[1]
-        local = torch.cat([x.sum(dim=(0, 2, 3)), x.new_full((1,), x.numel() // c)])
-        total = all_reduce_sum(local)
-        count = total[c]
+    @staticmethod
+    def _global_statistics(x):
+        """(mean, var, count) of x over the process group, float32, count a
+        tensor [1]: each rank's n, Σx and Σ(x − x̄)² about its own mean
+        x̄ (one launch of K21, float64), then Σx and n summed over the
+        ranks for the mean, then Σ(x − x̄)² + n·(x̄ − mean)² for the
+        squares about it, in float64 (in float32 the rounding of x̄ would
+        enter the variance at first order)."""
+        c, n = x.shape[1], x.numel() // x.shape[1]
+        s, q = bn_sums(x)
+        total = all_reduce_sum(torch.cat([s, s.new_full((1,), n)]))
+        count = total[c:]
         mean = total[:c] / count
-        var = all_reduce_sum((x - mean.view(1, c, 1, 1)).square().sum(dim=(0, 2, 3))) / count
-        return mean, var
+        var = all_reduce_sum(q + n * (s / n - mean).square()) / count
+        return mean.float(), var.float(), count.float()
 
-    def statistics(self, x):
-        """(weight, bias, mean, var), float32 [C], that normalise `x` in
-        this mode; in training also moves the running statistics."""
+    def statistics(self, x) -> Stats:
+        """The `Stats` that normalise `x` in this mode; in training also
+        moves the running statistics."""
         if not self.training:
-            return self.weight, self.bias, self.running_mean, self.running_var
-        x = x.float()
-        if is_initialized():
-            mean, var = self._global_statistics(x)
-        else:
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-        self._update_running(mean.detach(), var.detach())
-        return self.weight, self.bias, mean, var
+            return Stats(self.weight, self.bias, self.running_mean, self.running_var)
+        with record_function("bn_stats"):
+            if is_initialized():
+                mean, var, count = self._global_statistics(x)
+            else:
+                (mean, var), count = bn_batch_stats(x), x.numel() // x.shape[1]
+        self._update_running(mean, var)
+        return Stats(self.weight, self.bias, mean, var, count)
 
     def forward(self, x):
-        stats = self.statistics(x)
-        with record_function("bn_act"):
-            return bn_act(x.to(self.compute_dtype), *stats, relu=False)
+        return epilogue(x.to(self.compute_dtype), self.statistics(x), relu=False)
+
+
+class Stats(NamedTuple):
+    """A BatchNorm's (weight, bias, mean, var), float32 [C], and in
+    training the batch statistics' element count per channel (an int, or
+    the process group's as a float32 tensor [1]); None in eval."""
+    w: torch.Tensor
+    b: torch.Tensor
+    mean: torch.Tensor
+    var: torch.Tensor
+    count: int | torch.Tensor | None = None
+
+
+def epilogue(y, stats: Stats, skip=None, skip_stats: Stats | None = None, relu=True):
+    """K17 on y with its BN's `stats` (and the identity `skip`, or the
+    downsample's output `skip` with its BN's `skip_stats`), under the
+    label `bn_act`: `bn_act` in eval, `bn_train` on batch statistics."""
+    skip_bn = None if skip_stats is None else tuple(skip_stats[:4])
+    with record_function("bn_act"):
+        if stats.count is None:
+            return bn_act(y, *stats[:4], skip=skip, skip_bn=skip_bn, relu=relu)
+        return bn_train(y, *stats[:4], stats.count, skip=skip, skip_bn=skip_bn, relu=relu)
 
 
 class ConvBn(nn.Module):
@@ -151,9 +184,7 @@ class ConvBn(nn.Module):
 
 class ConvBnReLU(ConvBn):
     def forward(self, x):
-        y, stats = self.conv_statistics(x)
-        with record_function("bn_act"):
-            return bn_act(y, *stats)
+        return epilogue(*self.conv_statistics(x))
 
 
 class ConvReLU(nn.Module):
@@ -181,11 +212,8 @@ class ResidualBlock(nn.Module):
     def forward(self, x):
         y, stats = self.conv2.conv_statistics(self.conv1(x))
         if self.downsample is None:
-            with record_function("bn_act"):
-                return bn_act(y, *stats, skip=x)
-        xd, skip_stats = self.downsample.conv_statistics(x)
-        with record_function("bn_act"):
-            return bn_act(y, *stats, skip=xd, skip_bn=skip_stats)
+            return epilogue(y, stats, skip=x)
+        return epilogue(y, stats, *self.downsample.conv_statistics(x))
 
 
 class ConvGRU(nn.Module):

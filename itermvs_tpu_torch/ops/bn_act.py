@@ -3,7 +3,10 @@ per convolution, of flax's BatchNorm normalise, the cast to the compute
 dtype, the ReLU and the residual add at itermvs_tpu/models/blocks.py:90-120
 and :152-165), and kernels K17 `bn_act` and its backward K18
 `bn_act_grad`. The convolutions stay in cuDNN; the statistics are the
-caller's (models/blocks.py `BatchNorm.statistics`).
+caller's (models/blocks.py `BatchNorm.statistics`): the running
+statistics in eval, the batch's from K21 `bn_stats` in training, where
+ops/bn_stats.py's `bn_train` runs K17 and K18 and adds the statistics'
+term of ∂y with K22 `bn_stats_grad`.
 
 For a convolution's output y [N, C, H, W] in the compute dtype and one
 BatchNorm's per-channel float32 vectors w, b, mean, var:
@@ -20,8 +23,9 @@ xd), and returns ∂y = g'·mul and ∂skip (g', or g'·mul' in form c) in the
 compute dtype, and per channel, in float32, five rows per BN: the sums
 s1 = Σg' (∂b) and s2 = Σg'·(y − mean) (xd and mean' for the second BN),
 then ∂w = s2·rstd, ∂mean = −s1·mul and ∂var = −s2·w·rstd³/2 (rstd =
-rsqrt(var + 1e-5)), which `BnAct.backward` hands to autograd; it
-carries ∂mean and ∂var on through the statistics.
+rsqrt(var + 1e-5)). `BnAct.backward` hands ∂w and ∂b to autograd (and
+∂mean, ∂var, for statistics that autograd differentiates); ops/bn_stats.py's
+`BnTrain` feeds ∂mean and ∂var to K22.
 
 On a CUDA tensor the wrappers launch the hand-written kernels
 (csrc/bn_act.cu, csrc/bn_act_grad.cu, sharing csrc/bn_act.cuh) or raise;

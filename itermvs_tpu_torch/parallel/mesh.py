@@ -106,25 +106,14 @@ def local_device(kind: str = "cuda") -> torch.device:
     return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
 
 
-class _AllReduceSum(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad)
-        return grad
-
-
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum of `x` over the process group, differentiable: the gradient of
-    each rank's input is the sum of the gradients of every rank's output,
-    which is what a global-batch statistic's cross-rank term needs."""
-    return _AllReduceSum.apply(x)
+    """Sum of `x` over the process group, as a new tensor. Not
+    differentiated: its callers sum statistics, counts and scalars that
+    take no gradient (BatchNorm's backward sums its own terms over the
+    group, ops/bn_act.py `BnTrain`)."""
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out)
+    return out
 
 
 def all_reduce_grads_(params) -> None:

@@ -11,9 +11,10 @@ the 5 depth maps of chip_smoke's 1600x1152 scene in float32 and bfloat16
 busy ms, idle share, kernels and device ms by kind per map, the labelled
 chains), then `chip_smoke.train_full_width` in both dtypes (ms per step,
 one profiled step by kind), then one more profiled training step per
-dtype with the host ops' shapes, listing PyTorch's bilinear resizes left
-in it (aten::upsample_bilinear2d* by input shapes, and their device
-kernels). Each run's whole output goes to
+dtype with the host ops' shapes, listing PyTorch's bilinear resizes and
+var_mean calls left in it (host ops and autograd nodes holding
+`upsample_bilinear2d`, `var_mean` or `VarMean` by input shapes, and
+their device kernels, Welford reductions included). Each run's whole output goes to
 `DIR/ab_profile_<run>_<tree>.log` (by default `_export/ab_profile/`);
 the summary lines print here. A tree needs chip_smoke's `profile_maps`,
 `train_full_width` and `render_scene`.
@@ -78,15 +79,16 @@ for dt in (torch.float32, torch.bfloat16):
         torch.cuda.synchronize()
     host, device = {}, {}
     for e in prof.events():
-        if "upsample_bilinear2d" not in e.name:
+        if not any(k in e.name for k in ("upsample_bilinear2d", "var_mean", "VarMean",
+                                         "Welford")):
             continue
         if e.device_type == torch.autograd.DeviceType.CUDA:
             calls, us = device.get(e.name[:90], (0, 0.0))
             device[e.name[:90]] = (calls + 1, us + e.time_range.elapsed_us())
-        elif e.name.startswith("aten::"):
+        elif e.name.startswith(("aten::", "autograd::")):
             key = f"{e.name} {e.input_shapes}"
             host[key] = host.get(key, 0) + 1
-    print(json.dumps({"bilinear_step": str(dt), "host": host,
+    print(json.dumps({"listed_step": str(dt), "host": host,
                       "device": {k: {"calls": n, "device_ms": us / 1e3}
                                  for k, (n, us) in device.items()}}))
     del model, opt
@@ -100,7 +102,7 @@ def summary(line):
         rec = json.loads(line)
     except ValueError:
         return None
-    if "maps_per_s" in rec or "bilinear_step" in rec:
+    if "maps_per_s" in rec or "listed_step" in rec:
         return rec
     if "profile_maps" in rec:
         return {k: rec[k] for k in ("dtype", "device_busy_ms_per_map", "device_idle_share",
@@ -110,7 +112,7 @@ def summary(line):
         t = rec["train"]
         prof = t["profile_step"] if isinstance(t["profile_step"], dict) else {}
         return {"train": t["dtype"], "ms_per_step_last5": t["ms_per_step_last5"],
-                "peak_mem_gib": t["peak_mem_gib"],
+                "peak_mem_gib": t["peak_mem_gib"], "var_mean_events": t.get("var_mean_events"),
                 **{k: prof.get(k) for k in ("device_busy_ms", "device_idle_share", "kernels",
                                             "chains_forward", "by_category_ms")}}
     return None

@@ -238,22 +238,23 @@ def test_bf16_plans_launch_as_many_kernels():
 
 
 def test_launch_counts_name_all_nine_kernels():
-    """All thirty-seven report names since K6-K20 joined the nine: the
+    """All forty-one report names since K6-K22 joined the nine: the
     sweep and fusion kernels, the depth readout forward and backward, the
     sweep taps, the convex upsample forward and backward, the ConvGRU's
-    gates forward and backward, the BN epilogue forward and backward and
-    the FPN add forward and backward, each but fusion_consistency in both
-    dtypes, and the view aggregation forward and backward (float32
-    only)."""
+    gates forward and backward, the BN epilogue forward and backward, the
+    FPN add forward and backward and BN's training statistics forward and
+    backward, each but fusion_consistency in both dtypes, and the view
+    aggregation forward and backward (float32 only)."""
     chip_smoke.reset_launch_counts()
     counts = chip_smoke.launch_counts()
-    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 37
+    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 41
     assert {"depth_readout", "depth_readout_grad_bf16", "sweep_taps_bf16", "convex_upsample",
             "convex_upsample_grad_bf16", "view_aggregate", "view_aggregate_grad",
             "gru_reset", "gru_update", "gru_update_grad", "gru_reset_grad", "gru_reset_bf16",
             "gru_update_bf16", "gru_update_grad_bf16", "gru_reset_grad_bf16", "bn_act",
             "bn_act_grad", "bn_act_bf16", "bn_act_grad_bf16", "upsample2x_add",
-            "upsample2x_grad", "upsample2x_add_bf16", "upsample2x_grad_bf16"} <= set(counts)
+            "upsample2x_grad", "upsample2x_add_bf16", "upsample2x_grad_bf16", "bn_stats",
+            "bn_stats_grad", "bn_stats_bf16", "bn_stats_grad_bf16"} <= set(counts)
     assert not {"view_aggregate_bf16", "view_aggregate_grad_bf16"} & set(counts)
     assert counts == chip_smoke.planned_counts()
     assert chip_smoke.planned_counts(sweep_premul_bf16=3)["sweep_premul_bf16"] == 3
@@ -442,8 +443,9 @@ def test_ddp_plan_is_52_launches_per_rank_per_step():
     """52 of each sweep kernel, 5 (one per prediction, one per sweep)
     of K6, K7 and K8, one of K9 and K10, 13 (one per aggregation) of
     K11 and K12, float32 in both precisions, 4 (one per GRU call) of
-    K13-K16, 13 (one per BN epilogue) of K17 and K18 and 2 (one per FPN
-    add) of K19 and K20, per rank per step."""
+    K13-K16, 13 (one per BN epilogue) of K17, K18 and K22, 16 (one per
+    BN) of K21 and 2 (one per FPN add) of K19 and K20, per rank per
+    step."""
     for dtype in (torch.float32, torch.bfloat16):
         shapes = chip_smoke.sweep_shapes(640, 512, 5, 4, 2, itemsize=dtype.itemsize)
         plan = chip_smoke.planned_step_counts(shapes, dtype)
@@ -463,6 +465,9 @@ def test_ddp_plan_is_52_launches_per_rank_per_step():
                                                  **{k: 4 for k in gru},
                                                  **{k: 13 for k in bn},
                                                  **{k: 2 for k in fpn},
+                                                 **{chip_smoke.kernel_name("bn_stats", dtype): 16,
+                                                    chip_smoke.kernel_name("bn_stats_grad",
+                                                                           dtype): 13},
                                                  view_aggregate=13, view_aggregate_grad=13)
 
 
@@ -754,7 +759,8 @@ def test_chain_time_takes_the_kernels_inside_each_labelled_range():
                       "view_aggregate": {"device_ms": 0.0, "launches": 0},
                       "conv_gru": {"device_ms": 0.0, "launches": 0},
                       "bn_act": {"device_ms": 0.0, "launches": 0},
-                      "fpn_add": {"device_ms": 0.0, "launches": 0}}
+                      "fpn_add": {"device_ms": 0.0, "launches": 0},
+                      "bn_stats": {"device_ms": 0.0, "launches": 0}}
     by_name, by_cat, busy = chip_smoke.device_summary(events)
     assert "fused_sweep_taps" not in by_name and "depth_readout" not in by_name
     assert busy == pytest.approx((10 + 8 + 1 + 29 + 9 + 5) / 1e3)
@@ -777,6 +783,24 @@ def test_chain_bounds_count_each_input_and_output_once():
         1e3 * 4 * p4 * 4 * (32 + 43 + 43 + 4 * 32) / chip_smoke.PEAK_BYTES_PER_S)
     assert train["conv_gru"] == pytest.approx(
         1e3 * 4 * 4 * 128 * 160 * 2 * (32 + 43 + 43 + 4 * 32) / chip_smoke.PEAK_BYTES_PER_S)
+
+
+def test_bn_stats_work_reads_y_once():
+    """K21's bound counts one read of y and the two vectors it writes
+    (its mean and variance need one pass); K22's reads ∂y and y and
+    writes ∂y per BN. Over a training step's 20 images at 640x512 K21
+    reads 273.6 M elements, and the `bn_stats` chain's bound is theirs."""
+    n, c, p = 3, 5, 7 * 9
+    e = n * c * p
+    assert chip_smoke.bn_stats_work(n, c, p, 4) == (4 * e + 8 * c, 4 * e)
+    assert chip_smoke.bn_stats_work(n, c, p, 2, grad=True, bns=2) == (
+        2 * (3 * 2 * e + 12 * c), 2 * 4 * e)
+    elements = 20 * sum(ch * (512 // s) * (640 // s) for ch, s in chip_smoke.BN_INPUTS)
+    assert elements == 273_612_800
+    step = chip_smoke.chain_bound_ms(640, 512, 5, 4, 4, train=True)["bn_stats"]
+    assert step == pytest.approx(1e3 * (4 * elements + 20 * 8 * sum(
+        ch for ch, _ in chip_smoke.BN_INPUTS)) / chip_smoke.PEAK_BYTES_PER_S)
+    assert chip_smoke.chain_bound_ms(1600, 1152, 5, 4)["bn_stats"] == 0
 
 
 def test_gru_plans_launch_k13_to_k16_once_per_gru_call():
@@ -1004,7 +1028,8 @@ def test_dryrun_plan_per_rank_per_step():
     """The dry run's step on one rank (64x96, 3 views, 2 iterations, batch
     1): 2 + 2·2·3 = 14 launches of each sweep kernel, forward and
     backward, 3 of K6, K7 and K8, one of K9 and K10, 1 + 3·2 = 7 of K11
-    and K12, 2 of K13-K16, 13 of K17 and K18, 2 of K19 and K20."""
+    and K12, 2 of K13-K16, 13 of K17, K18 and K22, 16 of K21, 2 of K19 and
+    K20."""
     shapes = chip_smoke.sweep_shapes(port_entry.DRYRUN_WIDTH, port_entry.DRYRUN_HEIGHT,
                                      port_entry.DRYRUN_VIEWS, port_entry.DRYRUN_ITERATION)
     plan = chip_smoke.planned_step_counts(shapes, torch.float32,
@@ -1014,7 +1039,7 @@ def test_dryrun_plan_per_rank_per_step():
         depth_readout=3, depth_readout_grad=3, sweep_taps=3, convex_upsample=1,
         convex_upsample_grad=1, view_aggregate=7, view_aggregate_grad=7, gru_reset=2,
         gru_update=2, gru_update_grad=2, gru_reset_grad=2, bn_act=13, bn_act_grad=13,
-        upsample2x_add=2, upsample2x_grad=2)
+        upsample2x_add=2, upsample2x_grad=2, bn_stats=16, bn_stats_grad=13)
 
 
 def test_largest_patch_finds_the_biggest_connected_block():
@@ -1192,21 +1217,29 @@ def test_device_us_takes_one_more_capture_then_raises(monkeypatch):
 def test_bn_calls_are_featurenets_bn_epilogues(monkeypatch):
     """BN_CALLS lists the K17 calls of one FeatureNet image in order:
     their form, channels and plane scale, recorded from the port's
-    FeatureNet on the CPU (train mode: every BN takes batch statistics)."""
+    FeatureNet on the CPU (train mode: every BN takes batch statistics,
+    and the epilogues go through `bn_train`); BN_INPUTS lists the inputs
+    whose statistics K21 takes, in the same order."""
     from itermvs_tpu_torch.models import blocks
     from itermvs_tpu_torch.models.feature_net import FeatureNet
 
-    seen = []
-    plain = blocks.bn_act
+    seen, inputs = [], []
+    plain, stats = blocks.bn_train, blocks.bn_batch_stats
 
     def record(y, *args, skip=None, skip_bn=None, relu=True):
         form = "plain" if skip is None else "residual" if skip_bn is None else "downsample"
         seen.append((form, y.shape[1], 64 // y.shape[2], relu))
         return plain(y, *args, skip=skip, skip_bn=skip_bn, relu=relu)
 
-    monkeypatch.setattr(blocks, "bn_act", record)
+    def record_stats(y):
+        inputs.append((y.shape[1], 64 // y.shape[2]))
+        return stats(y)
+
+    monkeypatch.setattr(blocks, "bn_train", record)
+    monkeypatch.setattr(blocks, "bn_batch_stats", record_stats)
     FeatureNet().train()(torch.zeros(1, 3, 64, 96))
     assert seen == [(*call, True) for call in chip_smoke.BN_CALLS]
+    assert inputs == list(chip_smoke.BN_INPUTS) and len(inputs) == 16
 
 
 def test_bn_work_counts_each_input_and_output_once():
