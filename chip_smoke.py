@@ -80,7 +80,18 @@
    unit in the last place of the float64 sum of the same terms, two
    launches bit-equal; bare ms, device ms, bound and share, the plain
    version's ms and the library's (F.interpolate + add; F.interpolate's
-   autograd backward).
+   autograd backward). Then `check_full_loss`: the training loss K23
+   full_loss (one read of each probability: every term's sum and count)
+   and its backward K24 full_loss_grad (the dense ∂p K7 reads, the
+   depths' and logits' gradients) at the training step's loss (batch 4,
+   128x160, level 0 512x640, 5 predictions) with planted edges (GT bins
+   0 and 255, argmaxes 4 and 5 bins off, p at and below 1e-5 at the GT
+   bin, |δ| = 0 with a logit of 0, NaN and infinite bins), on one real
+   step's outputs, then at LOSS_EDGE_CASES (stage 1, an empty mask,
+   7x9, one and sixteen predictions): K23's sums within 1e-6 of float64,
+   its counts, GT bins, argmax windows and argmaxes exact, K24 within
+   1e-6 of float64's max, two launches of each bit-equal; bare ms,
+   device ms, bound and share, the eager loss's forward and backward ms.
 4. Runs the port's eval core loop (`itermvs_tpu_torch.eval.run_depth`)
    with the vendored DTU weights and the feature cache on a 5-view
    textured-plane scene made in memory at 1600x1152, one depth map per
@@ -138,12 +149,13 @@
    fall, and each of the four sweep kernels must launch 52 times per
    step, K6, K7 and K8 5 times each, K9 and K10 once, K11 and K12 13
    times each, K13-K16 4 times each, K17, K18 and K22 13 times each,
-   K21 16 times, K19 and K20 twice each, no var_mean op or kernel may
-   run in the profiled step, and K7's and K20's wrappers must copy no
-   gradient (K7 reads the loss's in place; so in step 10 too), and the
-   layout of each
-   one K7 and K20 get is printed (`prob_grad_layouts`,
-   `fpn_grad_layouts`); ms per step, steps/s, peak memory and one
+   K21 16 times, K19 and K20 twice each, K23 and K24 once, no var_mean
+   op or kernel and no gather or argmax of the eager loss may run in the
+   profiled step, K23's wrapper must copy no input and K7's and K20's
+   no gradient (K7 reads K24's dense ∂p in place; so in steps 10 and 11
+   too, `hold_loss_path`), and the layout of each one K7 and K20 get is
+   printed (`prob_grad_layouts`, `fpn_grad_layouts`; K7's all dense);
+   ms per step, steps/s, peak memory and one
    profiled step's device time by kind, idle share and the labelled
    chains' forward device time and launches; then a validation step and a
    checkpoint saved and restored on the card; then the backward kernels
@@ -272,6 +284,7 @@ from itermvs_tpu_torch.models.itermvs import (
 from itermvs_tpu_torch.ops import bn_act as bn_ops
 from itermvs_tpu_torch.ops import bn_stats as stats_ops
 from itermvs_tpu_torch.ops import conv_gru
+from itermvs_tpu_torch.ops import full_loss as full_loss_ops
 from itermvs_tpu_torch.ops import resize as resize_ops
 from itermvs_tpu_torch.ops.consistency import (
     MAX_SOURCES, consistency, consistency_plain, launch_consistency, record)
@@ -2346,6 +2359,290 @@ def check_upsample2x():
     return per_map, per_step
 
 
+# ------------------------------------------------------------- the loss
+# K23's sums against the plain forward evaluated in float64 (relative, per
+# term: each pixel's term is float32 in K23, its float64 value in the
+# reference, from the same float32 normalisation and decisions); K24's
+# outputs against its plain formula in float64 (relative to each output's
+# largest element).
+LOSS_SUM_REL, LOSS_GRAD_REL = 1e-6, 1e-6
+# K23/K24 beside the training step's shapes: (label, batch, h, w,
+# predictions, regress, empty mask, upstream gradient). 7x9 takes K24's
+# one-pixel stores (H·W not a multiple of 4); 16 predictions fill the
+# kernels' pointer arrays.
+LOSS_EDGE_CASES = (("stage1", TRAIN_BATCH, 128, 160, 1 + TRAIN_ITERATION, False, False, 1.0),
+                   ("empty_mask", 2, 16, 20, 3, True, True, 1.0),
+                   ("odd_7x9", 3, 7, 9, 2, True, False, 0.37),
+                   ("one_prediction", 1, 8, 12, 1, True, False, -2.0),
+                   ("sixteen", 2, 4, 8, 16, True, False, 1.0))
+# Operations per (pixel, prediction) of each kernel besides its per-bin
+# work (the normalisations, the terms, their gradients), per level-0
+# pixel, and per bin (K23: a clamp and a comparison; K24: a select).
+LOSS_OPS_PER_PIXEL, LOSS_OPS_PER_PIXEL0, LOSS_OPS_PER_BIN = 40, 20, 2
+
+
+def loss_work(n, pixels, pixels0, regress, grad=False):
+    """(bytes, operations) of K23 (or K24, `grad`) for n predictions over
+    `pixels` level-2 and `pixels0` level-0 pixels: each input read once,
+    each output written once. K23 reads every bin of each probability in
+    stage 2 and only the GT bin's in stage 1, the level-2 GT, mask and
+    initial depth, each combine and confidence (stage 2), the level-0
+    GT, mask and upsampled depth, and writes p at the GT bin and the
+    flags (its sums are a few bytes); K24 reads those (not the
+    probabilities) and writes the dense ∂p, ∂initial, each ∂combine and
+    ∂confidence, and ∂up."""
+    per = n if regress else 0
+    level = 12 * pixels + 8 * per * pixels + 12 * pixels0
+    saved = 4 * n * pixels + (n + 1) * pixels
+    bins = NUM_BINS if regress or grad else 1
+    if grad:
+        nbytes = level + saved + 4 * NUM_BINS * n * pixels + 4 * (1 + 2 * per) * pixels
+        nbytes += 4 * pixels0
+    else:
+        nbytes = level + saved + 4 * bins * n * pixels
+    ops = LOSS_OPS_PER_BIN * bins * n * pixels
+    return nbytes, ops + LOSS_OPS_PER_PIXEL * n * pixels + LOSS_OPS_PER_PIXEL0 * pixels0
+
+
+def inputs_work(inp, regress, grad=False):
+    """`loss_work` of `LossInputs`."""
+    return loss_work(len(inp.probs), inp.gt2.numel(), inp.gt0.numel(), regress, grad)
+
+
+def loss_case(b, h, w, n, gen, regress=True, empty=False, dev="cuda"):
+    """models/losses.py's arguments as the model hands them (each
+    probability a [B, H, W, 256] view of NCHW storage, the depths and
+    logits [B, H, W, 1] views of [B, 1, H, W]), seeded, depth range about
+    2..12 per image, with, on image 0's first row (where it is 9 wide):
+    GT bins 0 and 255, argmaxes at GT + 4, − 4, + 5, − 5, p at the GT
+    bin below 1e-5 and exactly 1e-5, a combine equal to its GT (|δ| = 0)
+    with a confidence logit of exactly 0, and (where 11 wide) a NaN bin
+    and a column with +inf and −inf bins; where `empty`, no valid pixel
+    at level 2."""
+    u = lambda *s: torch.rand(*s, device=dev, generator=gen)
+    dmin, dmax = 2.0 + u(b), 10.0 + 2.0 * u(b)
+    lo, hi = (0.9 * dmin).view(b, 1, 1), (1.1 * dmax).view(b, 1, 1)
+    gt2 = lo + u(b, h, w) * (hi - lo)
+    m2 = (u(b, h, w) > 0.25).float()
+    gt0 = lo + u(b, 4 * h, 4 * w) * (hi - lo)
+    m0 = (u(b, 4 * h, 4 * w) > 0.25).float()
+    logits = 3.0 * u(n, b, NUM_BINS, h, w)
+    combine = lo[None] + u(n, b, h, w) * (hi - lo)[None]
+    conf = 4.0 * u(n, b, h, w) - 2.0
+    plant = w >= 9
+    if plant:
+        gt2[0, 0, :2] = torch.stack([1.5 * dmax[0], 0.7 * dmin[0]])
+        gt2[0, 0, 2:9] = torch.linspace(1.5, 0.7, 7, device=dev) * dmin[0] + torch.linspace(
+            0.0, 0.3, 7, device=dev) * dmax[0]
+        m2[0, 0, :9] = 1.0
+        combine[:, 0, 0, 8] = gt2[0, 0, 8]
+        conf[:, 0, 0, 8] = 0.0
+    if empty:
+        m2.zero_()
+    gt = full_loss_ops._decisions(full_loss_ops.LossInputs(
+        dmin, dmax, gt2, m2, gt0, m0, gt2, gt0, (), (), ()))[-1]
+    if plant:
+        for col, off in zip(range(2, 6), (4, -4, 5, -5)):
+            logits[:, 0, (gt[0, 0, col] + off).clamp(0, NUM_BINS - 1), 0, col] = 12.0
+        logits[:, 0, gt[0, 0, 6], 0, 6] = -30.0
+    prob = torch.softmax(logits, dim=2)
+    if plant:
+        prob[:, 0, gt[0, 0, 7], 0, 7] = full_loss_ops.P_MIN
+    if w >= 11:             # K23's exact scan: a NaN bin; infinities of both signs
+        prob[:, 0, (gt[0, 0, 9] + 20) % NUM_BINS, 0, 9] = math.nan
+        prob[:, 0, (gt[0, 0, 10] + 30) % NUM_BINS, 0, 10] = math.inf
+        prob[:, 0, (gt[0, 0, 10] + 40) % NUM_BINS, 0, 10] = -math.inf
+    view = lambda x: x.unsqueeze(1).permute(0, 2, 3, 1)
+    outputs = {"depths": {"probability": [p.permute(0, 2, 3, 1) for p in prob],
+                          "combine": [view(c) for c in combine],
+                          "initial": [view(lo + u(b, h, w) * (hi - lo))]},
+               "confidences": [view(c) for c in conf],
+               "depths_upsampled": [view(lo + u(b, 4 * h, 4 * w) * (hi - lo))]}
+    gts = {"level_2": gt2[..., None], "level_0": gt0[..., None]}
+    masks = {"level_2": m2[..., None], "level_0": m0[..., None]}
+    return full_loss_ops.loss_tensors(outputs, gts, masks, dmin, dmax, regress)
+
+
+def step_loss_tensors(batch, dtype=torch.float32):
+    """The loss's arguments (`loss_tensors`, stage 2) of one training
+    forward at the step's shapes from a fresh seeded init in `dtype`, not
+    differentiated."""
+    model = init_weights(Pipeline(iteration=TRAIN_ITERATION, test=False, dtype=dtype),
+                         SEED).cuda()
+    model.train()
+    with torch.no_grad():
+        outputs = model(batch["imgs"], batch["proj_matrices"], batch["depth_min"],
+                        batch["depth_max"])
+    return full_loss_ops.loss_tensors(outputs, batch["depth"], batch["mask"],
+                                      batch["depth_min"], batch["depth_max"], True)
+
+
+def grad_rel(got, exact):
+    """max |got − exact| / max |exact| (0 where both are all 0; inf where
+    only the exact one is)."""
+    top = exact.abs().max().item()
+    err = (got.double() - exact).abs().max().item()
+    return err / top if top > 0 else (0.0 if err == 0 else math.inf)
+
+
+def hold_full_loss(label, tensors, regress, upstream=1.0, timed=True):
+    """K23 and K24 on the loss's arguments `tensors` (`loss_tensors`): K23's
+    sums within LOSS_SUM_REL of float64 per term, its counts, p at the GT
+    bin, GT bins, argmax windows and argmaxes equal to the plain
+    version's, two launches bit-equal, the wrapper's launch equal to the
+    bare one; K24 (upstream gradient `upstream`, this process's counts)
+    within LOSS_GRAD_REL of its float64 formula, two launches bit-equal
+    (each into outputs filled with NaN first: every element written), the
+    wrapper's equal. Where `timed`: each bare launch (`ms`, `device_ms`),
+    its wrapper (`call_ms`), and the eager loss's forward and backward
+    (`plain_ms` of K23 and of K24; both together printed). One JSON line
+    per kernel; returns {report name: record}."""
+    inp = full_loss_ops.kernel_inputs(full_loss_ops.loss_inputs(regress, *tensors))
+    n = len(inp.probs)
+    stats, p_gt, flags, partials = full_loss_ops.terms_buffers(inp, regress)
+    arg = torch.empty_like(p_gt, dtype=torch.int32)
+    run = bare_launch("full_loss", full_loss_ops.full_loss_args(
+        inp, regress, stats, p_gt, flags, partials, arg))
+    run()
+    want, (want_p, want_flags), want_arg = full_loss_ops.loss_terms_plain(
+        inp, regress, acc=torch.float64, argmax=True)
+    plain32 = full_loss_ops.loss_terms_plain(inp, regress)[0]
+    sums = {"k23": stats[0].double(), "plain_f32": plain32[0]}
+    rel = {k: ((v - want[0]).abs() / want[0].abs().clamp_min(1e-300)).max().item()
+           for k, v in sums.items()}
+    exact = {"counts": torch.equal(stats[1], want[1]), "p_gt": torch.equal(bits(p_gt),
+                                                                            bits(want_p)),
+             "flags": torch.equal(flags, want_flags),
+             "argmax": not regress or torch.equal(arg, want_arg)}
+    first = [t.clone() for t in (stats, p_gt, flags)]
+    run()
+    torch.cuda.synchronize()
+    repeats = all(torch.equal(bits(a), bits(b)) for a, b in zip(first, (stats, p_gt))) and \
+        torch.equal(first[2], flags)
+    wrapped = full_loss_ops.full_loss_terms(inp, regress)
+    wrapper_equal = torch.equal(bits(wrapped[0]), bits(stats)) and all(
+        torch.equal(a, b) for a, b in zip(wrapped[1], (p_gt, flags)))
+
+    saved, counts = (p_gt, flags), stats[1].clone()
+    grad = torch.full((), upstream, device=p_gt.device)
+    outs = full_loss_ops.grad_buffers(inp, regress)
+    flat = lambda o: [*o[0], o[1], o[2]]
+    run_grad = bare_launch("full_loss_grad", full_loss_ops.full_loss_grad_args(
+        inp, regress, grad, counts, saved, outs))
+
+    def fresh_grad():
+        for t in flat(outs):
+            t.fill_(math.nan)
+        run_grad()
+
+    fresh_grad()
+    ref = full_loss_ops.full_loss_grad_plain(grad, counts, saved, inp, regress,
+                                             acc=torch.float64)
+    plain_grad = full_loss_ops.full_loss_grad_plain(grad, counts, saved, inp, regress)
+    got = [torch.stack(outs[0]), outs[1], outs[2]]
+    grad_errs = {name: grad_rel(g, r) for name, g, r in zip(("prob", "small", "up"), got, ref)}
+    grad_abs = max((g - p).abs().max().item() for g, p in zip(got, plain_grad))
+    del ref, plain_grad
+    first_grad = [t.clone() for t in flat(outs)]
+    fresh_grad()
+    torch.cuda.synchronize()
+    grad_repeats = all(torch.equal(bits(a), bits(b)) for a, b in zip(first_grad, flat(outs)))
+    wrapped_grad = full_loss_ops.full_loss_grad(grad, counts, saved, inp, regress)
+    grad_wrapper_equal = all(torch.equal(bits(a), bits(b))
+                             for a, b in zip(flat(wrapped_grad), flat(outs)))
+    del first_grad, wrapped_grad
+
+    recs = {}
+    for name, nbytes_ops, err in (("full_loss", inputs_work(inp, regress), rel["k23"]),
+                                  ("full_loss_grad", inputs_work(inp, regress, True),
+                                   max(grad_errs.values()))):
+        recs[name] = {"max_abs_err": (stats[0] - plain32[0]).abs().max().item()
+                      if name == "full_loss" else grad_abs, "max_rel_err": err,
+                      "bytes": nbytes_ops[0], "ops": nbytes_ops[1], "library_ms": None}
+    if timed:
+        leaves = [t.detach().clone().requires_grad_(i >= 6) for i, t in enumerate(tensors)]
+        eager = lambda: full_loss_ops.full_loss_plain(*plain_arguments(leaves, regress),
+                                                      regress=regress)
+        loss = eager()
+        need = [t for t in leaves if t.requires_grad]
+        backward = lambda: torch.autograd.grad(loss, need, retain_graph=True)
+        both = lambda: torch.autograd.grad(eager(), need)
+        recs["full_loss"].update(
+            ms=time_ms(run), device_ms=sum(device_us(run, phase=f"full_loss at {label}")
+                                           .values()) / 1e3,
+            call_ms=time_ms(lambda: full_loss_ops.full_loss_terms(inp, regress)),
+            plain_ms=time_ms(eager))
+        recs["full_loss_grad"].update(
+            ms=time_ms(run_grad),
+            device_ms=sum(device_us(run_grad, phase=f"full_loss_grad at {label}").values())
+            / 1e3,
+            call_ms=time_ms(lambda: full_loss_ops.full_loss_grad(grad, counts, saved, inp,
+                                                                 regress)),
+            plain_ms=time_ms(backward))
+        plain_both_ms = time_ms(both)
+        del loss, leaves, need, backward, both
+    for name, rec in recs.items():
+        rec["bound_ms"], rec["bound_by"] = bound_ms(rec["bytes"], rec["ops"])
+        line = {"kernel": name, "shape": label, "batch": inp.gt2.shape[0],
+                "h": inp.gt2.shape[1], "w": inp.gt2.shape[2], "predictions": n,
+                "regress": regress, "upstream": upstream, **rec}
+        if timed:
+            line.update(share=rec["bound_ms"] / rec["ms"], plain_fwd_bwd_ms=plain_both_ms)
+        if name == "full_loss":
+            line.update(sums_rel_err=rel, exact=exact, two_launches_bit_equal=repeats,
+                        wrapper_equal=wrapper_equal, loss_terms=stats[0].tolist(),
+                        counts=stats[1].tolist(),
+                        tolerance=f"{LOSS_SUM_REL} of float64 per term, relative")
+            ok = rel["k23"] <= LOSS_SUM_REL and all(exact.values()) and repeats and wrapper_equal
+        else:
+            line.update(grad_rel_err=grad_errs, two_launches_bit_equal=grad_repeats,
+                        wrapper_equal=grad_wrapper_equal,
+                        tolerance=f"{LOSS_GRAD_REL} of max |float64|")
+            ok = (max(grad_errs.values()) <= LOSS_GRAD_REL and grad_repeats
+                  and grad_wrapper_equal)
+        print(json.dumps(line))
+        if not ok:
+            raise SystemExit(f"{name} at {label}: {line}")
+    torch.cuda.empty_cache()
+    return recs
+
+
+def plain_arguments(tensors, regress):
+    """models/losses.py's arguments from `loss_tensors`' flat form."""
+    dmin, dmax, gt2, m2, gt0, m0, initial, up, *rest = tensors
+    n = len(rest) // (3 if regress else 1)
+    probs, combines, confs = rest[:n], rest[n:2 * n], rest[2 * n:]
+    outputs = {"depths": {"probability": probs, "combine": combines or [None] * n,
+                          "initial": [initial]},
+               "confidences": confs, "depths_upsampled": [up]}
+    return (outputs, {"level_2": gt2, "level_0": gt0}, {"level_2": m2, "level_0": m0}, dmin,
+            dmax)
+
+
+def check_full_loss():
+    """K23 and K24 (`hold_full_loss`) at the training step's shapes (batch
+    4, 128x160, level 0 512x640, 5 predictions): stage 2 on seeded inputs
+    with the edge cases planted (`loss_case`), on one real step's
+    inputs (a fresh seeded init's forward on the plane scene), then the
+    LOSS_EDGE_CASES. Returns the per-step records of both kernels (the
+    real step's, timed)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 30)
+    h, w, n = TRAIN_HEIGHT // 4, TRAIN_WIDTH // 4, 1 + TRAIN_ITERATION
+    hold_full_loss("step_planted", loss_case(TRAIN_BATCH, h, w, n, gen), True, timed=False)
+    batch = to_device_batch(train_sample(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_BATCH,
+                                         SEED), "cuda")
+    per_step = hold_full_loss("step_real", step_loss_tensors(batch), True)
+    del batch
+    for label, b, eh, ew, en, regress, empty, upstream in LOSS_EDGE_CASES:
+        hold_full_loss(f"edge_{label}", loss_case(b, eh, ew, en, gen, regress, empty), regress,
+                       upstream, timed=False)
+    for rec in per_step.values():
+        rec["launches"] = 1
+    print(json.dumps({"full_loss_totals": {"per_step": per_step}}))
+    return per_step
+
+
 def valid_corners(base, h1, w1):
     """Per row, the count of its 4 corners that lie on the source map."""
     y, x = base // w1, base % w1
@@ -2777,8 +3074,9 @@ TEMPLATED = ("depth_readout_grad", "depth_readout", "sweep_taps", "convex_upsamp
              "convex_upsample", "gru_update_grad", "gru_reset_grad", "gru_update", "gru_reset",
              "bn_act_grad", "bn_act", "upsample2x_grad", "upsample2x_add", "bn_stats_grad",
              "bn_stats")
-# The float32-only kernels, longest name first (K11's is a prefix of K12's).
-F32_ONLY = ("view_aggregate_grad", "view_aggregate")
+# The float32-only kernels, longest name first (K11's is a prefix of K12's,
+# K23's of K24's): a source's kernels are named `<name>_...kernel`.
+F32_ONLY = ("view_aggregate_grad", "view_aggregate", "full_loss_grad", "full_loss")
 
 
 def planned_counts(**launches):
@@ -2814,7 +3112,7 @@ def _category(name):
         if f"::{k}_" in name and "kernel<" in name:
             return f"{k}_bf16" if "kernel<__nv_bfloat16" in name else k
     for k in F32_ONLY:
-        if f"::{k}_kernel" in name:
+        if f"::{k}_" in name and "kernel" in name:
             return k
     for fn in SWEEP_KERNELS:
         if f"{fn.__name__}_bf16" in name:
@@ -2880,9 +3178,10 @@ def device_time(fn):
 # per call each, K13 and K14 under `conv_gru`, two per GRU call, K17
 # under `bn_act`, one per BN epilogue, K19 under `fpn_add`, one per FPN
 # add, and in training K21 under `bn_stats`, one per BN (its sum and
-# its fold: two kernels).
+# its fold: two kernels), and the loss's forward under `full_loss`
+# (models/losses.py: K23's two kernels and the few ops on its sums).
 CHAINS = ("depth_readout", "fused_sweep_taps", "convex_upsample", "view_aggregate",
-          "conv_gru", "bn_act", "fpn_add", "bn_stats")
+          "conv_gru", "bn_act", "fpn_add", "bn_stats", "full_loss")
 
 
 def chain_time(events):
@@ -2926,8 +3225,10 @@ def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=F
     over one image per map (the feature cache extracts each image once)
     or the step's batch·views images; bn_stats, in training only, K21's
     one read of each of the step's images' 16 BN inputs
-    (`bn_stats_image_bytes`). Their operations per byte are far below the
-    card's, so bytes bound all eight."""
+    (`bn_stats_image_bytes`); full_loss, in training only, K23's
+    (`loss_work` of stage 2: each of the 1 + iteration probabilities
+    read once). Their operations per byte are far below the card's, so
+    bytes bound all nine."""
     p4 = batch * (height // 4) * (width // 4)
     p8 = batch * (height // 8) * (width // 8)
     sources = views - 1
@@ -2948,6 +3249,8 @@ def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=F
               "fpn_add": (batch * views if train else batch)
               * up2_image_bytes(width, height, itemsize),
               "bn_stats": batch * views * bn_stats_image_bytes(width, height, itemsize)
+              if train else 0,
+              "full_loss": loss_work(1 + iteration, p4, batch * height * width, True)[0]
               if train else 0}
     return {k: 1e3 * v / PEAK_BYTES_PER_S for k, v in nbytes.items()}
 
@@ -3065,12 +3368,13 @@ def planned_step_counts(shapes, dtype, iteration=TRAIN_ITERATION):
     iteration; K9 and K10 once; K11 and K12, float32 in both precisions,
     once per aggregation, 1 + 3·iteration; K13-K16 once per GRU call,
     iteration; K17, K18 and K22 13 times, K21 once per BN (16) and K19
-    and K20 twice, FeatureNet's one call over the batch's views)."""
+    and K20 twice, FeatureNet's one call over the batch's views; K23 and
+    K24, float32 in both precisions, once)."""
     forward = sum(s[-1] for s in shapes)
     sweeps = sum(sweeps_of(shapes, dtype).values())
     aggregations = 1 + len(LEVELS) * iteration
     return planned_counts(view_aggregate=aggregations, view_aggregate_grad=aggregations,
-                          **{kernel_name(k, dtype): n for k, n in (
+                          full_loss=1, full_loss_grad=1, **{kernel_name(k, dtype): n for k, n in (
         ("sweep_premul", forward), ("corr_epilogue", forward), ("sweep_grad_ref", sweeps),
         ("sweep_grad_src", sweeps), ("depth_readout", 1 + iteration),
         ("depth_readout_grad", 1 + iteration), ("sweep_taps", 1 + iteration),
@@ -3247,6 +3551,33 @@ def var_mean_events(events):
     return found
 
 
+def loss_op_events(events):
+    """{name: calls} of the host ops and device kernels among `events` that
+    belong to the eager loss K23 and K24 replaced: any name holding
+    "gather" or "argmax" (`aten::gather`, autograd's `GatherBackward0` and
+    `aten::gather_backward`, `aten::argmax` and their kernels); the step
+    has no other gather or argmax on the card."""
+    found = {}
+    for e in events:
+        if "gather" in e.name.lower() or "argmax" in e.name.lower():
+            found[e.name[:90]] = found.get(e.name[:90], 0) + 1
+    return found
+
+
+def hold_loss_path(name, copies, readout_copies, layouts, events):
+    """The loss's gates of a training phase: K23's wrapper copied no
+    input, K7's no probability gradient, every probability gradient
+    reached K7 dense NCHW (as K24 writes it), and the profiled step ran
+    no op of the eager loss (`loss_op_events`). SystemExit on a miss."""
+    if copies or readout_copies:
+        raise SystemExit(f"{name}: K23 copied {copies} loss inputs, K7 {readout_copies} "
+                         f"probability gradients")
+    if layouts is not None and any(r["layout"] != "dense" for r in layouts):
+        raise SystemExit(f"{name}: K7 got a probability gradient that is not dense: {layouts}")
+    if events:
+        raise SystemExit(f"{name}: the eager loss ran in the profiled step: {events}")
+
+
 def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
     """The training path at full width (see TRAIN_*) in `dtype`:
     TRAIN_STEPS steps on one batch from a fresh seeded init; the loss must
@@ -3275,6 +3606,7 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
     counts = launch_counts()
     copies = depth_readout_grad.copies
     up2_copies = resize_ops.upsample2x_grad.copies
+    loss_copies = full_loss_ops.full_loss_terms.copies
     peak = torch.cuda.max_memory_allocated()
     planned = {k: n * TRAIN_STEPS for k, n in planned_step_counts(shapes, dtype).items()}
     last = step_s[-5:]
@@ -3284,12 +3616,14 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
            "losses": losses, "step_s": step_s, "ms_per_step_last5": 1e3 * sum(last) / len(last),
            "steps_per_s_last5": len(last) / sum(last), "peak_mem_gib": peak / 2 ** 30,
            "batch_setup_s": setup_s, "launches": counts, "planned_launches": planned,
-           "depth_readout_grad_copies": copies, "upsample2x_grad_copies": up2_copies}
+           "depth_readout_grad_copies": copies, "upsample2x_grad_copies": up2_copies,
+           "full_loss_copies": loss_copies}
 
     events = trace_events(
         lambda: train_step(model, optimizer, batch, TRAIN_LR, True, TRAIN_ITERATION))
     by_name, by_cat, busy_ms = device_summary(events)
     rec["var_mean_events"] = var_mean_events(events)
+    rec["eager_loss_events"] = loss_op_events(events)
     wall_ms = 1e3 * sorted(last)[len(last) // 2]
     if busy_ms:
         bounds = chain_bound_ms(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_ITERATION,
@@ -3344,13 +3678,12 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
     if position != (0, TRAIN_STEPS) or not (same_model and same_opt):
         raise SystemExit(f"checkpoint round trip failed: {rec['checkpoint']}")
 
-    # The layouts in which the loss hands K7 the probability's gradient.
+    # The layouts in which K24 hands K7 the probability's gradient.
     rec["k7_prob_grad_layouts"] = prob_grad_layouts(model, batch)
     print(json.dumps({"k7_prob_grad_layouts": rec["k7_prob_grad_layouts"],
                       "dtype": str(dtype)}))
-    if any(r["layout"] == "other" for r in rec["k7_prob_grad_layouts"]):
-        raise SystemExit(f"K7 got a probability gradient it copies: "
-                         f"{rec['k7_prob_grad_layouts']}")
+    hold_loss_path(f"train_full_width {dtype}", loss_copies, copies,
+                   rec["k7_prob_grad_layouts"], rec["eager_loss_events"])
     # The layouts in which K20 gets the FPN adds' ∂out.
     rec["k20_grad_layouts"] = fpn_grad_layouts(model, batch)
     print(json.dumps({"k20_grad_layouts": rec["k20_grad_layouts"], "dtype": str(dtype)}))
@@ -3472,10 +3805,11 @@ def run_steps(job, rank=0, world=1, device="cuda"):
     `state` (rank 0's, broadcast in a process group) with a new Adam;
     `job["val"]` adds one val step of the first run's model before its
     steps, `job["profile"]` one more step of each run under
-    torch.profiler after them (busy ms, ms by kind and `var_mean_events`).
-    Records per step: the loss, ms (host clock to a sync), the launch
-    counts, the state_dict and the gradients after the step (on the
-    host)."""
+    torch.profiler after them (busy ms, ms by kind, `var_mean_events`
+    and `loss_op_events`), then `prob_grad_layouts`. Records per step:
+    the loss, ms (host clock to a sync), the launch counts, K7's and
+    K23's copies, the state_dict and the gradients after the step (on
+    the host)."""
     dtype = getattr(torch, job["dtype"])
     per = job["batch"] // world
     batch = to_device_batch(slice_batch(job["sample"], rank * per, per), device)
@@ -3500,6 +3834,7 @@ def run_steps(job, rank=0, world=1, device="cuda"):
             steps.append({"loss": loss, "ms": 1e3 * (time.perf_counter() - t0),
                           "launches": launch_counts(),
                           "copies": depth_readout_grad.copies,
+                          "loss_copies": full_loss_ops.full_loss_terms.copies,
                           "state": {k: v.detach().cpu().clone()
                                     for k, v in model.state_dict().items()},
                           "grads": {k: p.grad.detach().cpu().clone()
@@ -3511,7 +3846,9 @@ def run_steps(job, rank=0, world=1, device="cuda"):
             _, by_cat, busy = device_summary(events)
             out["profile"] = {"device_busy_ms": busy, "by_category_ms": {
                 k: v / 1e3 for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])},
-                "var_mean_events": var_mean_events(events)}
+                "var_mean_events": var_mean_events(events),
+                "eager_loss_events": loss_op_events(events),
+                "prob_grad_layouts": prob_grad_layouts(model, batch)}
     return out
 
 
@@ -3562,9 +3899,9 @@ def hold_ddp(name, ranks, single, planned, strict=True, extra=None):
     after the first step within DDP_PARAM_REL (relative L2); always the
     BN running statistics after it within DDP_BN_REL, every rank
     bit-equal to rank 0 (parameters, BN statistics) after every step,
-    finite losses, `planned` launches per rank per step and no copy of
-    the probability's gradient in K7's wrapper. Prints one
-    JSON line (with `extra`); SystemExit on a miss."""
+    finite losses, `planned` launches per rank per step, no copy in K7's
+    or K23's wrapper and, where a rank profiled a step, `hold_loss_path`'s
+    gates. Prints one JSON line (with `extra`); SystemExit on a miss."""
     steps = [r["runs"][0] for r in ranks]
     want = single["runs"][0]
     params = [k for k in want[0]["grads"]]
@@ -3581,6 +3918,7 @@ def hold_ddp(name, ranks, single, planned, strict=True, extra=None):
            "ms_per_step_per_rank": [[s["ms"] for s in r] for r in steps],
            "launches_per_rank_per_step": [[s["launches"] for s in r] for r in steps],
            "depth_readout_grad_copies": [[s["copies"] for s in r] for r in steps],
+           "full_loss_copies": [[s["loss_copies"] for s in r] for r in steps],
            "planned_per_step": planned}
     print(json.dumps({name: rec}))
     if strict and not (rec["loss_rel"] <= DDP_LOSS_REL
@@ -3594,6 +3932,10 @@ def hold_ddp(name, ranks, single, planned, strict=True, extra=None):
         raise SystemExit(f"{name}: launches per rank per step != {planned}")
     if any(s["copies"] for r in steps for s in r):
         raise SystemExit(f"{name}: K7's wrapper copied the probability's gradient")
+    for r in ranks:
+        profile = r.get("profile") or {}
+        hold_loss_path(name, sum(s["loss_copies"] for s in r["runs"][0]), 0,
+                       profile.get("prob_grad_layouts"), profile.get("eager_loss_events"))
     return rec
 
 
@@ -3618,7 +3960,7 @@ def train_ddp_2rank():
     sample = ddp_sample(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_BATCH, SEED)
     job = ddp_job(sample, torch.float32, DDP_STEPS)
     t0 = time.perf_counter()
-    ranks = run_ranks(job, DDP_WORLD, "gloo", "cuda:0")
+    ranks = run_ranks(dict(job, profile=True), DDP_WORLD, "gloo", "cuda:0")
     wall = time.perf_counter() - t0
     single = run_steps(dict(job, runs=[{"regress": True, "steps": 1}]), device="cuda")
     planned = planned_step_counts(sweep_shapes(
@@ -3686,6 +4028,9 @@ def train_ddp_nccl():
         if any(s["launches"] != planned or s["copies"] for s in plain["runs"][0]):
             raise SystemExit(f"train_ddp_nccl: plain launches per step != {planned}, or "
                              f"K7's wrapper copied the probability's gradient")
+        hold_loss_path("train_ddp_nccl plain", sum(s["loss_copies"] for s in plain["runs"][0]),
+                       0, plain["profile"]["prob_grad_layouts"],
+                       plain["profile"]["eager_loss_events"])
         if any(r["profile"]["var_mean_events"] for r in (plain, synced)):
             raise SystemExit(f"train_ddp_nccl: var_mean ran in a profiled step: "
                              f"{[r['profile']['var_mean_events'] for r in (plain, synced)]}")
@@ -3804,7 +4149,8 @@ def entry_dryrun(smi):
     against `entry(device="cpu")` (`hold_entry`), then
     `dryrun_multichip(DRYRUN_WORLD)` (`hold_dryrun`, 64x96, 3 views, 2
     iterations, batch 1 per rank) against one process's step over both
-    samples."""
+    samples, profiled: one launch each of K23 and K24 and
+    `hold_loss_path`'s gates."""
     t0 = time.perf_counter()
     fn, args = entry_points.entry()
     reset_launch_counts()
@@ -3833,11 +4179,21 @@ def entry_dryrun(smi):
     model = init_weights(Pipeline(iteration=entry_points.DRYRUN_ITERATION, test=False),
                          0).cuda()
     batch = to_device_batch(entry_points.dryrun_batch(DRYRUN_WORLD), "cuda")
-    single = train_step(model, make_optimizer(model), batch, entry_points.DRYRUN_LR, True,
-                        entry_points.DRYRUN_ITERATION)["loss"].item()
-    return hold_dryrun(dry, planned, single, extra={
+    losses = []
+    reset_launch_counts()
+    events = trace_events(lambda: losses.append(train_step(
+        model, make_optimizer(model), batch, entry_points.DRYRUN_LR, True,
+        entry_points.DRYRUN_ITERATION)["loss"].item()))
+    loss_counts = {k: launch_counts()[k] for k in ("full_loss", "full_loss_grad")}
+    layouts = prob_grad_layouts(model, batch)
+    extra = {"single_step_loss_launches": loss_counts, "single_step_prob_grad_layouts": layouts}
+    if loss_counts != {"full_loss": 1, "full_loss_grad": 1}:
+        raise SystemExit(f"entry_dryrun: one process's step launched {loss_counts}")
+    hold_loss_path("entry_dryrun", full_loss_ops.full_loss_terms.copies,
+                   depth_readout_grad.copies, layouts, loss_op_events(events))
+    return hold_dryrun(dry, planned, losses[0], extra={
         "timing_note": "two processes sharing one card over gloo",
-        "phase_wall_s": wall, "card": smi})
+        "phase_wall_s": wall, "card": smi, **extra})
 
 
 def nan_image(sample, view=1):
@@ -4239,7 +4595,8 @@ REPORT_PER_STEP = ("sweep_grad_ref", "sweep_grad_src", "depth_readout_grad",
                    "bn_stats_grad", "sweep_grad_ref_bf16", "sweep_grad_src_bf16",
                    "depth_readout_grad_bf16", "convex_upsample_grad_bf16",
                    "gru_update_grad_bf16", "gru_reset_grad_bf16", "bn_act_grad_bf16",
-                   "upsample2x_grad_bf16", "bn_stats_bf16", "bn_stats_grad_bf16")
+                   "upsample2x_grad_bf16", "bn_stats_bf16", "bn_stats_grad_bf16", "full_loss",
+                   "full_loss_grad")
 
 
 def kernel_sources():
@@ -4287,7 +4644,11 @@ def kernel_sources():
                "bn_stats": ("itermvs_tpu_torch/csrc/bn_stats.cu",
                             "itermvs_tpu/models/blocks.py:96"),
                "bn_stats_grad": ("itermvs_tpu_torch/csrc/bn_stats_grad.cu",
-                                 "itermvs_tpu/models/blocks.py:96")}
+                                 "itermvs_tpu/models/blocks.py:96"),
+               "full_loss": ("itermvs_tpu_torch/csrc/full_loss.cu",
+                             "itermvs_tpu/models/losses.py:35"),
+               "full_loss_grad": ("itermvs_tpu_torch/csrc/full_loss_grad.cu",
+                                  "itermvs_tpu/models/losses.py:35")}
     for name in ("corr_epilogue", "sweep_premul", "sweep_grad_ref", "sweep_grad_src"):
         source, replaces = sources[name]
         sources[f"{name}_bf16"] = (source.replace(".cu", "_bf16.cu"), replaces)
@@ -4340,6 +4701,8 @@ def main():
     # K19 at FeatureNet's FPN adds on a map's image, K19/K20 on a step's.
     up2_map, up2_step = check_upsample2x()
     per_map.update(up2_map)
+    # K23 and K24 at the training step's loss, planted and real.
+    loss_step = check_full_loss()
     # K3 at DTU's 10 sources, and at the 4 of the main path's fusion (the
     # shape its reported time and bound are taken at).
     k3 = check_consistency(WIDTH, HEIGHT, (DTU_SOURCES, VIEWS - 1))[VIEWS - 1]
@@ -4512,6 +4875,7 @@ def main():
     per_step.update(bn_step)
     per_step.update(up2_step)
     per_step.update(bn_stats_step)
+    per_step.update(loss_step)
     for name in REPORT_PER_STEP:
         tot = per_step[name]
         t_bytes, t_ops = tot["bytes"] / PEAK_BYTES_PER_S, tot["ops"] / PEAK_F32_PER_S

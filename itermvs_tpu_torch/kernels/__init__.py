@@ -34,7 +34,7 @@ SOURCES = ("corr_epilogue", "sweep_premul", "fusion_consistency", "sweep_grad_re
            "depth_readout_grad", "sweep_taps", "convex_upsample", "convex_upsample_grad",
            "view_aggregate", "view_aggregate_grad", "gru_reset", "gru_update",
            "gru_update_grad", "gru_reset_grad", "bn_act", "bn_act_grad", "upsample2x_add",
-           "upsample2x_grad", "bn_stats", "bn_stats_grad")
+           "upsample2x_grad", "bn_stats", "bn_stats_grad", "full_loss", "full_loss_grad")
 # No --use_fast_math: fusion_consistency needs IEEE divides and sqrt.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -118,6 +118,11 @@ SIGNATURES = {
     "bn_stats_grad_bf16": ("itermvs_bn_stats_grad_bf16",
                            (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _L, _P),
                            "bn_stats_grad"),
+    "full_loss": ("itermvs_full_loss", (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                        _L, _L, _P, _P, _P, _P, _P, _P)),
+    "full_loss_grad": ("itermvs_full_loss_grad",
+                       (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _P, _P, _P,
+                        _P, _P, _P, _P, _P, _P)),
     # Not a kernel: 1 where K10's kernels are programmatic dependent launches.
     "convex_upsample_grad_programmatic": ("itermvs_convex_upsample_grad_programmatic", (),
                                           "convex_upsample_grad"),

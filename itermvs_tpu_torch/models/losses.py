@@ -17,27 +17,18 @@ with an empty-mask guard (0 when the mask is empty). In a process group
 loss is its share of the global loss: local sum / global count. The
 ranks' shares, and their gradients, sum to the JAX step's global loss
 and its gradient; the training step sums both over the ranks.
+
+On the card the loss runs as kernels K23 and K24 (ops/full_loss.py,
+label `full_loss`); on the CPU as eager PyTorch ops (`full_loss_plain`).
 """
 from __future__ import annotations
 
-import torch
+from torch.profiler import record_function
 
-from itermvs_tpu_torch.models.itermvs import NUM_BINS, RADIUS
-from itermvs_tpu_torch.ops.depth_range import depth_normalization
-from itermvs_tpu_torch.parallel.mesh import all_reduce_sum, is_initialized
+# `_masked_mean` is imported from here by the process-group tests.
+from itermvs_tpu_torch.ops.full_loss import _masked_mean, full_loss_plain, fused_full_loss
 
-
-def _masked_mean(x, mask):
-    count = mask.sum()
-    if is_initialized():
-        count = all_reduce_sum(count.detach())
-    mean = (x * mask).sum() / torch.clamp(count, min=1.0)
-    return torch.where(count > 0, mean, torch.zeros_like(mean))
-
-
-def _bce_with_logits(logits, targets):
-    return (torch.clamp(logits, min=0.0) - logits * targets
-            + torch.log1p(torch.exp(-logits.abs())))
+__all__ = ["full_loss", "_masked_mean"]
 
 
 def full_loss(outputs, depths_gt, masks, depth_min, depth_max, regress=True):
@@ -52,49 +43,7 @@ def full_loss(outputs, depths_gt, masks, depth_min, depth_max, regress=True):
 
     Returns the scalar loss (in a process group, this rank's share).
     """
-    batch = depth_min.shape[0]
-    idmin = (1.0 / depth_min).reshape(batch, 1, 1, 1)
-    idmax = (1.0 / depth_max).reshape(batch, 1, 1, 1)
-
-    mask_0 = (masks["level_0"] > 0.5).float()
-    mask_1 = (masks["level_2"] > 0.5).float()
-    depth_gt_0 = depths_gt["level_0"]
-    depth_gt_1 = depths_gt["level_2"]
-
-    norm_gt = depth_normalization(depth_gt_1, idmin, idmax)          # [B,H,W,1]
-    gt_index = torch.clamp(norm_gt, 0.0, 1.0) * (NUM_BINS - 1)
-    gt_index = torch.floor(gt_index * mask_1).long()                 # [B,H,W,1]
-
-    probabilities = outputs["depths"]["probability"]
-    combines = outputs["depths"]["combine"]
-    confidences = outputs["confidences"]
-    num_prediction = len(combines)
-
-    # 1. Initialization sweep depth.
-    init_norm = depth_normalization(outputs["depths"]["initial"][0], idmin, idmax)
-    loss = 0.8 ** num_prediction * NUM_BINS * _masked_mean(
-        (init_norm - norm_gt).abs(), mask_1)
-
-    for i in range(num_prediction):
-        coeff = 0.8 ** (num_prediction - i - 1)
-        probability = torch.clamp(probabilities[i], min=1e-5)         # [B,H,W,256]
-        # The one-hot cross-entropy: −log p at the GT bin.
-        ce = -torch.log(probability).gather(-1, gt_index)
-        loss = loss + coeff * _masked_mean(ce, mask_1)
-
-        if regress:
-            pred_index = probability.argmax(dim=-1, keepdim=True)
-            in_window = ((gt_index >= pred_index - RADIUS)
-                         & (gt_index <= pred_index + RADIUS)).float()
-            norm_depth = depth_normalization(combines[i], idmin, idmax)
-            loss = loss + coeff * NUM_BINS * _masked_mean(
-                (norm_depth - norm_gt).abs(), mask_1 * in_window)
-
-            conf_gt = ((norm_depth.detach() - norm_gt).abs() < 0.002).float()
-            bce = _bce_with_logits(confidences[i], conf_gt)
-            loss = loss + coeff * _masked_mean(bce, mask_1)
-
-    # 5. Upsampled final depth at full crop resolution.
-    norm_gt_0 = depth_normalization(depth_gt_0, idmin, idmax)
-    norm_up = depth_normalization(outputs["depths_upsampled"][0], idmin, idmax)
-    return loss + NUM_BINS * _masked_mean((norm_up - norm_gt_0).abs(), mask_0)
+    if depth_min.device.type == "cpu":
+        return full_loss_plain(outputs, depths_gt, masks, depth_min, depth_max, regress)
+    with record_function("full_loss"):
+        return fused_full_loss(outputs, depths_gt, masks, depth_min, depth_max, regress)

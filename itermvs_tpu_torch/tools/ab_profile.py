@@ -11,10 +11,11 @@ the 5 depth maps of chip_smoke's 1600x1152 scene in float32 and bfloat16
 busy ms, idle share, kernels and device ms by kind per map, the labelled
 chains), then `chip_smoke.train_full_width` in both dtypes (ms per step,
 one profiled step by kind), then one more profiled training step per
-dtype with the host ops' shapes, listing PyTorch's bilinear resizes and
-var_mean calls left in it (host ops and autograd nodes holding
-`upsample_bilinear2d`, `var_mean` or `VarMean` by input shapes, and
-their device kernels, Welford reductions included). Each run's whole output goes to
+dtype with the host ops' shapes, listing PyTorch's bilinear resizes,
+var_mean calls and the eager loss's gathers and argmaxes left in it
+(host ops and autograd nodes holding `upsample_bilinear2d`, `var_mean`,
+`VarMean`, `gather` or `argmax` by input shapes, and their device
+kernels, Welford reductions included). Each run's whole output goes to
 `DIR/ab_profile_<run>_<tree>.log` (by default `_export/ab_profile/`);
 the summary lines print here. A tree needs chip_smoke's `profile_maps`,
 `train_full_width` and `render_scene`.
@@ -80,7 +81,8 @@ for dt in (torch.float32, torch.bfloat16):
     host, device = {}, {}
     for e in prof.events():
         if not any(k in e.name for k in ("upsample_bilinear2d", "var_mean", "VarMean",
-                                         "Welford")):
+                                         "Welford", "gather", "Gather", "argmax",
+                                         "ArgMax")):
             continue
         if e.device_type == torch.autograd.DeviceType.CUDA:
             calls, us = device.get(e.name[:90], (0, 0.0))

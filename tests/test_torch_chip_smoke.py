@@ -238,16 +238,17 @@ def test_bf16_plans_launch_as_many_kernels():
 
 
 def test_launch_counts_name_all_nine_kernels():
-    """All forty-one report names since K6-K22 joined the nine: the
+    """All forty-three report names since K6-K24 joined the nine: the
     sweep and fusion kernels, the depth readout forward and backward, the
     sweep taps, the convex upsample forward and backward, the ConvGRU's
     gates forward and backward, the BN epilogue forward and backward, the
     FPN add forward and backward and BN's training statistics forward and
     backward, each but fusion_consistency in both dtypes, and the view
-    aggregation forward and backward (float32 only)."""
+    aggregation and the training loss forward and backward (float32
+    only)."""
     chip_smoke.reset_launch_counts()
     counts = chip_smoke.launch_counts()
-    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 41
+    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 43
     assert {"depth_readout", "depth_readout_grad_bf16", "sweep_taps_bf16", "convex_upsample",
             "convex_upsample_grad_bf16", "view_aggregate", "view_aggregate_grad",
             "gru_reset", "gru_update", "gru_update_grad", "gru_reset_grad", "gru_reset_bf16",
@@ -255,7 +256,9 @@ def test_launch_counts_name_all_nine_kernels():
             "bn_act_grad", "bn_act_bf16", "bn_act_grad_bf16", "upsample2x_add",
             "upsample2x_grad", "upsample2x_add_bf16", "upsample2x_grad_bf16", "bn_stats",
             "bn_stats_grad", "bn_stats_bf16", "bn_stats_grad_bf16"} <= set(counts)
-    assert not {"view_aggregate_bf16", "view_aggregate_grad_bf16"} & set(counts)
+    assert {"full_loss", "full_loss_grad"} <= set(counts)
+    assert not {"view_aggregate_bf16", "view_aggregate_grad_bf16", "full_loss_bf16",
+                "full_loss_grad_bf16"} & set(counts)
     assert counts == chip_smoke.planned_counts()
     assert chip_smoke.planned_counts(sweep_premul_bf16=3)["sweep_premul_bf16"] == 3
     for name in counts:
@@ -444,8 +447,8 @@ def test_ddp_plan_is_52_launches_per_rank_per_step():
     of K6, K7 and K8, one of K9 and K10, 13 (one per aggregation) of
     K11 and K12, float32 in both precisions, 4 (one per GRU call) of
     K13-K16, 13 (one per BN epilogue) of K17, K18 and K22, 16 (one per
-    BN) of K21 and 2 (one per FPN add) of K19 and K20, per rank per
-    step."""
+    BN) of K21, 2 (one per FPN add) of K19 and K20 and one of K23 and
+    K24, float32 in both precisions, per rank per step."""
     for dtype in (torch.float32, torch.bfloat16):
         shapes = chip_smoke.sweep_shapes(640, 512, 5, 4, 2, itemsize=dtype.itemsize)
         plan = chip_smoke.planned_step_counts(shapes, dtype)
@@ -468,14 +471,16 @@ def test_ddp_plan_is_52_launches_per_rank_per_step():
                                                  **{chip_smoke.kernel_name("bn_stats", dtype): 16,
                                                     chip_smoke.kernel_name("bn_stats_grad",
                                                                            dtype): 13},
-                                                 view_aggregate=13, view_aggregate_grad=13)
+                                                 view_aggregate=13, view_aggregate_grad=13,
+                                                 full_loss=1, full_loss_grad=1)
 
 
-def _record(loss, value, launches=None, copies=0):
+def _record(loss, value, launches=None, copies=0, loss_copies=0):
     """One step's record as `run_steps` writes it."""
     state = {"w": torch.full((3,), value), "bn.running_mean": torch.ones(2)}
     return {"loss": loss, "ms": 1.0, "launches": launches or chip_smoke.planned_counts(),
-            "copies": copies, "state": state, "grads": {"w": torch.ones(3)}}
+            "copies": copies, "loss_copies": loss_copies, "state": state,
+            "grads": {"w": torch.ones(3)}}
 
 
 def test_hold_ddp_gates():
@@ -760,7 +765,8 @@ def test_chain_time_takes_the_kernels_inside_each_labelled_range():
                       "conv_gru": {"device_ms": 0.0, "launches": 0},
                       "bn_act": {"device_ms": 0.0, "launches": 0},
                       "fpn_add": {"device_ms": 0.0, "launches": 0},
-                      "bn_stats": {"device_ms": 0.0, "launches": 0}}
+                      "bn_stats": {"device_ms": 0.0, "launches": 0},
+                      "full_loss": {"device_ms": 0.0, "launches": 0}}
     by_name, by_cat, busy = chip_smoke.device_summary(events)
     assert "fused_sweep_taps" not in by_name and "depth_readout" not in by_name
     assert busy == pytest.approx((10 + 8 + 1 + 29 + 9 + 5) / 1e3)
@@ -1029,7 +1035,7 @@ def test_dryrun_plan_per_rank_per_step():
     1): 2 + 2·2·3 = 14 launches of each sweep kernel, forward and
     backward, 3 of K6, K7 and K8, one of K9 and K10, 1 + 3·2 = 7 of K11
     and K12, 2 of K13-K16, 13 of K17, K18 and K22, 16 of K21, 2 of K19 and
-    K20."""
+    K20, one of K23 and K24."""
     shapes = chip_smoke.sweep_shapes(port_entry.DRYRUN_WIDTH, port_entry.DRYRUN_HEIGHT,
                                      port_entry.DRYRUN_VIEWS, port_entry.DRYRUN_ITERATION)
     plan = chip_smoke.planned_step_counts(shapes, torch.float32,
@@ -1039,7 +1045,8 @@ def test_dryrun_plan_per_rank_per_step():
         depth_readout=3, depth_readout_grad=3, sweep_taps=3, convex_upsample=1,
         convex_upsample_grad=1, view_aggregate=7, view_aggregate_grad=7, gru_reset=2,
         gru_update=2, gru_update_grad=2, gru_reset_grad=2, bn_act=13, bn_act_grad=13,
-        upsample2x_add=2, upsample2x_grad=2, bn_stats=16, bn_stats_grad=13)
+        upsample2x_add=2, upsample2x_grad=2, bn_stats=16, bn_stats_grad=13, full_loss=1,
+        full_loss_grad=1)
 
 
 def test_largest_patch_finds_the_biggest_connected_block():
