@@ -92,6 +92,20 @@
    its counts, GT bins, argmax windows and argmaxes exact, K24 within
    1e-6 of float64's max, two launches of each bit-equal; bare ms,
    device ms, bound and share, the eager loss's forward and backward ms.
+   Then `check_clip_adam`: the optimizer update, K25 grad_norm (Σg² in
+   float64 over every gradient, folded in a fixed order) and K26
+   clip_adam (optax's clip, decay and Adam in place on p, m and v), at
+   the training model's 100 parameter shapes from the seeded init with
+   gradients drawn from the seed, at a global norm above and below 2.0,
+   weight decay 0 and 1e-4, three steps each (t = 1, 2, 3): K25 within
+   1e-12 of the float64 sum, K26 bit for bit against its plain version,
+   two launches of each bit-equal, `clip_adam_step_` on a
+   torch.optim.Adam bit-equal to the bare launches; bare ms, device ms,
+   bound, share and the launch floor (the same C calls over one
+   element), the plain versions' ms, the eager update's
+   (`clip_by_global_norm_` + `torch.optim.Adam.step`) and, as the
+   library's, `clip_grad_norm_(foreach=True)` + `Adam(fused=True).step`
+   (a near function).
 4. Runs the port's eval core loop (`itermvs_tpu_torch.eval.run_depth`)
    with the vendored DTU weights and the feature cache on a 5-view
    textured-plane scene made in memory at 1600x1152, one depth map per
@@ -112,7 +126,10 @@
    profiles them once more with torch.profiler: device time by kernel
    and by kind, kernels launched per map, the device's idle share, and
    the device time and launches per map of the model's labelled
-   plain-torch chains (`CHAINS`) beside their byte bounds. Then
+   plain-torch chains (`CHAINS`) beside their byte bounds; the capture
+   must hold each hand-written kernel's device kernels as the launch plan
+   says (`device_capture`: an empty or short capture is retaken, three
+   in all, then the phase fails). Then
    `eval_pipeline`: the 5 maps through one run_depth call against one
    call per map, twice (differing pixels no more than between the two
    one-per-call runs), all with cuDNN's deterministic algorithms (two
@@ -149,9 +166,11 @@
    fall, and each of the four sweep kernels must launch 52 times per
    step, K6, K7 and K8 5 times each, K9 and K10 once, K11 and K12 13
    times each, K13-K16 4 times each, K17, K18 and K22 13 times each,
-   K21 16 times, K19 and K20 twice each, K23 and K24 once, no var_mean
-   op or kernel and no gather or argmax of the eager loss may run in the
-   profiled step, K23's wrapper must copy no input and K7's and K20's
+   K21 16 times, K19 and K20 twice each, K23, K24, K25 and K26 once, no
+   var_mean op or kernel, no gather or argmax of the eager loss and no
+   kernel of the eager update (a foreach kernel, or anything but K25 and
+   K26 under the `clip_adam` label; "optimizer" 0 ms) may run in the
+   profiled step, which is held against the launch plan as in step 6, K23's wrapper must copy no input and K7's and K20's
    no gradient (K7 reads K24's dense ∂p in place; so in steps 10 and 11
    too, `hold_loss_path`), and the layout of each one K7 and K20 get is
    printed (`prob_grad_layouts`, `fpn_grad_layouts`; K7's all dense);
@@ -254,6 +273,7 @@ the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -268,6 +288,7 @@ import torch
 
 from itermvs_tpu_torch import entry as entry_points
 from itermvs_tpu_torch import kernels
+from itermvs_tpu_torch.engine import train_loop
 from itermvs_tpu_torch.engine.checkpoint import restore_checkpoint, save_checkpoint
 from itermvs_tpu_torch.engine.profiling import maybe_enable_nan_debugging
 from itermvs_tpu_torch.engine.train_loop import (
@@ -283,6 +304,7 @@ from itermvs_tpu_torch.models.itermvs import (
     initial_depth_samples)
 from itermvs_tpu_torch.ops import bn_act as bn_ops
 from itermvs_tpu_torch.ops import bn_stats as stats_ops
+from itermvs_tpu_torch.ops import clip_adam as clip_ops
 from itermvs_tpu_torch.ops import conv_gru
 from itermvs_tpu_torch.ops import full_loss as full_loss_ops
 from itermvs_tpu_torch.ops import resize as resize_ops
@@ -1355,17 +1377,56 @@ def bare_launch(name, args):
 CAPTURE_PAUSE_S = 1.0
 
 
-def device_capture(fn, phase):
+# Captures of a profiled map or step against its launch plan, at most.
+PLAN_CAPTURES = 3
+
+
+def plan_counts(by_name):
+    """{report name: device kernels} of every hand-written kernel in a
+    capture (`by_name`, as `device_summary` gives it)."""
+    got = dict.fromkeys(KERNEL_NAMES, 0)
+    for name, (calls, _) in by_name.items():
+        cat = _category(name)
+        if cat in got:
+            got[cat] += calls
+    return got
+
+
+def plan_misses(by_name, planned):
+    """{report name: [device kernels captured, planned]} of each
+    hand-written kernel whose device kernels in a capture are not its
+    planned launches times KERNELS_PER_LAUNCH; empty where the capture
+    holds them all."""
+    got = plan_counts(by_name)
+    want = {k: n * KERNELS_PER_LAUNCH.get(k, 1) for k, n in planned.items()}
+    return {k: [got[k], n] for k, n in want.items() if got[k] != n}
+
+
+def device_capture(fn, phase, planned=None):
     """`device_time(fn)`, taken once more after CAPTURE_PAUSE_S where it
     holds no device event; raises naming `phase` if that one is empty
-    too, so that no timing line prints from nothing."""
-    for attempt in range(2):
-        got = device_time(fn)
-        if got[0]:
+    too, so that no timing line prints from nothing. With `planned` ({report
+    name: launches in one call of fn}): up to PLAN_CAPTURES captures, each
+    after a pause, until one holds no miss of the plan (`plan_misses`: an
+    empty or short capture), else SystemExit naming `phase`; returns
+    (by_name, by_category, busy ms, the capture's events)."""
+    attempts = 2 if planned is None else PLAN_CAPTURES
+    for attempt in range(attempts):
+        if planned is None:
+            got = device_time(fn)
+            miss = None if got[0] else "no device event"
+        else:
+            events = trace_events(fn)
+            got = (*device_summary(events), events)
+            miss = plan_misses(got[0], planned) if got[0] else "no device event"
+        if not miss:
             return got
-        print(json.dumps({"empty_capture": phase, "attempt": attempt + 1}))
+        print(json.dumps({"empty_capture" if planned is None else "short_capture": phase,
+                          "attempt": attempt + 1, "misses": miss}))
         time.sleep(CAPTURE_PAUSE_S)
-    raise SystemExit(f"{phase}: the profiler recorded no device event in two captures")
+    if planned is None:
+        raise SystemExit(f"{phase}: the profiler recorded no device event in two captures")
+    raise SystemExit(f"{phase}: {attempts} captures missed the launch plan: {miss}")
 
 
 def device_us(fn, reps=20, phase="device_us"):
@@ -2643,6 +2704,255 @@ def check_full_loss():
     return per_step
 
 
+# ------------------------------------------------------------ the optimizer update
+# K25's sum against the float64 sum of the same squares (relative); K26's
+# p, m and v against the plain version in units in the last place: every
+# operation is a _rn intrinsic in the kernel and one PyTorch kernel in the
+# plain version, so 0 (bit for bit), from the same state and K25's norm.
+GRAD_NORM_REL = 1e-12
+CLIP_ADAM_ULPS = 0
+# `check_clip_adam`'s cases: (label, the gradients' global norm, the
+# weight decay), each over CLIP_STEPS consecutive steps from a fresh state
+# (t = 1, 2, 3: the bias corrections), new gradients at each step.
+CLIP_CASES = (("clip", 10.0, 0.0), ("no_clip", 1.0, 0.0), ("clip_wd", 10.0, 1e-4),
+              ("no_clip_wd", 1.0, 1e-4))
+CLIP_STEPS = 3
+# Operations per element: K25 a float64 square and add; K26 the clip's
+# divide and multiply, the decay's multiply and add, the moments' 7, the
+# bias corrections' 2 divides, a square root, an add and a divide, and
+# the update's multiply and add.
+GRAD_NORM_OPS, CLIP_ADAM_OPS = 2, 19
+
+
+@functools.lru_cache(maxsize=None)
+def model_param_shapes():
+    """The training model's parameter shapes in `parameters()` order (the
+    optimizer's one group): 100 tensors, 341,333 elements."""
+    return tuple(tuple(p.shape) for p in
+                 Pipeline(iteration=TRAIN_ITERATION, test=False).parameters())
+
+
+def update_work(numel, kernel):
+    """(bytes, operations) of K25 (`grad_norm`: each gradient read once)
+    or K26 (`clip_adam`: g, p, m and v read, p, m and v written, which is
+    also the whole chain's least traffic) over `numel` elements."""
+    if kernel == "grad_norm":
+        return 4 * numel, GRAD_NORM_OPS * numel
+    return 28 * numel, CLIP_ADAM_OPS * numel
+
+
+def clip_adam_case(norm, steps, gen, dev="cuda"):
+    """(params, [grads of each of `steps` steps]) at the training model's
+    parameter shapes: the parameters of `init_weights(SEED)`, each step's
+    gradients normal draws from `gen` scaled to the global norm `norm`."""
+    params = [p.detach().to(dev).clone() for p in init_weights(
+        Pipeline(iteration=TRAIN_ITERATION, test=False), SEED).parameters()]
+    per_step = []
+    for _ in range(steps):
+        grads = [torch.randn(p.shape, device=dev, generator=gen) for p in params]
+        scale = norm / clip_ops.grad_norm_plain(grads)[1].item()
+        per_step.append([g * scale for g in grads])
+    return params, per_step
+
+
+def ulps_apart(got, want):
+    """The largest distance in float32 units in the last place between the
+    tensors of `got` and `want` (bit patterns as ordered integers)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return max(((ordered(a) - ordered(b)).abs().max().item() for a, b in zip(got, want)),
+               default=0)
+
+
+def hold_clip_adam(label, norm, wd, gen, timed=False, smi=""):
+    """K25 and K26 at `clip_adam_case`'s tensors over CLIP_STEPS steps from
+    zero moments, launched bare, beside the plain versions run on copies:
+    each step's K25 sum within GRAD_NORM_REL of the float64 sum and two
+    launches bit-equal; K26's p, m and v within CLIP_ADAM_ULPS of the plain
+    version's from the same state and norm, and two launches from that
+    state bit-equal. Then `clip_adam_step_` on a torch.optim.Adam over the
+    first state takes the same steps: one launch of each kernel per step,
+    and p, m, v and the step bit-equal to the bare launches'. Where `timed`:
+    bare ms, the profiler's device ms, bound, share and the launch floor
+    (the same C call over one element) of each kernel, the wrappers' and
+    the entry point's ms, the plain versions' ms, the eager path's
+    (`clip_by_global_norm_` + `torch.optim.Adam.step`, foreach) and the
+    library's (`clip_grad_norm_(foreach=True)` + `Adam(fused=True).step`).
+    One JSON line per kernel; returns {report name: record}."""
+    params, step_grads = clip_adam_case(norm, CLIP_STEPS, gen)
+    numel = sum(p.numel() for p in params)
+    ms, vs = [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params]
+    start = [p.clone() for p in params]
+    grads = [g.clone() for g in step_grads[0]]
+    group = {"lr": TRAIN_LR, "betas": (0.9, 0.999), "eps": 1e-8, "weight_decay": wd}
+    tables, blocks = clip_ops.tensor_tables(grads, params, ms, vs)
+    out = torch.empty(2 + blocks, dtype=torch.float64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    run_norm = bare_launch("grad_norm", (tables, len(tables), out[2:].data_ptr(), blocks,
+                                         out.data_ptr(), stream))
+    flat = lambda: [*params, *ms, *vs]
+    norm_rel, norm_repeats, ulps, abs_err, repeats, steps = 0.0, True, 0, 0.0, True, []
+    for step, new in enumerate(step_grads, 1):
+        for g, n in zip(grads, new):
+            g.copy_(n)
+        h = clip_ops.hyper(group, step)
+        run_norm()
+        first = out[:2].clone()
+        run_norm()
+        want = torch.stack([g.double().square().sum() for g in grads]).sum().item()
+        got = out[0].item()
+        norm_rel = max(norm_rel, abs(got - want) / want)
+        norm_repeats &= torch.equal(bits(first), bits(out[:2]))
+        run = bare_launch("clip_adam", (tables, len(tables), out.data_ptr(), *h, stream))
+        before = [t.clone() for t in flat()]
+        plain = [t.clone() for t in before]
+        n = len(params)
+        clip_ops.clip_adam_plain_(plain[:n], grads, plain[n:2 * n], plain[2 * n:], out[:2], h)
+        run()
+        once = [t.clone() for t in flat()]
+        for t, b in zip(flat(), before):
+            t.copy_(b)
+        run()
+        torch.cuda.synchronize()
+        ulps = max(ulps, ulps_apart(flat(), plain))
+        abs_err = max(abs_err, max((a - b).abs().max().item() for a, b in zip(flat(), plain)))
+        repeats &= all(torch.equal(bits(a), bits(b)) for a, b in zip(once, flat()))
+        steps.append({"t": step, "sum": got, "norm": out[1].item(),
+                      "clipped": not out[1].item() < clip_ops.CLIP_NORM})
+        del before, plain, once
+    # The entry point on a torch.optim.Adam over the first state.
+    module = torch.nn.ParameterList([torch.nn.Parameter(t.clone()) for t in start])
+    optimizer = torch.optim.Adam(module.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=wd)
+    launches = (clip_ops.grad_norm.launches, clip_ops.clip_adam_.launches)
+    for new in step_grads:
+        for p, g in zip(module.parameters(), new):
+            p.grad = g.clone()
+        clip_ops.clip_adam_step_(optimizer)
+    torch.cuda.synchronize()
+    step_launches = (clip_ops.grad_norm.launches - launches[0],
+                     clip_ops.clip_adam_.launches - launches[1])
+    state = [optimizer.state[p] for p in module.parameters()]
+    wrapper_equal = step_launches == (CLIP_STEPS, CLIP_STEPS) and all(
+        torch.equal(bits(p.detach()), bits(q)) and torch.equal(bits(s["exp_avg"]), bits(m))
+        and torch.equal(bits(s["exp_avg_sq"]), bits(v)) and s["step"].item() == CLIP_STEPS
+        for p, q, s, m, v in zip(module.parameters(), params, state, ms, vs))
+
+    recs = {}
+    for name, err in (("grad_norm", norm_rel), ("clip_adam", float(ulps))):
+        nbytes, ops = update_work(numel, name)
+        recs[name] = {"bytes": nbytes, "ops": ops, "max_rel_err": err, "library_ms": None,
+                      "launches": 1,
+                      "max_abs_err": norm_rel * steps[-1]["sum"] if name == "grad_norm"
+                      else abs_err}
+        recs[name]["bound_ms"], recs[name]["bound_by"] = bound_ms(nbytes, ops)
+    if timed:
+        h = clip_ops.hyper(group, CLIP_STEPS + 1)
+        run = bare_launch("clip_adam", (tables, len(tables), out.data_ptr(), *h, stream))
+        # The launch floor: the same C calls over one element.
+        one = [torch.zeros(1, device="cuda") for _ in range(4)]
+        one_tables, one_blocks = clip_ops.tensor_tables(one[1:2], one[:1], one[2:3], one[3:])
+        one_out = torch.zeros(2 + one_blocks, dtype=torch.float64, device="cuda")
+        floor_norm = bare_launch("grad_norm", (one_tables, 1, one_out[2:].data_ptr(),
+                                               one_blocks, one_out.data_ptr(), stream))
+        floor_adam = bare_launch("clip_adam", (one_tables, 1, one_out.data_ptr(), *h, stream))
+        plain_state = [t.clone() for t in flat()]
+        n = len(params)
+        calls = {
+            "grad_norm": (lambda: clip_ops.grad_norm(grads), lambda: clip_ops.grad_norm_plain(
+                grads)),
+            "clip_adam": (lambda: clip_ops.clip_adam_(params, grads, ms, vs, out[:2], h),
+                          lambda: clip_ops.clip_adam_plain_(
+                              plain_state[:n], grads, plain_state[n:2 * n],
+                              plain_state[2 * n:], out[:2], h))}
+        for p, g in zip(module.parameters(), grads):
+            p.grad = g.clone()
+        entry_ms = time_ms(lambda: clip_ops.clip_adam_step_(optimizer))
+
+        def adam(fused):
+            """An optimizer step of `fused` Adam (or the default foreach one)
+            over copies of the first state, gradients set once (the clips
+            below leave their norm at 2.0, so each call does the same
+            work)."""
+            ps = [torch.nn.Parameter(t.clone()) for t in start]
+            for p, g in zip(ps, grads):
+                p.grad = g.clone()
+            return ps, torch.optim.Adam(ps, lr=TRAIN_LR, betas=(0.9, 0.999), eps=1e-8,
+                                        weight_decay=wd, fused=fused)
+
+        eager_params, eager_opt = adam(None)
+        library_params, library_opt = adam(True)
+
+        def eager():
+            train_loop.clip_by_global_norm_(eager_params)
+            eager_opt.step()
+
+        def library():
+            torch.nn.utils.clip_grad_norm_(library_params, clip_ops.CLIP_NORM, foreach=True)
+            library_opt.step()
+
+        for name, bare, floor in (("grad_norm", run_norm, floor_norm),
+                                  ("clip_adam", run, floor_adam)):
+            rec = recs[name]
+            rec.update(ms=time_ms(bare, reps=100), call_ms=time_ms(calls[name][0], reps=100),
+                       device_ms=sum(device_us(bare, phase=f"{name} at {label}").values())
+                       / 1e3, launch_floor_ms=time_ms(floor, reps=100),
+                       launch_floor_device_ms=sum(device_us(
+                           floor, phase=f"{name} floor at {label}").values()) / 1e3,
+                       plain_ms=time_ms(calls[name][1]))
+            rec.update(share=rec["bound_ms"] / rec["ms"],
+                       device_share=rec["bound_ms"] / rec["device_ms"])
+        recs["clip_adam"].update(
+            library_ms=time_ms(library),
+            library_device_ms=device_capture(library, f"library update at {label}")[2],
+            library_note="clip_grad_norm_(foreach=True) + Adam(fused=True).step over the "
+                         "same tensors: a near function (it scales by 2/(n + 1e-6) always "
+                         "and rounds in torch's order) standing for the whole chain, K25 + "
+                         "K26; a yardstick only, never on the path",
+            eager_ms=time_ms(eager),
+            eager_device_ms=device_capture(eager, f"eager update at {label}")[2],
+            eager_note="clip_by_global_norm_ + torch.optim.Adam.step (foreach): what the "
+                       "port ran before K25 and K26",
+            entry_ms=entry_ms,
+            entry_note="clip_adam_step_ on a torch.optim.Adam: the tables, both C calls")
+        del plain_state, eager_params, eager_opt, library_params, library_opt
+    del module, optimizer, state
+    for name, rec in recs.items():
+        line = {"kernel": name, "shape": label, "tensors": len(params), "elements": numel,
+                "weight_decay": wd, "steps": steps if name == "grad_norm" else CLIP_STEPS,
+                **rec, "card": smi}
+        if name == "grad_norm":
+            line.update(two_launches_bit_equal=norm_repeats,
+                        tolerance=f"{GRAD_NORM_REL} of the float64 sum, relative")
+            ok = norm_rel <= GRAD_NORM_REL and norm_repeats
+        else:
+            line.update(max_ulps=ulps, two_launches_bit_equal=repeats,
+                        wrapper_equal=wrapper_equal, entry_launches=step_launches,
+                        tolerance=f"{CLIP_ADAM_ULPS} ulp of the plain version (p, m, v)")
+            ok = ulps <= CLIP_ADAM_ULPS and repeats and wrapper_equal
+        print(json.dumps(line))
+        if not ok:
+            raise SystemExit(f"{name} at {label}: {line}")
+    return recs
+
+
+def check_clip_adam(smi=""):
+    """K25 and K26 (`hold_clip_adam`) at the training model's 100 parameter
+    shapes from the seeded init, with gradients drawn from SEED: each of
+    CLIP_CASES (the global norm above and below 2.0, weight decay 0 and
+    1e-4) over three steps, the first case timed. Returns the per-step
+    records of both kernels (the timed case's)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    per_step = None
+    for i, (label, norm, wd) in enumerate(CLIP_CASES):
+        recs = hold_clip_adam(label, norm, wd, gen, timed=i == 0, smi=smi)
+        per_step = per_step or recs
+    print(json.dumps({"clip_adam_totals": {"per_step": per_step}}))
+    return per_step
+
+
 def valid_corners(base, h1, w1):
     """Per row, the count of its 4 corners that lie on the source map."""
     y, x = base // w1, base % w1
@@ -3075,8 +3385,24 @@ TEMPLATED = ("depth_readout_grad", "depth_readout", "sweep_taps", "convex_upsamp
              "bn_act_grad", "bn_act", "upsample2x_grad", "upsample2x_add", "bn_stats_grad",
              "bn_stats")
 # The float32-only kernels, longest name first (K11's is a prefix of K12's,
-# K23's of K24's): a source's kernels are named `<name>_...kernel`.
-F32_ONLY = ("view_aggregate_grad", "view_aggregate", "full_loss_grad", "full_loss")
+# K23's of K24's): a source's kernels are named `<name>_...kernel`. They
+# are named before the library's categories ("clip_adam" holds "adam").
+F32_ONLY = ("view_aggregate_grad", "view_aggregate", "full_loss_grad", "full_loss",
+            "grad_norm", "clip_adam")
+# Device kernels per counted launch of each kernel (1 where not named): the
+# launchers that run a second kernel (a fold, K5 bf16's rounding pass);
+# K25's first kernel and K26 run once per table of MAX_TENSORS tensors,
+# and the training model's 100 parameters make one.
+KERNELS_PER_LAUNCH = {"sweep_grad_src_bf16": 2, "convex_upsample_grad": 2,
+                      "convex_upsample_grad_bf16": 2, "bn_act_grad": 2, "bn_act_grad_bf16": 2,
+                      "bn_stats": 2, "bn_stats_bf16": 2, "full_loss": 2, "grad_norm": 2}
+# cuDNN's layout transposes (the bf16 path keeps NCHW storage, its kernels
+# run NHWC) and the names of its convolution kernels that hold none of
+# the usual words: the FFT algorithm's transforms, and anything in its
+# namespaces.
+CONV_LAYOUT = ("nchwToNhwc", "nhwcToNchw")
+CUDNN_CONV = ("cudnn", "fft2d_", "fft1d_", "region_transform", "conv", "xmma", "gemm",
+              "wgrad", "dgrad")
 
 
 def planned_counts(**launches):
@@ -3106,6 +3432,9 @@ def planned_map_counts(shapes, dtype, maps=1, iteration=ITERATION, features=None
 
 
 def _category(name):
+    """A device event's kind: a hand-written kernel's report name, or
+    "memcpy", "conv_layout", "batch_norm", "convolution", "optimizer",
+    and "other" for every other (eager PyTorch) kernel."""
     if "round_to_bf16" in name:           # sweep_grad_src_bf16's rounding pass
         return "sweep_grad_src_bf16"
     for k in TEMPLATED:
@@ -3122,24 +3451,41 @@ def _category(name):
             return fn.__name__
     if "Memcpy" in name or "Memset" in name:
         return "memcpy"
+    if any(s in name for s in CONV_LAYOUT):
+        return "conv_layout"
     if "bn_" in name or "batch_norm" in name:
         return "batch_norm"
-    if any(s in name for s in ("conv", "xmma", "gemm", "wgrad", "dgrad")):
+    if any(s in name for s in CUDNN_CONV):
         return "convolution"
     if any(s in name for s in ("multi_tensor", "foreach", "adam", "Adam")):
         return "optimizer"
     return "other"
 
 
+# The profiler loses the first few device events of a capture (on the
+# card: none in a process's first captures, then 1 to 5 over its next
+# twenty, always the earliest: a training step's first kernel, its first
+# convolution and K21's first pair). So each capture starts with
+# PROFILE_PRIMERS spin kernels (`torch.cuda._sleep`), which take that
+# loss, and their events are left out of what it returns.
+PROFILE_PRIMERS = 64
+PRIMER_KERNEL = "spin_kernel"
+
+
 def trace_events(fn):
-    """Run `fn` under torch.profiler (host and device); its events."""
+    """Run `fn` under torch.profiler (host and device); its events, the
+    primers' device events left out."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PRIMERS):
+            torch.cuda._sleep(100)
         fn()
         torch.cuda.synchronize()
-    return prof.events()
+    return [e for e in prof.events()
+            if not (e.device_type == DeviceType.CUDA and PRIMER_KERNEL in e.name)]
 
 
 def _annotations(events):
@@ -3178,16 +3524,19 @@ def device_time(fn):
 # per call each, K13 and K14 under `conv_gru`, two per GRU call, K17
 # under `bn_act`, one per BN epilogue, K19 under `fpn_add`, one per FPN
 # add, and in training K21 under `bn_stats`, one per BN (its sum and
-# its fold: two kernels), and the loss's forward under `full_loss`
-# (models/losses.py: K23's two kernels and the few ops on its sums).
+# its fold: two kernels), the loss's forward under `full_loss`
+# (models/losses.py: K23's two kernels and the few ops on its sums) and
+# the optimizer update under `clip_adam` (engine/train_loop.py: K25's two
+# kernels and K26's one).
 CHAINS = ("depth_readout", "fused_sweep_taps", "convex_upsample", "view_aggregate",
-          "conv_gru", "bn_act", "fpn_add", "bn_stats", "full_loss")
+          "conv_gru", "bn_act", "fpn_add", "bn_stats", "full_loss", "clip_adam")
 
 
-def chain_time(events):
-    """{label: {"device_ms", "launches"}} of each of CHAINS: the kernels
-    that ran inside the label's device-side ranges. One stream runs the
-    model, so a range holds exactly the kernels launched inside it."""
+def label_kernels(events):
+    """{label: [(kernel name, µs)]} of each of CHAINS: the kernels (copies
+    aside) that ran inside the label's device-side ranges. One stream
+    runs the model, so a range holds exactly the kernels launched inside
+    it."""
     from torch.autograd import DeviceType
 
     ranges = _annotations(events)
@@ -3199,13 +3548,17 @@ def chain_time(events):
         if e.name in spans:
             spans[e.name].append((e.time_range.start, e.time_range.end))
         elif e.name not in ranges and _category(e.name) != "memcpy":
-            kernels.append((e.time_range.start, e.time_range.end))
-    out = {}
-    for label, windows in spans.items():
-        inside = [t1 - t0 for t0, t1 in kernels
-                  if any(a <= t0 and t1 <= b for a, b in windows)]
-        out[label] = {"device_ms": sum(inside) / 1e3, "launches": len(inside)}
-    return out
+            kernels.append((e.name, e.time_range.start, e.time_range.end))
+    return {label: [(name, t1 - t0) for name, t0, t1 in kernels
+                    if any(a <= t0 and t1 <= b for a, b in windows)]
+            for label, windows in spans.items()}
+
+
+def chain_time(events):
+    """{label: {"device_ms", "launches"}} of each of CHAINS
+    (`label_kernels`)."""
+    return {label: {"device_ms": sum(us for _, us in inside) / 1e3, "launches": len(inside)}
+            for label, inside in label_kernels(events).items()}
 
 
 def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=False):
@@ -3227,8 +3580,10 @@ def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=F
     one read of each of the step's images' 16 BN inputs
     (`bn_stats_image_bytes`); full_loss, in training only, K23's
     (`loss_work` of stage 2: each of the 1 + iteration probabilities
-    read once). Their operations per byte are far below the card's, so
-    bytes bound all nine."""
+    read once); clip_adam, in training only, the update's g, p, m, v read
+    and p, m, v written once over the model's parameters (`update_work`).
+    Their operations per byte are far below the card's, so bytes bound
+    all ten."""
     p4 = batch * (height // 4) * (width // 4)
     p8 = batch * (height // 8) * (width // 8)
     sources = views - 1
@@ -3251,7 +3606,9 @@ def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=F
               "bn_stats": batch * views * bn_stats_image_bytes(width, height, itemsize)
               if train else 0,
               "full_loss": loss_work(1 + iteration, p4, batch * height * width, True)[0]
-              if train else 0}
+              if train else 0,
+              "clip_adam": update_work(sum(math.prod(s) for s in model_param_shapes()),
+                                       "clip_adam")[0] if train else 0}
     return {k: 1e3 * v / PEAK_BYTES_PER_S for k, v in nbytes.items()}
 
 
@@ -3259,18 +3616,19 @@ def profile_maps(model, samples, outdir, unprofiled_wall):
     """Device time by kernel over the same maps as the timed run
     (torch.profiler, kernel and copy events only), the kernels launched
     per map, and the labelled chains' device time and launches per map
-    beside their byte bounds. The idle share is taken against the timed
-    run's own wall time, since tracing slows the host."""
-    events = trace_events(
-        lambda: run_depth(model, samples, outdir, "cuda", log=lambda *_: None))
-    by_name, by_cat, busy_ms = device_summary(events)
-    if not busy_ms:
-        print(json.dumps({"profile": "device time not measured"}))
-        return
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    beside their byte bounds. The capture is held against the maps'
+    launch plan (`device_capture`: retaken where short, raising after
+    PLAN_CAPTURES). The idle share is taken against the timed run's own
+    wall time, since tracing slows the host."""
     maps = len(samples)
-    kernels = sum(c for k, (c, _) in by_name.items() if _category(k) != "memcpy")
     itemsize = torch.finfo(model.compute_dtype).bits // 8
+    planned = planned_map_counts(sweep_shapes(WIDTH, HEIGHT, VIEWS, ITERATION,
+                                              itemsize=itemsize), model.compute_dtype, maps)
+    by_name, by_cat, busy_ms, events = device_capture(
+        lambda: run_depth(model, samples, outdir, "cuda", log=lambda *_: None),
+        f"profile_maps {model.compute_dtype}", planned)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    kernels = sum(c for k, (c, _) in by_name.items() if _category(k) != "memcpy")
     bounds = chain_bound_ms(WIDTH, HEIGHT, VIEWS, ITERATION, itemsize=itemsize)
     print(json.dumps({
         "profile_maps": maps, "dtype": str(model.compute_dtype),
@@ -3278,6 +3636,7 @@ def profile_maps(model, samples, outdir, unprofiled_wall):
         "wall_ms_per_map_unprofiled": unprofiled_wall * 1e3 / maps,
         "device_idle_share": max(0.0, 1 - busy_ms / (unprofiled_wall * 1e3)),
         "kernels_per_map": kernels / maps,
+        "hand_written_kernels": {k: n for k, n in plan_counts(by_name).items() if n},
         "chains_per_map": {k: {"device_ms": v["device_ms"] / maps,
                                "launches": v["launches"] / maps,
                                "bound_ms": bounds[k]}
@@ -3369,12 +3728,14 @@ def planned_step_counts(shapes, dtype, iteration=TRAIN_ITERATION):
     once per aggregation, 1 + 3·iteration; K13-K16 once per GRU call,
     iteration; K17, K18 and K22 13 times, K21 once per BN (16) and K19
     and K20 twice, FeatureNet's one call over the batch's views; K23 and
-    K24, float32 in both precisions, once)."""
+    K24, float32 in both precisions, once; the update's K25 and K26,
+    float32 in both precisions, once)."""
     forward = sum(s[-1] for s in shapes)
     sweeps = sum(sweeps_of(shapes, dtype).values())
     aggregations = 1 + len(LEVELS) * iteration
     return planned_counts(view_aggregate=aggregations, view_aggregate_grad=aggregations,
-                          full_loss=1, full_loss_grad=1, **{kernel_name(k, dtype): n for k, n in (
+                          full_loss=1, full_loss_grad=1, grad_norm=1, clip_adam=1,
+                          **{kernel_name(k, dtype): n for k, n in (
         ("sweep_premul", forward), ("corr_epilogue", forward), ("sweep_grad_ref", sweeps),
         ("sweep_grad_src", sweeps), ("depth_readout", 1 + iteration),
         ("depth_readout_grad", 1 + iteration), ("sweep_taps", 1 + iteration),
@@ -3564,6 +3925,24 @@ def loss_op_events(events):
     return found
 
 
+def update_op_events(events):
+    """{name: calls} of the device kernels among `events` that belong to
+    the eager update K25 and K26 replaced: any kernel inside the
+    `clip_adam` label that is not theirs (the clip's norms, divides,
+    wheres and copies), and any foreach (`multi_tensor_apply`) kernel
+    anywhere, which only torch.optim.Adam ran in the step."""
+    from torch.autograd import DeviceType
+
+    names = [n for n, _ in label_kernels(events)["clip_adam"]
+             if _category(n) not in ("grad_norm", "clip_adam")]
+    names += [e.name for e in events if e.device_type == DeviceType.CUDA
+              and ("multi_tensor" in e.name or "foreach" in e.name)]
+    found = {}
+    for name in names:
+        found[name[:90]] = found.get(name[:90], 0) + 1
+    return found
+
+
 def hold_loss_path(name, copies, readout_copies, layouts, events):
     """The loss's gates of a training phase: K23's wrapper copied no
     input, K7's no probability gradient, every probability gradient
@@ -3582,10 +3961,13 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
     """The training path at full width (see TRAIN_*) in `dtype`:
     TRAIN_STEPS steps on one batch from a fresh seeded init; the loss must
     be finite and fall and each sweep kernel of `dtype` launch 52 times
-    per step. Then one profiled step, a validation step, a checkpoint
-    round trip on the card and `check_real_sweeps` on one more step's
-    sweeps (`synthetic_ms`: the `sweep_inputs` times printed beside).
-    Returns (launch counts of the timed steps, record)."""
+    per step. Then one profiled step, held against the step's launch
+    plan (`device_capture`) and free of the eager update
+    (`update_op_events`, "optimizer" 0), a validation step, a checkpoint
+    round trip on the card (the model and the Adam state K25 and K26
+    keep, bit for bit) and `check_real_sweeps` on one more step's sweeps
+    (`synthetic_ms`: the `sweep_inputs` times printed beside). Returns
+    (launch counts of the timed steps, record)."""
     t0 = time.perf_counter()
     sample = train_sample(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_BATCH, SEED)
     batch = to_device_batch(sample, "cuda")
@@ -3619,33 +4001,28 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
            "depth_readout_grad_copies": copies, "upsample2x_grad_copies": up2_copies,
            "full_loss_copies": loss_copies}
 
-    events = trace_events(
-        lambda: train_step(model, optimizer, batch, TRAIN_LR, True, TRAIN_ITERATION))
-    by_name, by_cat, busy_ms = device_summary(events)
+    by_name, by_cat, busy_ms, events = device_capture(
+        lambda: train_step(model, optimizer, batch, TRAIN_LR, True, TRAIN_ITERATION),
+        f"train_full_width {dtype}", planned_step_counts(shapes, dtype))
     rec["var_mean_events"] = var_mean_events(events)
     rec["eager_loss_events"] = loss_op_events(events)
+    rec["eager_update_events"] = update_op_events(events)
     wall_ms = 1e3 * sorted(last)[len(last) // 2]
-    if busy_ms:
-        bounds = chain_bound_ms(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_ITERATION,
-                                TRAIN_BATCH, torch.finfo(dtype).bits // 8, train=True)
-        rec["profile_step"] = {
-            "device_busy_ms": busy_ms, "wall_ms_unprofiled_median": wall_ms,
-            "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
-            "kernels": sum(c for k, (c, _) in by_name.items() if _category(k) != "memcpy"),
-            # K21's and K22's device kernels (two per K21 launch: its sums
-            # and its fold), beside the launch plan's count per step.
-            "bn_stats_kernels": {cat: sum(c for k, (c, _) in by_name.items()
-                                          if _category(k) == cat)
-                                 for cat in (kernel_name("bn_stats", dtype),
-                                             kernel_name("bn_stats_grad", dtype))},
-            "chains_forward": {k: dict(v, bound_ms=bounds[k])
-                               for k, v in chain_time(events).items()},
-            "by_category_ms": {k: v / 1e3 for k, v in
-                               sorted(by_cat.items(), key=lambda kv: -kv[1])},
-            "top_ms": [{"name": k[:90], "calls": c, "device_ms": t / 1e3} for k, (c, t)
-                       in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]]}
-    else:
-        rec["profile_step"] = "device time not measured"
+    bounds = chain_bound_ms(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_ITERATION,
+                            TRAIN_BATCH, torch.finfo(dtype).bits // 8, train=True)
+    rec["profile_step"] = {
+        "device_busy_ms": busy_ms, "wall_ms_unprofiled_median": wall_ms,
+        "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+        "kernels": sum(c for k, (c, _) in by_name.items() if _category(k) != "memcpy"),
+        # Each hand-written kernel's device kernels in the capture (two per
+        # launch where KERNELS_PER_LAUNCH says so), held against the plan.
+        "hand_written_kernels": {k: n for k, n in plan_counts(by_name).items() if n},
+        "chains_forward": {k: dict(v, bound_ms=bounds[k])
+                           for k, v in chain_time(events).items()},
+        "by_category_ms": {k: v / 1e3 for k, v in
+                           sorted(by_cat.items(), key=lambda kv: -kv[1])},
+        "top_ms": [{"name": k[:90], "calls": c, "device_ms": t / 1e3} for k, (c, t)
+                   in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]]}
 
     val = {k: float(v) for k, v in val_step(model, batch, True, TRAIN_ITERATION).items()}
     rec["val_scalars"] = val
@@ -3669,6 +4046,10 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
         raise SystemExit(f"training launch counts {counts} != planned {planned}")
     if rec["var_mean_events"]:
         raise SystemExit(f"var_mean ran in the training step: {rec['var_mean_events']}")
+    if rec["eager_update_events"] or rec["profile_step"]["by_category_ms"].get("optimizer"):
+        raise SystemExit(f"the eager update ran in the training step: "
+                         f"{rec['eager_update_events']}, "
+                         f"{rec['profile_step']['by_category_ms'].get('optimizer')} ms")
     if copies != 0:
         raise SystemExit(f"K7's wrapper copied the probability's gradient {copies} times")
     if up2_copies != 0:
@@ -4596,7 +4977,7 @@ REPORT_PER_STEP = ("sweep_grad_ref", "sweep_grad_src", "depth_readout_grad",
                    "depth_readout_grad_bf16", "convex_upsample_grad_bf16",
                    "gru_update_grad_bf16", "gru_reset_grad_bf16", "bn_act_grad_bf16",
                    "upsample2x_grad_bf16", "bn_stats_bf16", "bn_stats_grad_bf16", "full_loss",
-                   "full_loss_grad")
+                   "full_loss_grad", "grad_norm", "clip_adam")
 
 
 def kernel_sources():
@@ -4648,7 +5029,11 @@ def kernel_sources():
                "full_loss": ("itermvs_tpu_torch/csrc/full_loss.cu",
                              "itermvs_tpu/models/losses.py:35"),
                "full_loss_grad": ("itermvs_tpu_torch/csrc/full_loss_grad.cu",
-                                  "itermvs_tpu/models/losses.py:35")}
+                                  "itermvs_tpu/models/losses.py:35"),
+               "grad_norm": ("itermvs_tpu_torch/csrc/grad_norm.cu",
+                             "itermvs_tpu/engine/train_loop.py:54"),
+               "clip_adam": ("itermvs_tpu_torch/csrc/clip_adam.cu",
+                             "itermvs_tpu/engine/train_loop.py:54")}
     for name in ("corr_epilogue", "sweep_premul", "sweep_grad_ref", "sweep_grad_src"):
         source, replaces = sources[name]
         sources[f"{name}_bf16"] = (source.replace(".cu", "_bf16.cu"), replaces)
@@ -4703,6 +5088,8 @@ def main():
     per_map.update(up2_map)
     # K23 and K24 at the training step's loss, planted and real.
     loss_step = check_full_loss()
+    # K25 and K26 at the training model's parameters, clipped and not.
+    update_step = check_clip_adam(smi)
     # K3 at DTU's 10 sources, and at the 4 of the main path's fusion (the
     # shape its reported time and bound are taken at).
     k3 = check_consistency(WIDTH, HEIGHT, (DTU_SOURCES, VIEWS - 1))[VIEWS - 1]
@@ -4876,6 +5263,7 @@ def main():
     per_step.update(up2_step)
     per_step.update(bn_stats_step)
     per_step.update(loss_step)
+    per_step.update(update_step)
     for name in REPORT_PER_STEP:
         tot = per_step[name]
         t_bytes, t_ops = tot["bytes"] / PEAK_BYTES_PER_S, tot["ops"] / PEAK_F32_PER_S

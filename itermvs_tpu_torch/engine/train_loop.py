@@ -5,11 +5,13 @@ The recipe is the JAX package's: global-norm gradient clip 2.0, then
 weight decay added to the gradient, then Adam(0.9, 0.999, eps 1e-8), as
 `optax.chain(clip_by_global_norm(2.0), add_decayed_weights(wd), adam)`
 chains them; MultiStep LR halving at the `--lrepochs` milestones, set
-per epoch. The clip is written as optax writes it (`g / norm · 2.0`
-where norm ≥ 2.0, untouched below), not as `clip_grad_norm_`, which
-scales by `2.0 / (norm + 1e-6)` always. `torch.optim.Adam(weight_decay=)`
-adds `wd · param` to the gradient before its moments, as
-`add_decayed_weights` does.
+per epoch. `train_step` runs the chain as `ops/clip_adam.py`'s
+`clip_adam_step_` (K25 `grad_norm`, K26 `clip_adam` on the card; their
+plain versions, in optax's order of operations, on the CPU) on the state
+of the `torch.optim.Adam` that `make_optimizer` returns. The clip is
+optax's (`g / norm · 2.0` where norm ≥ 2.0, untouched below), not
+`clip_grad_norm_`'s, which scales by `2.0 / (norm + 1e-6)` always.
+`clip_by_global_norm_` is that clip alone, in eager PyTorch.
 
 Data-parallel (a process group, parallel/mesh.py): each rank runs the
 step on its slice of the global batch; BatchNorm, the loss and the
@@ -24,13 +26,13 @@ import math
 
 import torch
 import torch.nn as nn
+from torch.profiler import record_function
 
 from itermvs_tpu_torch.engine.metrics import depth_metrics
 from itermvs_tpu_torch.models.losses import full_loss
+from itermvs_tpu_torch.ops.clip_adam import CLIP_NORM, clip_adam_step_
 from itermvs_tpu_torch.parallel.mesh import (
     all_reduce_grads_, all_reduce_sum, is_initialized)
-
-CLIP_NORM = 2.0
 
 
 def parse_lrepochs(lrepochs: str):
@@ -85,7 +87,9 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
 
 def make_optimizer(model: nn.Module, wd: float = 0.0) -> torch.optim.Adam:
     """Adam(0.9, 0.999, eps 1e-8) with `wd` added to the gradient; the lr
-    is set per step (`train_step`) and kept in the state_dict."""
+    is set per step (`train_step`) and kept in the state_dict. `train_step`
+    updates through `clip_adam_step_`, which keeps this optimizer's
+    hyperparameters and state."""
     return torch.optim.Adam(model.parameters(), lr=1e-3, betas=(0.9, 0.999),
                             eps=1e-8, weight_decay=wd)
 
@@ -128,7 +132,8 @@ def _scalars(loss, outputs, batch, num_iters):
 def train_step(model, optimizer, batch, lr: float, regress: bool, num_iters: int):
     """One step: forward in train mode (BN batch statistics, running ones
     updated), loss, backward, (in a process group) the gradients summed
-    over the ranks, clip, Adam at `lr`. Returns the scalars (0-dim
+    over the ranks, then the clip, decay and Adam at `lr` in one update
+    (`clip_adam_step_`, label `clip_adam`). Returns the scalars (0-dim
     tensors on the device: reading them is the only sync)."""
     model.train()
     for group in optimizer.param_groups:
@@ -145,8 +150,8 @@ def train_step(model, optimizer, batch, lr: float, regress: bool, num_iters: int
             p.grad = torch.zeros_like(p)
     if is_initialized():
         all_reduce_grads_(params)
-    clip_by_global_norm_(params)
-    optimizer.step()
+    with record_function("clip_adam"):
+        clip_adam_step_(optimizer)
     return _scalars(loss, outputs, batch, num_iters)
 
 

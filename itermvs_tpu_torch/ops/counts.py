@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from itermvs_tpu_torch.ops.bn_act import bn_act, bn_act_grad
 from itermvs_tpu_torch.ops.bn_stats import bn_stats_grad_, bn_sums
+from itermvs_tpu_torch.ops.clip_adam import clip_adam_, grad_norm
 from itermvs_tpu_torch.ops.consistency import consistency
 from itermvs_tpu_torch.ops.conv_gru import gru_reset, gru_reset_grad, gru_update, gru_update_grad
 from itermvs_tpu_torch.ops.depth_readout import depth_readout, depth_readout_grad
@@ -35,14 +36,16 @@ COUNTERS = {"sweep_premul": sweep_premul, "corr_epilogue": corr_epilogue,
             "upsample2x_add": upsample2x_add, "upsample2x_grad": upsample2x_grad,
             "bn_stats": bn_sums, "bn_stats_grad": bn_stats_grad_}
 F32_COUNTERS = {"view_aggregate": view_aggregate, "view_aggregate_grad": view_aggregate_grad,
-                "full_loss": full_loss_terms, "full_loss_grad": full_loss_grad}
+                "full_loss": full_loss_terms, "full_loss_grad": full_loss_grad,
+                "grad_norm": grad_norm, "clip_adam": clip_adam_}
 # Every kernel's report name, float32 forms first.
 KERNEL_NAMES = ("sweep_premul", "corr_epilogue", "fusion_consistency", "sweep_grad_ref",
                 "sweep_grad_src", "depth_readout", "depth_readout_grad", "sweep_taps",
                 "convex_upsample", "convex_upsample_grad", "view_aggregate",
                 "view_aggregate_grad", "gru_reset", "gru_update", "gru_update_grad",
                 "gru_reset_grad", "bn_act", "bn_act_grad", "upsample2x_add", "upsample2x_grad",
-                "bn_stats", "bn_stats_grad", "full_loss", "full_loss_grad", "sweep_premul_bf16",
+                "bn_stats", "bn_stats_grad", "full_loss", "full_loss_grad", "grad_norm",
+                "clip_adam", "sweep_premul_bf16",
                 "corr_epilogue_bf16", "sweep_grad_ref_bf16", "sweep_grad_src_bf16",
                 "depth_readout_bf16", "depth_readout_grad_bf16", "sweep_taps_bf16",
                 "convex_upsample_bf16", "convex_upsample_grad_bf16", "gru_reset_bf16",
@@ -52,7 +55,7 @@ KERNEL_NAMES = ("sweep_premul", "corr_epilogue", "fusion_consistency", "sweep_gr
 
 
 def launch_counts() -> dict[str, int]:
-    """{report name: launches} of all forty-three kernels."""
+    """{report name: launches} of all forty-five kernels."""
     counts = {"fusion_consistency": consistency.launches}
     counts.update({name: fn.launches for name, fn in F32_COUNTERS.items()})
     for name, fn in COUNTERS.items():

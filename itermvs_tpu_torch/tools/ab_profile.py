@@ -17,8 +17,12 @@ var_mean calls and the eager loss's gathers and argmaxes left in it
 `VarMean`, `gather` or `argmax` by input shapes, and their device
 kernels, Welford reductions included). Each run's whole output goes to
 `DIR/ab_profile_<run>_<tree>.log` (by default `_export/ab_profile/`);
-the summary lines print here. A tree needs chip_smoke's `profile_maps`,
-`train_full_width` and `render_scene`.
+the summary lines print here. Each profile's whole kernel table is logged
+too, and its device time by kind is restated with this tree's
+`chip_smoke._category` (`restated_by_category_ms`), so that every tree's
+maps and steps are read under the same categories. A tree needs
+chip_smoke's `profile_maps`, `train_full_width`, `render_scene` and
+`device_summary`.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import sys
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+MAPS = 5                    # chip_smoke's VIEWS: the maps profile_maps runs
 
 RUN = r'''
 import json, tempfile, time, torch
@@ -43,6 +48,17 @@ from itermvs_tpu_torch.models import Pipeline
 from itermvs_tpu_torch.weights import load_npz_weights, pretrained_path
 
 c.kernels.build_all()
+summarize = c.device_summary
+
+
+def logged_summary(events):
+    """chip_smoke's `device_summary`, its kernel table printed first."""
+    out = summarize(events)
+    print(json.dumps({"device_kernels": out[0]}))
+    return out
+
+
+c.device_summary = logged_summary
 cams, images, _ = c.render_scene(c.WIDTH, c.HEIGHT, c.VIEWS, c.SEED)
 samples = c.pinned(c.samples_of(cams, images))
 quiet = lambda *_: None
@@ -98,12 +114,20 @@ for dt in (torch.float32, torch.bfloat16):
 '''
 
 
-def summary(line):
-    """The fields of one output line worth printing here, or None."""
-    try:
-        rec = json.loads(line)
-    except ValueError:
-        return None
+def restate(table, per, category):
+    """{kind: ms} of a logged kernel table ({name: (calls, µs)}) under
+    `category`, over `per` maps or steps, and its kernels (copies aside)."""
+    ms, kernels = {}, 0
+    for name, (calls, us) in table.items():
+        kind = category(name)
+        ms[kind] = ms.get(kind, 0.0) + us / 1e3 / per
+        kernels += calls if kind != "memcpy" else 0
+    return {"restated_by_category_ms": dict(sorted(ms.items(), key=lambda kv: -kv[1])),
+            "restated_kernels": kernels / per}
+
+
+def summary(rec):
+    """The fields of one output record worth printing here, or None."""
     if "maps_per_s" in rec or "listed_step" in rec:
         return rec
     if "profile_maps" in rec:
@@ -130,6 +154,9 @@ def main():
     if not torch.cuda.is_available():
         print("ab_profile: no CUDA device", file=sys.stderr)
         return 1
+    sys.path.insert(0, ROOT)
+    from chip_smoke import _category
+
     trees = [os.path.abspath(t) for t in args.tree]
     order = trees + [ROOT, ROOT] + trees[::-1]
     out_dir = os.path.abspath(args.out)
@@ -143,10 +170,21 @@ def main():
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)
             raise SystemExit(f"ab_profile: run {run} ({label}) failed")
+        table = None
         for line in proc.stdout.splitlines():
-            rec = summary(line)
-            if rec is not None:
-                print(json.dumps({"run": run, "tree": label, **rec}))
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(rec, dict) and "device_kernels" in rec:
+                table = rec["device_kernels"]
+                continue
+            out = summary(rec) if isinstance(rec, dict) else None
+            if out is None:
+                continue
+            if table is not None and ("profile_maps" in rec or "train" in rec):
+                out.update(restate(table, MAPS if "profile_maps" in rec else 1, _category))
+            print(json.dumps({"run": run, "tree": label, **out}))
     return 0
 
 

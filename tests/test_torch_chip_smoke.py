@@ -238,17 +238,17 @@ def test_bf16_plans_launch_as_many_kernels():
 
 
 def test_launch_counts_name_all_nine_kernels():
-    """All forty-three report names since K6-K24 joined the nine: the
+    """All forty-five report names since K6-K26 joined the nine: the
     sweep and fusion kernels, the depth readout forward and backward, the
     sweep taps, the convex upsample forward and backward, the ConvGRU's
     gates forward and backward, the BN epilogue forward and backward, the
     FPN add forward and backward and BN's training statistics forward and
     backward, each but fusion_consistency in both dtypes, and the view
-    aggregation and the training loss forward and backward (float32
-    only)."""
+    aggregation and the training loss forward and backward and the
+    optimizer update's norm and step (float32 only)."""
     chip_smoke.reset_launch_counts()
     counts = chip_smoke.launch_counts()
-    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 43
+    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 45
     assert {"depth_readout", "depth_readout_grad_bf16", "sweep_taps_bf16", "convex_upsample",
             "convex_upsample_grad_bf16", "view_aggregate", "view_aggregate_grad",
             "gru_reset", "gru_update", "gru_update_grad", "gru_reset_grad", "gru_reset_bf16",
@@ -256,9 +256,9 @@ def test_launch_counts_name_all_nine_kernels():
             "bn_act_grad", "bn_act_bf16", "bn_act_grad_bf16", "upsample2x_add",
             "upsample2x_grad", "upsample2x_add_bf16", "upsample2x_grad_bf16", "bn_stats",
             "bn_stats_grad", "bn_stats_bf16", "bn_stats_grad_bf16"} <= set(counts)
-    assert {"full_loss", "full_loss_grad"} <= set(counts)
+    assert {"full_loss", "full_loss_grad", "grad_norm", "clip_adam"} <= set(counts)
     assert not {"view_aggregate_bf16", "view_aggregate_grad_bf16", "full_loss_bf16",
-                "full_loss_grad_bf16"} & set(counts)
+                "full_loss_grad_bf16", "grad_norm_bf16", "clip_adam_bf16"} & set(counts)
     assert counts == chip_smoke.planned_counts()
     assert chip_smoke.planned_counts(sweep_premul_bf16=3)["sweep_premul_bf16"] == 3
     for name in counts:
@@ -447,8 +447,8 @@ def test_ddp_plan_is_52_launches_per_rank_per_step():
     of K6, K7 and K8, one of K9 and K10, 13 (one per aggregation) of
     K11 and K12, float32 in both precisions, 4 (one per GRU call) of
     K13-K16, 13 (one per BN epilogue) of K17, K18 and K22, 16 (one per
-    BN) of K21, 2 (one per FPN add) of K19 and K20 and one of K23 and
-    K24, float32 in both precisions, per rank per step."""
+    BN) of K21, 2 (one per FPN add) of K19 and K20 and one of K23, K24,
+    K25 and K26, float32 in both precisions, per rank per step."""
     for dtype in (torch.float32, torch.bfloat16):
         shapes = chip_smoke.sweep_shapes(640, 512, 5, 4, 2, itemsize=dtype.itemsize)
         plan = chip_smoke.planned_step_counts(shapes, dtype)
@@ -472,7 +472,8 @@ def test_ddp_plan_is_52_launches_per_rank_per_step():
                                                     chip_smoke.kernel_name("bn_stats_grad",
                                                                            dtype): 13},
                                                  view_aggregate=13, view_aggregate_grad=13,
-                                                 full_loss=1, full_loss_grad=1)
+                                                 full_loss=1, full_loss_grad=1, grad_norm=1,
+                                                 clip_adam=1)
 
 
 def _record(loss, value, launches=None, copies=0, loss_copies=0):
@@ -766,7 +767,8 @@ def test_chain_time_takes_the_kernels_inside_each_labelled_range():
                       "bn_act": {"device_ms": 0.0, "launches": 0},
                       "fpn_add": {"device_ms": 0.0, "launches": 0},
                       "bn_stats": {"device_ms": 0.0, "launches": 0},
-                      "full_loss": {"device_ms": 0.0, "launches": 0}}
+                      "full_loss": {"device_ms": 0.0, "launches": 0},
+                      "clip_adam": {"device_ms": 0.0, "launches": 0}}
     by_name, by_cat, busy = chip_smoke.device_summary(events)
     assert "fused_sweep_taps" not in by_name and "depth_readout" not in by_name
     assert busy == pytest.approx((10 + 8 + 1 + 29 + 9 + 5) / 1e3)
@@ -1035,7 +1037,7 @@ def test_dryrun_plan_per_rank_per_step():
     1): 2 + 2·2·3 = 14 launches of each sweep kernel, forward and
     backward, 3 of K6, K7 and K8, one of K9 and K10, 1 + 3·2 = 7 of K11
     and K12, 2 of K13-K16, 13 of K17, K18 and K22, 16 of K21, 2 of K19 and
-    K20, one of K23 and K24."""
+    K20, one of K23, K24, K25 and K26."""
     shapes = chip_smoke.sweep_shapes(port_entry.DRYRUN_WIDTH, port_entry.DRYRUN_HEIGHT,
                                      port_entry.DRYRUN_VIEWS, port_entry.DRYRUN_ITERATION)
     plan = chip_smoke.planned_step_counts(shapes, torch.float32,
@@ -1046,7 +1048,7 @@ def test_dryrun_plan_per_rank_per_step():
         convex_upsample_grad=1, view_aggregate=7, view_aggregate_grad=7, gru_reset=2,
         gru_update=2, gru_update_grad=2, gru_reset_grad=2, bn_act=13, bn_act_grad=13,
         upsample2x_add=2, upsample2x_grad=2, bn_stats=16, bn_stats_grad=13, full_loss=1,
-        full_loss_grad=1)
+        full_loss_grad=1, grad_norm=1, clip_adam=1)
 
 
 def test_largest_patch_finds_the_biggest_connected_block():
@@ -1317,3 +1319,150 @@ def test_bn_inputs_plant_the_relu_edge_and_signed_scales():
     assert chip_smoke.bn_ops.spans_of(cases["two_spans_scalar"][5] * 71) == 2
     assert chip_smoke.bn_ops.spans_of(40 * 123) == 2 and 40 * 123 % 8 == 0
     assert not cases["lone_bn"][2]
+
+
+def test_profile_categories_file_cudnn_outside_other():
+    """"other" holds eager PyTorch kernels only: cuDNN's FFT convolution
+    (its transforms and complex GEMM) and anything in its namespaces file
+    as "convolution", its layout transposes as "conv_layout" (names as a
+    profiled training step prints them, cut at 90 characters), its batch
+    norm as "batch_norm"; K25 and K26 are their own kernels before
+    "optimizer" (K26's name holds "adam"), which keeps torch.optim.Adam's
+    foreach kernels."""
+    cat = chip_smoke._category
+    for name in ("void fft2d_r2c_32x32<float, false, 0u, false>(float2*, float const*, int, "
+                 "int, int, int, i",
+                 "void fft2d_c2r_32x32<float, false, false, 0u, false, false>(float*, float2 "
+                 "const*, int, in",
+                 "void internal::region_transform_ABC_val<int, 32, 32, false, "
+                 "internal::TransformParamsABC<f",
+                 "sm80_xmma_gemm_cf32cf32_f32f32_cf32_nt_n_tilesize32x32x8_stage3_warpsize2x2x1_"
+                 "ffma_aligna8",
+                 "void cudnn::detail::dgrad_engine<float, 512, 6, 5, 3, 3, 3, false>(int, int, "
+                 "int, float co",
+                 "void wgrad_alg0_engine<float, 128, 5, 5, 3, 3, 3, false, 512>(int, int, int, "
+                 "float const*,",
+                 "_ZN17cutlass__5x_cudnn6KernelINS_4conv6kernel23ImplicitGemmConvolutionINS1_11thr"
+                 "eadblock22"):
+        assert cat(name) == "convolution", name
+    for name in ("void cudnn::engines_precompiled::nchwToNhwcKernel<__nv_bfloat16, "
+                 "__nv_bfloat16, float, fal",
+                 "void cudnn::engines_precompiled::nhwcToNchwKernel<__nv_bfloat16, "
+                 "__nv_bfloat16, float, tru"):
+        assert cat(name) == "conv_layout", name
+    assert cat("void cudnn::bn_fw_tr_1C11_kernel_NCHW<float, float, int, 512, true, 1>(") == \
+        "batch_norm"
+    assert cat("void (anonymous namespace)::clip_adam_kernel((anonymous namespace)::Table, "
+               "double const*, (anonymous namespace)::Hyper)") == "clip_adam"
+    assert cat("void (anonymous namespace)::grad_norm_partial_kernel((anonymous namespace)::"
+               "Table, double*)") == "grad_norm"
+    assert cat("(anonymous namespace)::grad_norm_fold_kernel(double const*, int, double*)") \
+        == "grad_norm"
+    assert cat("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<at::native::"
+               "(anonymous namespace)::TensorListMetadata<4>, at::native::(anonymous namespace)"
+               "::FusedAdamMathFunctor<float, 4, (at::native::ADAM_MODE)0, false>>") == \
+        "optimizer"
+    assert cat("void at::native::vectorized_elementwise_kernel<4, at::native::"
+               "CUDAFunctor_add<float>, std:") == "other"
+
+
+def _captured(**calls):
+    """A capture's `by_name` holding `calls` device kernels of each named
+    hand-written kernel (under a name `_category` files as it)."""
+    names = {"grad_norm": "(anonymous namespace)::grad_norm_partial_kernel(Table, double*)",
+             "clip_adam": "(anonymous namespace)::clip_adam_kernel(Table)",
+             "full_loss": "(anonymous namespace)::full_loss_kernel(Planes)",
+             "sweep_premul": "(anonymous namespace)::sweep_premul_kernel(float4 const*)"}
+    out = {names[k]: (n, 1.0) for k, n in calls.items()}
+    out["void at::native::vectorized_elementwise_kernel<4>"] = (7, 1.0)
+    return out
+
+
+def test_captures_are_held_against_the_launch_plan(monkeypatch):
+    """Each hand-written kernel's device kernels in a capture against its
+    planned launches times KERNELS_PER_LAUNCH (K25 and K23: a kernel and a
+    fold each): an empty or short capture is retaken after a pause, three
+    captures in all, and a third miss raises naming the phase."""
+    plan = chip_smoke.planned_counts(grad_norm=1, clip_adam=1, full_loss=1, sweep_premul=52)
+    assert set(chip_smoke.KERNELS_PER_LAUNCH) <= set(chip_smoke.KERNEL_NAMES)
+    full = _captured(grad_norm=2, clip_adam=1, full_loss=2, sweep_premul=52)
+    assert chip_smoke.plan_misses(full, plan) == {}
+    assert chip_smoke.plan_counts(full)["grad_norm"] == 2
+    assert chip_smoke.plan_misses(_captured(grad_norm=2, clip_adam=1, full_loss=1,
+                                            sweep_premul=50), plan) == {
+        "full_loss": [1, 2], "sweep_premul": [50, 52]}
+    events = {"full": [_Event(k, 0, 1) for k, (n, _) in full.items() for _ in range(n)],
+              "short": [_Event(k, 0, 1) for k, (n, _) in full.items() for _ in range(n)][1:],
+              "empty": []}
+    taken = []
+
+    def trace(order):
+        def fake(fn):
+            fn()
+            taken.append(1)
+            return events[order.pop(0)]
+        return fake
+
+    monkeypatch.setattr(chip_smoke, "CAPTURE_PAUSE_S", 0.0)
+    monkeypatch.setattr(chip_smoke, "trace_events", trace(["empty", "short", "full"]))
+    by_name, _, busy, got = chip_smoke.device_capture(lambda: None, "step", plan)
+    assert len(taken) == 3 and got == events["full"] and busy > 0
+    assert chip_smoke.plan_counts(by_name)["sweep_premul"] == 52
+    monkeypatch.setattr(chip_smoke, "trace_events", trace(["short", "empty", "short"]))
+    with pytest.raises(SystemExit, match="train_full_width f32: 3 captures missed"):
+        chip_smoke.device_capture(lambda: None, "train_full_width f32", plan)
+
+
+def test_update_events_find_the_eager_update_only():
+    """The profiled step's eager update: a kernel under the `clip_adam`
+    label other than K25's and K26's, or a foreach kernel anywhere; K25
+    and K26 alone under the label, and eager kernels outside it, are
+    none."""
+    k25 = "(anonymous namespace)::grad_norm_partial_kernel(Table, double*)"
+    fold = "(anonymous namespace)::grad_norm_fold_kernel(double const*, int, double*)"
+    k26 = "(anonymous namespace)::clip_adam_kernel(Table, double const*, Hyper)"
+    where = "void at::native::elementwise_kernel<128, 2, where_kernel_impl>"
+    foreach = "void at::native::multi_tensor_apply_kernel<FusedAdamMathFunctor>"
+    clean = [_Event("clip_adam", 0, 100, "cpu", annotation=True), _Event("clip_adam", 10, 40),
+             _Event(k25, 10, 15), _Event(fold, 16, 20), _Event(k26, 21, 30),
+             _Event(where, 50, 60)]
+    assert chip_smoke.update_op_events(clean) == {}
+    dirty = clean + [_Event("clip_adam", 70, 90), _Event(where, 71, 75),
+                     _Event(foreach, 95, 99)]
+    assert chip_smoke.update_op_events(dirty) == {where[:90]: 1, foreach[:90]: 1}
+    assert chip_smoke.chain_time(clean)["clip_adam"] == {"device_ms": 0.018, "launches": 3}
+
+
+def test_update_work_and_bound_count_the_model_parameters():
+    """The training model has 100 parameters, 341,333 elements; K25 reads
+    each gradient once (1.37 MB), K26 reads g, p, m, v and writes p, m, v
+    (9.56 MB), which is the `clip_adam` label's bound in training and 0 in
+    eval."""
+    shapes = chip_smoke.model_param_shapes()
+    numel = sum(int(np.prod(s)) for s in shapes)
+    assert len(shapes) == 100 and numel == 341333
+    assert chip_smoke.update_work(numel, "grad_norm")[0] == 1365332
+    assert chip_smoke.update_work(numel, "clip_adam")[0] == 9557324
+    train = chip_smoke.chain_bound_ms(640, 512, 5, 4, 4, train=True)
+    assert train["clip_adam"] == pytest.approx(1e3 * 9557324 / chip_smoke.PEAK_BYTES_PER_S)
+    assert chip_smoke.chain_bound_ms(1600, 1152, 5, 4)["clip_adam"] == 0
+
+
+def test_clip_adam_case_and_ulps():
+    """`check_clip_adam`'s inputs on the CPU: the seeded model's
+    parameters and each step's gradients at the asked global norm, above
+    and below the clip; `ulps_apart` counts float32 steps across zero."""
+    gen = torch.Generator().manual_seed(0)
+    params, steps = chip_smoke.clip_adam_case(10.0, 2, gen, dev="cpu")
+    assert [tuple(p.shape) for p in params] == list(chip_smoke.model_param_shapes())
+    for grads in steps:
+        assert float(chip_smoke.clip_ops.grad_norm_plain(grads)[1]) == pytest.approx(10.0,
+                                                                                     rel=1e-5)
+    assert not torch.equal(steps[0][0], steps[1][0])
+    one = torch.tensor([1.0])
+    assert chip_smoke.ulps_apart([one], [one]) == 0
+    assert chip_smoke.ulps_apart([torch.nextafter(one, torch.tensor([2.0]))], [one]) == 1
+    tiny = torch.tensor([torch.finfo(torch.float32).tiny * 2 ** -23])
+    assert chip_smoke.ulps_apart([tiny], [-tiny]) == 2
+    assert [c[0] for c in chip_smoke.CLIP_CASES] == ["clip", "no_clip", "clip_wd",
+                                                     "no_clip_wd"]

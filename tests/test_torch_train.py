@@ -28,7 +28,11 @@ head's last bias gets no gradient in exact arithmetic (a shift of every
 sample's logit leaves their softmax unchanged), so its two f32 noises are
 compared against 1e-6 of the global gradient norm instead.
 Loss and metrics on fabricated predictions: rel 1e-6. Optimizer update
-fed JAX's own gradients against optax's: abs 1e-7.
+fed JAX's own gradients against optax's: abs 1e-7, through
+`clip_by_global_norm_` + `torch.optim.Adam.step` and through
+`clip_adam_step_`, the update `train_step` runs. Two `train_step`s
+against two JAX steps: losses rel 1e-5, parameters as
+tests/test_torch_parallel.py holds a step.
 """
 import numpy as np
 import pytest
@@ -47,6 +51,7 @@ from itermvs_tpu_torch.engine.train_loop import (
     parse_lrepochs, train_step, val_step)
 from itermvs_tpu_torch.models import Pipeline
 from itermvs_tpu_torch.models.losses import full_loss
+from itermvs_tpu_torch.ops.clip_adam import clip_adam_step_
 from itermvs_tpu_torch.weights import flax_state_dict, flax_tree, load_state
 from tests.test_loss_parity import _fabricate
 from tests.test_train import _make_batch
@@ -90,8 +95,10 @@ def setup():
 
 
 @pytest.fixture(scope="module")
-def jax_steps(setup):
-    """{regress: (loss, grads, updated batch_stats)} of JAX's train loss."""
+def jax_losses(setup):
+    """JAX's train loss of both stages at `params`, jitted once: (losses
+    [stage 2, stage 1], their gradients, the updated batch_stats of the
+    init's)."""
     model, variables, batch = setup
 
     def losses(params):
@@ -109,7 +116,14 @@ def jax_steps(setup):
         grads = [vjp(jnp.eye(2, dtype=jnp.float32)[i])[0] for i in range(2)]
         return values, grads, stats
 
-    values, grads, stats = both(variables["params"])
+    return both
+
+
+@pytest.fixture(scope="module")
+def jax_steps(setup, jax_losses):
+    """{regress: (loss, grads, updated batch_stats)} of JAX's train loss."""
+    _, variables, _ = setup
+    values, grads, stats = jax_losses(variables["params"])
     stats = jax.tree.map(np.asarray, stats)
     return {regress: (float(values[i]), jax.tree.map(np.asarray, grads[i]), stats)
             for i, regress in enumerate((True, False))}
@@ -237,6 +251,83 @@ def test_optimizer_decays_after_the_clip_as_optax():
         optimizer.step()
     for k, p in module.items():
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(p_jax[k]), rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("scale,wd", [(1.0, 0.0), (1e-3, 0.0), (0.0, 1e-2)])
+def test_clip_adam_update_matches_optax(setup, jax_steps, scale, wd):
+    """`clip_adam_step_` (the update `train_step` runs: K25 and K26's
+    plain versions on the CPU) fed JAX's own gradients against optax's
+    chain, the cases of `test_optimizer_update_matches_optax`."""
+    _, variables, _ = setup
+    grads = jax.tree.map(lambda g: g * np.float32(scale), jax_steps[True][1])
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    tx = jax_make_optimizer(wd)
+    state = tx.init(params)
+    state.hyperparams["learning_rate"] = jnp.float32(1e-3)
+    updates, _ = tx.update(jax.tree.map(jnp.asarray, grads), state, params)
+
+    model = _port_model(variables)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    port_grads = flax_state_dict({"params": grads, "batch_stats": variables["batch_stats"]})
+    for k, p in model.named_parameters():
+        p.grad = port_grads[k].clone()
+    norm = clip_adam_step_(make_optimizer(model, wd))
+    assert (float(norm[1]) > 2.0) == (scale == 1.0)
+    got = _flat(flax_tree({k: p.detach() - before[k] for k, p in model.named_parameters()}))
+    for key, w in _flat(jax.tree.map(np.asarray, updates)).items():
+        np.testing.assert_allclose(got[f"params/{key}"], w, rtol=0, atol=1e-7, err_msg=key)
+
+
+def test_train_step_matches_the_jax_step_after_two_steps(setup, jax_losses, jax_steps):
+    """Two stage-2 `train_step`s (the update through `clip_adam_step_`)
+    against two JAX steps (the loss's gradients, then optax's chain) from
+    the same init on the same batch: each step's loss within 1e-5
+    (relative); the parameters after the first step as
+    tests/test_torch_parallel.py holds a step (all but a share of 1e-3 of
+    the elements within 1e-6: Adam moves an element whose gradient is
+    within float32 noise of 0 by ±lr in either framework, and the second
+    step's gradients inherit those moves, so its parameters are held
+    another way); and the parameters after both steps against optax's
+    chain fed the port's own gradients of each step (their `.grad`, which
+    the update leaves as the backward wrote them), within 1e-7 plus one
+    float32 unit in the last place of the value (BN scales lie near 1,
+    where a unit is 1.2e-7)."""
+    _, variables, batch = setup
+    tx = jax_make_optimizer()
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    state = tx.init(params)
+    state.hyperparams["learning_rate"] = jnp.float32(1e-3)
+    want_losses, want_first = [], None
+    for step in range(2):
+        loss, grads = (jax_steps[True][:2] if step == 0
+                       else (lambda out: (float(out[0][0]), out[1][0]))(jax_losses(params)))
+        want_losses.append(loss)
+        updates, state = tx.update(jax.tree.map(jnp.asarray, grads), state, params)
+        params = jax.tree.map(lambda p, u: p + u, params, updates)
+        want_first = want_first or _flat(jax.tree.map(np.asarray, params))
+
+    model = _port_model(variables)
+    optimizer = make_optimizer(model)
+    tb = _torch(batch)
+    own = jax.tree.map(jnp.asarray, variables["params"])
+    own_state = tx.init(own)
+    own_state.hyperparams["learning_rate"] = jnp.float32(1e-3)
+    for step, want in enumerate(want_losses):
+        got = float(train_step(model, optimizer, tb, 1e-3, True, ITERATION)["loss"])
+        assert abs(got - want) <= 1e-5 * abs(want)
+        port_params = _flat(flax_tree(dict(model.named_parameters()))["params"])
+        if step == 0:
+            diff = np.concatenate([np.abs(port_params[k] - w).ravel()
+                                   for k, w in want_first.items()])
+            assert np.mean(diff > 1e-6) <= 1e-3, (np.sum(diff > 1e-6), diff.size)
+        grads = flax_tree({k: p.grad for k, p in model.named_parameters()})["params"]
+        updates, own_state = tx.update(jax.tree.map(lambda g: jnp.asarray(np.asarray(g)),
+                                                    grads), own_state, own)
+        own = jax.tree.map(lambda p, u: p + u, own, updates)
+    for key, w in _flat(jax.tree.map(np.asarray, own)).items():
+        np.testing.assert_allclose(port_params[key], w, rtol=2.0 ** -23, atol=1e-7,
+                                   err_msg=key)
+    assert all(float(s["step"]) == 2 for s in optimizer.state.values())
 
 
 @pytest.mark.parametrize("regress", [True, False])
