@@ -105,7 +105,19 @@
    element), the plain versions' ms, the eager update's
    (`clip_by_global_norm_` + `torch.optim.Adam.step`) and, as the
    library's, `clip_grad_norm_(foreach=True)` + `Adam(fused=True).step`
-   (a near function).
+   (a near function). Then `check_depth_metrics`: the training metrics,
+   K27 depth_metrics (the 15 batch means and their (n, total) rows from
+   one read of each prediction, GT and mask), at the training step's
+   metrics (batch 4, 5 predictions at 128x160, the upsampled depth at
+   512x640) with empty level-2 and level-0 images, errors of exactly 1,
+   2, 4 and 8 and masks of exactly 0.5 planted, then with NaN and
+   infinite estimates at masked-out and valid pixels, with every mask
+   empty, and at METRIC_EDGE_CASES (one and sixteen predictions, 7x9):
+   the outlier rates within 1 ulp of the plain version, the mean errors
+   within 1e-6 of its float64 run (NaN where it is NaN), two launches
+   bit-equal; bare ms, device ms, bound, share and the launch floor, the
+   plain version's ms, and the host ms per call of the wrapper, of the
+   step's entry and of the eager chain.
 4. Runs the port's eval core loop (`itermvs_tpu_torch.eval.run_depth`)
    with the vendored DTU weights and the feature cache on a 5-view
    textured-plane scene made in memory at 1600x1152, one depth map per
@@ -166,13 +178,15 @@
    fall, and each of the four sweep kernels must launch 52 times per
    step, K6, K7 and K8 5 times each, K9 and K10 once, K11 and K12 13
    times each, K13-K16 4 times each, K17, K18 and K22 13 times each,
-   K21 16 times, K19 and K20 twice each, K23, K24, K25 and K26 once, no
-   var_mean op or kernel, no gather or argmax of the eager loss and no
-   kernel of the eager update (a foreach kernel, or anything but K25 and
-   K26 under the `clip_adam` label; "optimizer" 0 ms) may run in the
-   profiled step, which is held against the launch plan as in step 6, K23's wrapper must copy no input and K7's and K20's
-   no gradient (K7 reads K24's dense ∂p in place; so in steps 10 and 11
-   too, `hold_loss_path`), and the layout of each one K7 and K20 get is
+   K21 16 times, K19 and K20 twice each, K23, K24, K25, K26 and K27
+   once, no var_mean op or kernel, no gather or argmax of the eager loss,
+   no kernel of the eager update (a foreach kernel, or anything but K25
+   and K26 under the `clip_adam` label; "optimizer" 0 ms) and nothing but
+   K27 under the `depth_metrics` label may run in the profiled step,
+   which is held against the launch plan as in step 6, K23's wrapper
+   must copy no input and K7's and K20's no gradient (K7 reads K24's
+   dense ∂p in place; so in steps 10 and 11 too, `hold_loss_path`), and
+   the layout of each one K7 and K20 get is
    printed (`prob_grad_layouts`, `fpn_grad_layouts`; K7's all dense);
    ms per step, steps/s, peak memory and one
    profiled step's device time by kind, idle share and the labelled
@@ -192,7 +206,8 @@
    one-process step on all 4: the first loss within 1e-4 (relative), the
    parameters after the first step within 1e-3 (relative L2), the two
    ranks' parameters and BN statistics bit-equal after every step, 52
-   launches of K1, K2, K4, K5 per rank per step; ms per step of the two
+   launches of K1, K2, K4, K5 and one all-reduce of the metrics' table
+   per rank per step; ms per step of the two
    processes sharing the card. `train_ddp_nccl` runs the synced path
    (global BN statistics, global loss and metric denominators, summed
    gradients) as one NCCL rank against the plain step from the same
@@ -288,6 +303,7 @@ import torch
 
 from itermvs_tpu_torch import entry as entry_points
 from itermvs_tpu_torch import kernels
+from itermvs_tpu_torch.engine import metrics as engine_metrics
 from itermvs_tpu_torch.engine import train_loop
 from itermvs_tpu_torch.engine.checkpoint import restore_checkpoint, save_checkpoint
 from itermvs_tpu_torch.engine.profiling import maybe_enable_nan_debugging
@@ -306,6 +322,7 @@ from itermvs_tpu_torch.ops import bn_act as bn_ops
 from itermvs_tpu_torch.ops import bn_stats as stats_ops
 from itermvs_tpu_torch.ops import clip_adam as clip_ops
 from itermvs_tpu_torch.ops import conv_gru
+from itermvs_tpu_torch.ops import depth_metrics as metric_ops
 from itermvs_tpu_torch.ops import full_loss as full_loss_ops
 from itermvs_tpu_torch.ops import resize as resize_ops
 from itermvs_tpu_torch.ops.consistency import (
@@ -2953,6 +2970,208 @@ def check_clip_adam(smi=""):
     return per_step
 
 
+# ------------------------------------------------------------ the metrics
+# K27's gates (`hold_depth_metrics`): each outlier rate within METRIC_ULPS
+# float32 units in the last place of the plain version on the same inputs
+# (both divide each image's exact counts in float32 and sum the batch in
+# float64, exactly: 0 expected), each mean error within METRIC_REL of the
+# plain version on float64 copies and NaN exactly where that is NaN, the
+# counts of images with a valid pixel equal.
+METRIC_ULPS, METRIC_REL = 1, 1e-6
+# Operations per level-2 pixel (the mask's compare and its count's add),
+# per level-2 pixel and prediction (subtract, abs, multiply, add; compare,
+# multiply, add) and per level-0 pixel (those, and 3 per threshold more).
+METRIC_OPS_PER_PIXEL2, METRIC_OPS_PER_PREDICTION, METRIC_OPS_PER_PIXEL0 = 2, 7, 18
+# `check_depth_metrics`' cases after the step's: (label, batch, level-2
+# height, width, predictions, kind of `metrics_case`).
+METRIC_EDGE_CASES = (("one_prediction", TRAIN_BATCH, 128, 160, 1, "planted"),
+                     ("sixteen", 2, 8, 12, 16, "planted"),
+                     ("odd_7x9", 3, 7, 9, 3, "nan"))
+
+
+def metrics_work(n, pixels2, pixels0):
+    """(bytes, operations) of K27 over n predictions of `pixels2` level-2
+    pixels and `pixels0` level-0 pixels: each prediction, GT and mask
+    read once, the M float32 means and float64 (n, total) rows written
+    once."""
+    nbytes = 4 * (n * pixels2 + 2 * pixels2 + 3 * pixels0) + 20 * (5 + 2 * n)
+    ops = (METRIC_OPS_PER_PIXEL2 + METRIC_OPS_PER_PREDICTION * n) * pixels2 \
+        + METRIC_OPS_PER_PIXEL0 * pixels0
+    return nbytes, ops
+
+
+def metrics_case(b, h, w, n, gen, kind="planted", dev="cuda"):
+    """The metrics' inputs as the training step hands them: n predictions
+    [B, h, w, 1] and the upsampled depth [B, 4h, 4w, 1] (views of
+    [B, 1, H, W]), GT and masks of both levels, seeded: GT 2..12, errors
+    0..10, 70% of the pixels valid. `kind` "planted": image 1's level-2
+    mask and image 2's level-0 mask empty (where the batch has them), and
+    on image 0's first row, valid, GT 5 and errors of exactly ±1, ±2, ±4,
+    ±8 at both levels, then a mask of exactly 0.5 (out) under an error of
+    9, then one just above 0.5 (in); "nan": those, and on image 0's
+    second row a NaN estimate of prediction 0 at a masked-out pixel, an
+    infinite one of the last prediction (where n > 1) at another, and a
+    NaN upsampled depth at a valid level-0 pixel; "empty": every mask
+    empty."""
+    u = lambda *s: torch.rand(*s, device=dev, generator=gen)
+    gt2, gt0 = 2.0 + 10.0 * u(b, h, w), 2.0 + 10.0 * u(b, 4 * h, 4 * w)
+    preds = [gt2 + 20.0 * u(b, h, w) - 10.0 for _ in range(n)]
+    up = gt0 + 20.0 * u(b, 4 * h, 4 * w) - 10.0
+    m2, m0 = (u(b, h, w) > 0.3).float(), (u(b, 4 * h, 4 * w) > 0.3).float()
+    if kind == "empty":
+        m2.zero_()
+        m0.zero_()
+    else:
+        m2[1:2] = 0.0
+        m0[2:3] = 0.0
+        errors = torch.tensor([1.0, -1.0, 2.0, -2.0, 4.0, -4.0, 8.0, -8.0, 9.0, 9.0], device=dev)
+        half = torch.tensor([0.5, 0.5, 0.5 + 2.0 ** -24], device=dev)    # float32's next
+        for gt, ests, mask in ((gt2, preds, m2), (gt0, [up], m0)):
+            cols = min(len(errors), gt.shape[2])
+            gt[0, 0, :cols] = 5.0
+            for est in ests:
+                est[0, 0, :cols] = 5.0 + errors[:cols]
+            mask[0, 0, :cols] = 1.0
+            if gt.shape[2] >= len(errors) + 1:
+                mask[0, 0, len(errors) - 2:len(errors) + 1] = half
+    if kind == "nan":
+        m2[0, 1, :2] = 0.0
+        preds[0][0, 1, 0] = math.nan
+        if n > 1:
+            preds[-1][0, 1, 1] = math.inf
+        m0[0, 1, 0] = 1.0
+        up[0, 1, 0] = math.nan
+    view = lambda x: x.unsqueeze(1).permute(0, 2, 3, 1)
+    return [view(p) for p in preds], view(up), view(gt2), view(m2), view(gt0), view(m0)
+
+
+def metric_errors(names, got, table, plain32, table32, plain64):
+    """K27's means `got` and (n, total) rows `table` against the plain
+    version's on the same float32 inputs and on float64 copies:
+    {"max_ulps" of the outlier rates, "max_rel" of the mean errors
+    (finite ones; where float64's is 0 the kernel's must be 0), "nan_agree",
+    "counts_equal", "max_abs" against float32's}."""
+    thres = [i for i, k in enumerate(names) if k.startswith("thres")]
+    errs = [i for i, k in enumerate(names) if k.startswith("abs")]
+    g, w = got[errs].double(), plain64[errs].double()
+    finite = ~w.isnan()
+    diff = (g - w).abs()[finite]
+    scale = w.abs()[finite]
+    rel = torch.where(scale > 0, diff / scale.clamp_min(1e-300),
+                      torch.where(diff == 0, 0.0, math.inf))
+    both = ~got.isnan() & ~plain32.isnan()
+    return {"max_ulps": ulps_apart([got[thres]], [plain32[thres]]),
+            "max_rel": rel.max().item() if rel.numel() else 0.0,
+            "nan_agree": torch.equal(g.isnan(), w.isnan()),
+            "counts_equal": torch.equal(table[:, 0], table32[:, 0]),
+            "max_abs": (got - plain32).abs()[both].max().item()}
+
+
+def host_ms(fn, reps=50):
+    """The host's ms per call of `fn` (enqueue only; synced around the
+    loop, not inside it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0) / reps
+
+
+def hold_depth_metrics(label, case, timed=False, smi=""):
+    """K27 on `metrics_case`'s tensors, launched bare into outputs filled
+    with NaN, against the plain version (`metric_errors` within
+    METRIC_ULPS and METRIC_REL), two launches bit-equal, the wrapper's
+    result equal to the bare launch's. Where `timed`: bare ms, device ms,
+    bound, share, the launch floor (the same C call over one pixel and one
+    prediction), the wrapper's ms, the plain version's (the eager chain the
+    port ran before), and the host ms per call of the wrapper, of
+    engine/metrics.py's `depth_metrics` (the step's entry) and of the
+    eager chain. One JSON line; returns {"depth_metrics": record}."""
+    preds, up, gt2, m2, gt0, m0 = case
+    n = len(preds)
+    names = metric_ops.metric_names(n - 1)
+    scratch, got, table = metric_ops.metric_buffers(preds, gt0)
+    run = bare_launch("depth_metrics", metric_ops.metric_args(preds, up, gt2, m2, gt0, m0,
+                                                              scratch, got, table))
+
+    def fresh():
+        got.fill_(math.nan)
+        table.fill_(math.nan)
+        run()
+        return got.clone(), table.clone()
+
+    first = fresh()
+    fresh()
+    torch.cuda.synchronize()
+    same = lambda a, b: torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)) and \
+        torch.equal(a[1].view(torch.int64), b[1].view(torch.int64))
+    repeats = same(first, (got, table))
+    plain32, table32 = metric_ops.depth_metrics_plain(preds, up, gt2, m2, gt0, m0)
+    plain64 = metric_ops.depth_metrics_plain(*([p.double() for p in preds], up.double(),
+                                               gt2.double(), m2.double(), gt0.double(),
+                                               m0.double()))[0]
+    errs = metric_errors(names, got, table, plain32, table32, plain64)
+    wrapper_equal = same(metric_ops.depth_metrics(preds, up, gt2, m2, gt0, m0), (got, table))
+    b = gt2.shape[0]
+    nbytes, ops = metrics_work(n, gt2.numel(), gt0.numel())
+    rec = {"bytes": nbytes, "ops": ops, "max_abs_err": errs["max_abs"],
+           "max_rel_err": errs["max_rel"], "library_ms": None, "launches": 1}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops)
+    if timed:
+        one = [torch.zeros(1, 1, device="cuda") for _ in range(6)]
+        floor = bare_launch("depth_metrics", metric_ops.metric_args(
+            one[:1], *one[1:], *metric_ops.metric_buffers(one[:1], one[4])))
+        dicts = ({"level_2": gt2, "level_0": gt0}, {"level_2": m2, "level_0": m0})
+        calls = {"call": lambda: metric_ops.depth_metrics(preds, up, gt2, m2, gt0, m0),
+                 "entry": lambda: engine_metrics.depth_metrics(preds, up, *dicts, n - 1),
+                 "plain": lambda: metric_ops.depth_metrics_plain(preds, up, gt2, m2, gt0, m0)}
+        rec.update(ms=time_ms(run, reps=100), call_ms=time_ms(calls["call"], reps=100),
+                   device_ms=sum(device_us(run, phase=f"depth_metrics at {label}").values())
+                   / 1e3, launch_floor_ms=time_ms(floor, reps=100),
+                   launch_floor_device_ms=sum(device_us(
+                       floor, phase=f"depth_metrics floor at {label}").values()) / 1e3,
+                   plain_ms=time_ms(calls["plain"]), host_ms=host_ms(calls["call"]),
+                   entry_host_ms=host_ms(calls["entry"]),
+                   plain_host_ms=host_ms(calls["plain"], reps=20))
+        rec.update(share=rec["bound_ms"] / rec["ms"],
+                   device_share=rec["bound_ms"] / rec["device_ms"],
+                   plain_note="depth_metrics_plain, the eager chain K27 replaced")
+    line = {"kernel": "depth_metrics", "shape": label, "batch": b,
+            "level2": list(gt2.shape[1:3]), "level0": list(gt0.shape[1:3]), "predictions": n,
+            **rec, **{k: v for k, v in errs.items() if k != "max_abs"},
+            "two_launches_bit_equal": repeats, "wrapper_equal": wrapper_equal,
+            "metrics": dict(zip(names, got.tolist())),
+            "tolerance": f"outlier rates {METRIC_ULPS} ulp of the float32 plain version, "
+                         f"mean errors {METRIC_REL} of the float64 one, relative",
+            "card": smi}
+    print(json.dumps(line))
+    if not (errs["max_ulps"] <= METRIC_ULPS and errs["max_rel"] <= METRIC_REL
+            and errs["nan_agree"] and errs["counts_equal"] and repeats and wrapper_equal):
+        raise SystemExit(f"depth_metrics at {label}: {line}")
+    return {"depth_metrics": rec}
+
+
+def check_depth_metrics(smi=""):
+    """K27 (`hold_depth_metrics`) at the training step's metrics (batch 4,
+    128x160, level 0 512x640, 5 predictions): `metrics_case`'s planted,
+    NaN and empty kinds, the first timed, then METRIC_EDGE_CASES. Returns
+    the timed case's per-step record."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 40)
+    h, w, n = TRAIN_HEIGHT // 4, TRAIN_WIDTH // 4, 1 + TRAIN_ITERATION
+    per_step = hold_depth_metrics("step_planted", metrics_case(TRAIN_BATCH, h, w, n, gen),
+                                  timed=True, smi=smi)
+    for kind in ("nan", "empty"):
+        hold_depth_metrics(f"step_{kind}", metrics_case(TRAIN_BATCH, h, w, n, gen, kind))
+    for label, b, eh, ew, en, kind in METRIC_EDGE_CASES:
+        hold_depth_metrics(f"edge_{label}", metrics_case(b, eh, ew, en, gen, kind))
+    print(json.dumps({"depth_metrics_totals": {"per_step": per_step}}))
+    return per_step
+
+
 def valid_corners(base, h1, w1):
     """Per row, the count of its 4 corners that lie on the source map."""
     y, x = base // w1, base % w1
@@ -3388,14 +3607,15 @@ TEMPLATED = ("depth_readout_grad", "depth_readout", "sweep_taps", "convex_upsamp
 # K23's of K24's): a source's kernels are named `<name>_...kernel`. They
 # are named before the library's categories ("clip_adam" holds "adam").
 F32_ONLY = ("view_aggregate_grad", "view_aggregate", "full_loss_grad", "full_loss",
-            "grad_norm", "clip_adam")
+            "grad_norm", "clip_adam", "depth_metrics")
 # Device kernels per counted launch of each kernel (1 where not named): the
 # launchers that run a second kernel (a fold, K5 bf16's rounding pass);
 # K25's first kernel and K26 run once per table of MAX_TENSORS tensors,
 # and the training model's 100 parameters make one.
 KERNELS_PER_LAUNCH = {"sweep_grad_src_bf16": 2, "convex_upsample_grad": 2,
                       "convex_upsample_grad_bf16": 2, "bn_act_grad": 2, "bn_act_grad_bf16": 2,
-                      "bn_stats": 2, "bn_stats_bf16": 2, "full_loss": 2, "grad_norm": 2}
+                      "bn_stats": 2, "bn_stats_bf16": 2, "full_loss": 2, "grad_norm": 2,
+                      "depth_metrics": 2}
 # cuDNN's layout transposes (the bf16 path keeps NCHW storage, its kernels
 # run NHWC) and the names of its convolution kernels that hold none of
 # the usual words: the FFT algorithm's transforms, and anything in its
@@ -3525,11 +3745,14 @@ def device_time(fn):
 # under `bn_act`, one per BN epilogue, K19 under `fpn_add`, one per FPN
 # add, and in training K21 under `bn_stats`, one per BN (its sum and
 # its fold: two kernels), the loss's forward under `full_loss`
-# (models/losses.py: K23's two kernels and the few ops on its sums) and
-# the optimizer update under `clip_adam` (engine/train_loop.py: K25's two
-# kernels and K26's one).
+# (models/losses.py: K23's two kernels and the few ops on its sums), the
+# optimizer update under `clip_adam` (engine/train_loop.py: K25's two
+# kernels and K26's one) and the metrics under `depth_metrics`
+# (engine/train_loop.py: K27's two kernels; in a process group also the
+# table's all-reduce and its clamp, div and cast).
 CHAINS = ("depth_readout", "fused_sweep_taps", "convex_upsample", "view_aggregate",
-          "conv_gru", "bn_act", "fpn_add", "bn_stats", "full_loss", "clip_adam")
+          "conv_gru", "bn_act", "fpn_add", "bn_stats", "full_loss", "clip_adam",
+          "depth_metrics")
 
 
 def label_kernels(events):
@@ -3581,9 +3804,10 @@ def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=F
     (`bn_stats_image_bytes`); full_loss, in training only, K23's
     (`loss_work` of stage 2: each of the 1 + iteration probabilities
     read once); clip_adam, in training only, the update's g, p, m, v read
-    and p, m, v written once over the model's parameters (`update_work`).
-    Their operations per byte are far below the card's, so bytes bound
-    all ten."""
+    and p, m, v written once over the model's parameters (`update_work`);
+    depth_metrics, in training only, K27's (`metrics_work`: each
+    prediction, GT and mask read once). Their operations per byte are far
+    below the card's, so bytes bound all eleven."""
     p4 = batch * (height // 4) * (width // 4)
     p8 = batch * (height // 8) * (width // 8)
     sources = views - 1
@@ -3608,7 +3832,9 @@ def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=F
               "full_loss": loss_work(1 + iteration, p4, batch * height * width, True)[0]
               if train else 0,
               "clip_adam": update_work(sum(math.prod(s) for s in model_param_shapes()),
-                                       "clip_adam")[0] if train else 0}
+                                       "clip_adam")[0] if train else 0,
+              "depth_metrics": metrics_work(1 + iteration, p4, batch * height * width)[0]
+              if train else 0}
     return {k: 1e3 * v / PEAK_BYTES_PER_S for k, v in nbytes.items()}
 
 
@@ -3728,13 +3954,14 @@ def planned_step_counts(shapes, dtype, iteration=TRAIN_ITERATION):
     once per aggregation, 1 + 3·iteration; K13-K16 once per GRU call,
     iteration; K17, K18 and K22 13 times, K21 once per BN (16) and K19
     and K20 twice, FeatureNet's one call over the batch's views; K23 and
-    K24, float32 in both precisions, once; the update's K25 and K26,
-    float32 in both precisions, once)."""
+    K24, float32 in both precisions, once; the update's K25 and K26 and
+    the metrics' K27, float32 in both precisions, once)."""
     forward = sum(s[-1] for s in shapes)
     sweeps = sum(sweeps_of(shapes, dtype).values())
     aggregations = 1 + len(LEVELS) * iteration
     return planned_counts(view_aggregate=aggregations, view_aggregate_grad=aggregations,
                           full_loss=1, full_loss_grad=1, grad_norm=1, clip_adam=1,
+                          depth_metrics=1,
                           **{kernel_name(k, dtype): n for k, n in (
         ("sweep_premul", forward), ("corr_epilogue", forward), ("sweep_grad_ref", sweeps),
         ("sweep_grad_src", sweeps), ("depth_readout", 1 + iteration),
@@ -3943,6 +4170,19 @@ def update_op_events(events):
     return found
 
 
+def metric_op_events(events):
+    """{name: calls} of the device kernels inside the `depth_metrics` label
+    that are not K27's: the eager metrics' compares, wheres, clamps,
+    casts and sums it replaced. In a process group the table's
+    all-reduce, clamp, div and cast run there too, so only a step outside
+    one is held to none."""
+    found = {}
+    for name, _ in label_kernels(events)["depth_metrics"]:
+        if _category(name) != "depth_metrics":
+            found[name[:90]] = found.get(name[:90], 0) + 1
+    return found
+
+
 def hold_loss_path(name, copies, readout_copies, layouts, events):
     """The loss's gates of a training phase: K23's wrapper copied no
     input, K7's no probability gradient, every probability gradient
@@ -3963,7 +4203,8 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
     be finite and fall and each sweep kernel of `dtype` launch 52 times
     per step. Then one profiled step, held against the step's launch
     plan (`device_capture`) and free of the eager update
-    (`update_op_events`, "optimizer" 0), a validation step, a checkpoint
+    (`update_op_events`, "optimizer" 0) and of the eager metrics
+    (`metric_op_events`), a validation step, a checkpoint
     round trip on the card (the model and the Adam state K25 and K26
     keep, bit for bit) and `check_real_sweeps` on one more step's sweeps
     (`synthetic_ms`: the `sweep_inputs` times printed beside). Returns
@@ -4007,6 +4248,7 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
     rec["var_mean_events"] = var_mean_events(events)
     rec["eager_loss_events"] = loss_op_events(events)
     rec["eager_update_events"] = update_op_events(events)
+    rec["eager_metric_events"] = metric_op_events(events)
     wall_ms = 1e3 * sorted(last)[len(last) // 2]
     bounds = chain_bound_ms(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_ITERATION,
                             TRAIN_BATCH, torch.finfo(dtype).bits // 8, train=True)
@@ -4050,6 +4292,9 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
         raise SystemExit(f"the eager update ran in the training step: "
                          f"{rec['eager_update_events']}, "
                          f"{rec['profile_step']['by_category_ms'].get('optimizer')} ms")
+    if rec["eager_metric_events"]:
+        raise SystemExit(f"the eager metrics ran in the training step: "
+                         f"{rec['eager_metric_events']}")
     if copies != 0:
         raise SystemExit(f"K7's wrapper copied the probability's gradient {copies} times")
     if up2_copies != 0:
@@ -4186,11 +4431,12 @@ def run_steps(job, rank=0, world=1, device="cuda"):
     `state` (rank 0's, broadcast in a process group) with a new Adam;
     `job["val"]` adds one val step of the first run's model before its
     steps, `job["profile"]` one more step of each run under
-    torch.profiler after them (busy ms, ms by kind, `var_mean_events`
-    and `loss_op_events`), then `prob_grad_layouts`. Records per step:
-    the loss, ms (host clock to a sync), the launch counts, K7's and
-    K23's copies, the state_dict and the gradients after the step (on
-    the host)."""
+    torch.profiler after them (busy ms, ms by kind, `var_mean_events`,
+    `loss_op_events` and `metric_op_events`), then `prob_grad_layouts`.
+    Records per step: the loss, ms (host clock to a sync), the launch
+    counts, K7's and K23's copies, the metrics' all-reduces, the
+    state_dict and the gradients after the step (on the host); of the
+    val step its scalars and its metrics' all-reduces."""
     dtype = getattr(torch, job["dtype"])
     per = job["batch"] // world
     batch = to_device_batch(slice_batch(job["sample"], rank * per, per), device)
@@ -4202,12 +4448,15 @@ def run_steps(job, rank=0, world=1, device="cuda"):
             mesh.broadcast_state_(model)
         optimizer = make_optimizer(model)
         if job.get("val") and not out["runs"]:
+            reduces = engine_metrics.depth_metrics.all_reduces
             out["val"] = {k: float(v) for k, v in
                           val_step(model, batch, True, job["iteration"]).items()}
+            out["val_metric_all_reduces"] = engine_metrics.depth_metrics.all_reduces - reduces
         steps = []
         for _ in range(run["steps"]):
             _sync(device)
             reset_launch_counts()
+            reduces = engine_metrics.depth_metrics.all_reduces
             t0 = time.perf_counter()
             loss = train_step(model, optimizer, batch, job["lr"], run["regress"],
                               job["iteration"])["loss"].item()
@@ -4216,6 +4465,8 @@ def run_steps(job, rank=0, world=1, device="cuda"):
                           "launches": launch_counts(),
                           "copies": depth_readout_grad.copies,
                           "loss_copies": full_loss_ops.full_loss_terms.copies,
+                          "metric_all_reduces":
+                              engine_metrics.depth_metrics.all_reduces - reduces,
                           "state": {k: v.detach().cpu().clone()
                                     for k, v in model.state_dict().items()},
                           "grads": {k: p.grad.detach().cpu().clone()
@@ -4229,6 +4480,7 @@ def run_steps(job, rank=0, world=1, device="cuda"):
                 k: v / 1e3 for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])},
                 "var_mean_events": var_mean_events(events),
                 "eager_loss_events": loss_op_events(events),
+                "eager_metric_events": metric_op_events(events),
                 "prob_grad_layouts": prob_grad_layouts(model, batch)}
     return out
 
@@ -4280,9 +4532,10 @@ def hold_ddp(name, ranks, single, planned, strict=True, extra=None):
     after the first step within DDP_PARAM_REL (relative L2); always the
     BN running statistics after it within DDP_BN_REL, every rank
     bit-equal to rank 0 (parameters, BN statistics) after every step,
-    finite losses, `planned` launches per rank per step, no copy in K7's
-    or K23's wrapper and, where a rank profiled a step, `hold_loss_path`'s
-    gates. Prints one JSON line (with `extra`); SystemExit on a miss."""
+    finite losses, `planned` launches per rank per step, one all-reduce
+    of the metrics per rank per step, no copy in K7's or K23's wrapper
+    and, where a rank profiled a step, `hold_loss_path`'s gates. Prints
+    one JSON line (with `extra`); SystemExit on a miss."""
     steps = [r["runs"][0] for r in ranks]
     want = single["runs"][0]
     params = [k for k in want[0]["grads"]]
@@ -4300,6 +4553,7 @@ def hold_ddp(name, ranks, single, planned, strict=True, extra=None):
            "launches_per_rank_per_step": [[s["launches"] for s in r] for r in steps],
            "depth_readout_grad_copies": [[s["copies"] for s in r] for r in steps],
            "full_loss_copies": [[s["loss_copies"] for s in r] for r in steps],
+           "metric_all_reduces": [[s["metric_all_reduces"] for s in r] for r in steps],
            "planned_per_step": planned}
     print(json.dumps({name: rec}))
     if strict and not (rec["loss_rel"] <= DDP_LOSS_REL
@@ -4313,6 +4567,8 @@ def hold_ddp(name, ranks, single, planned, strict=True, extra=None):
         raise SystemExit(f"{name}: launches per rank per step != {planned}")
     if any(s["copies"] for r in steps for s in r):
         raise SystemExit(f"{name}: K7's wrapper copied the probability's gradient")
+    if any(s["metric_all_reduces"] != 1 for r in steps for s in r):
+        raise SystemExit(f"{name}: the metrics' all-reduces per rank per step != 1")
     for r in ranks:
         profile = r.get("profile") or {}
         hold_loss_path(name, sum(s["loss_copies"] for s in r["runs"][0]), 0,
@@ -4412,6 +4668,9 @@ def train_ddp_nccl():
         hold_loss_path("train_ddp_nccl plain", sum(s["loss_copies"] for s in plain["runs"][0]),
                        0, plain["profile"]["prob_grad_layouts"],
                        plain["profile"]["eager_loss_events"])
+        if plain["profile"]["eager_metric_events"]:
+            raise SystemExit(f"train_ddp_nccl: the eager metrics ran in the plain step: "
+                             f"{plain['profile']['eager_metric_events']}")
         if any(r["profile"]["var_mean_events"] for r in (plain, synced)):
             raise SystemExit(f"train_ddp_nccl: var_mean ran in a profiled step: "
                              f"{[r['profile']['var_mean_events'] for r in (plain, synced)]}")
@@ -4977,7 +5236,7 @@ REPORT_PER_STEP = ("sweep_grad_ref", "sweep_grad_src", "depth_readout_grad",
                    "depth_readout_grad_bf16", "convex_upsample_grad_bf16",
                    "gru_update_grad_bf16", "gru_reset_grad_bf16", "bn_act_grad_bf16",
                    "upsample2x_grad_bf16", "bn_stats_bf16", "bn_stats_grad_bf16", "full_loss",
-                   "full_loss_grad", "grad_norm", "clip_adam")
+                   "full_loss_grad", "grad_norm", "clip_adam", "depth_metrics")
 
 
 def kernel_sources():
@@ -5033,7 +5292,9 @@ def kernel_sources():
                "grad_norm": ("itermvs_tpu_torch/csrc/grad_norm.cu",
                              "itermvs_tpu/engine/train_loop.py:54"),
                "clip_adam": ("itermvs_tpu_torch/csrc/clip_adam.cu",
-                             "itermvs_tpu/engine/train_loop.py:54")}
+                             "itermvs_tpu/engine/train_loop.py:54"),
+               "depth_metrics": ("itermvs_tpu_torch/csrc/depth_metrics.cu",
+                                 "itermvs_tpu/engine/metrics.py:47")}
     for name in ("corr_epilogue", "sweep_premul", "sweep_grad_ref", "sweep_grad_src"):
         source, replaces = sources[name]
         sources[f"{name}_bf16"] = (source.replace(".cu", "_bf16.cu"), replaces)
@@ -5090,6 +5351,8 @@ def main():
     loss_step = check_full_loss()
     # K25 and K26 at the training model's parameters, clipped and not.
     update_step = check_clip_adam(smi)
+    # K27 at the training step's metrics, planted, NaN, empty and edge shapes.
+    metrics_step = check_depth_metrics(smi)
     # K3 at DTU's 10 sources, and at the 4 of the main path's fusion (the
     # shape its reported time and bound are taken at).
     k3 = check_consistency(WIDTH, HEIGHT, (DTU_SOURCES, VIEWS - 1))[VIEWS - 1]
@@ -5264,6 +5527,7 @@ def main():
     per_step.update(bn_stats_step)
     per_step.update(loss_step)
     per_step.update(update_step)
+    per_step.update(metrics_step)
     for name in REPORT_PER_STEP:
         tot = per_step[name]
         t_bytes, t_ops = tot["bytes"] / PEAK_BYTES_PER_S, tot["ops"] / PEAK_F32_PER_S

@@ -4,69 +4,56 @@ itermvs_tpu/engine/metrics.py).
 Metrics are computed per image over the valid mask, then averaged over
 the images of the batch that have any valid pixel (in a process group,
 of the global batch: both sums of the batch mean are summed over the
-ranks, parallel/mesh.py). Functions take
-[B, H, W, 1] maps and return 0-dim tensors, so a step reads them back
-only when it logs.
+ranks, parallel/mesh.py). `depth_metrics` takes the whole set from one
+call of ops/depth_metrics.py (K27 on the card). Functions take [B, H, W,
+1] maps and return 0-dim tensors, so a step reads them back only when it
+logs.
 """
 from __future__ import annotations
 
-import torch
-
+from itermvs_tpu_torch.ops import depth_metrics as metric_ops
 from itermvs_tpu_torch.parallel.mesh import all_reduce_sum, is_initialized
 
 
-def _per_image_masked_mean(values, mask):
-    """[B, ...] masked mean per image → ([B] means, [B] has-valid flags)."""
-    b = values.shape[0]
-    v = values.reshape(b, -1)
-    m = mask.reshape(b, -1)
-    count = m.sum(dim=1)
-    means = (v * m).sum(dim=1) / torch.clamp(count, min=1.0)
-    means = torch.where(count > 0, means, torch.zeros_like(means))
-    return means, (count > 0).to(values.dtype)
-
-
-def _batch_mean(per_image, has_valid):
-    """Average per-image metrics over images that have any valid pixels
-    (an image whose mask is empty counts for nothing)."""
-    n = has_valid.sum()
-    total = (per_image * has_valid).sum()
+def _batch_mean(row, dtype):
+    """A metric in `dtype` of its [n, total] (`metric_ops.batch_sums`), the
+    group's where there is one."""
     if is_initialized():
-        n, total = all_reduce_sum(torch.stack([n, total])).unbind()
-    mean = total / torch.clamp(n, min=1.0)
-    return torch.where(n > 0, mean, torch.zeros_like(mean))
+        row = all_reduce_sum(row)
+    return metric_ops.batch_means(row[None], dtype)[0]
 
 
 def abs_depth_error(depth_est, depth_gt, mask):
     """Mean |est − gt| over mask, averaged per image then over batch."""
-    mask = (mask > 0.5).to(depth_est.dtype)
-    return _batch_mean(*_per_image_masked_mean((depth_est - depth_gt).abs(), mask))
+    return _batch_mean(metric_ops.abs_error_sums(depth_est, depth_gt, mask), depth_est.dtype)
 
 
 def threshold_metric(depth_est, depth_gt, mask, thres):
     """Fraction of masked pixels with |err| > thres (outlier rate)."""
-    mask = (mask > 0.5).to(depth_est.dtype)
-    outlier = ((depth_est - depth_gt).abs() > thres).to(depth_est.dtype)
-    return _batch_mean(*_per_image_masked_mean(outlier, mask))
+    return _batch_mean(metric_ops.threshold_sums(depth_est, depth_gt, mask, thres),
+                       depth_est.dtype)
 
 
 def depth_metrics(depths_combine, depth_upsampled, depth_gt, mask, num_iters):
-    """The reference's scalar set as a flat dict."""
-    gt_1, mask_1 = depth_gt["level_2"], mask["level_2"]
-    gt_0, mask_0 = depth_gt["level_0"], mask["level_0"]
-    out = {
-        "abs_error_initial": abs_depth_error(depths_combine[0], gt_1, mask_1),
-        "thres1mm_initial": threshold_metric(depths_combine[0], gt_1, mask_1, 1),
-        "abs_error_final_full": abs_depth_error(depth_upsampled, gt_0, mask_0),
-        "thres1mm_final_full": threshold_metric(depth_upsampled, gt_0, mask_0, 1),
-        "thres2mm_final_full": threshold_metric(depth_upsampled, gt_0, mask_0, 2),
-        "thres4mm_final_full": threshold_metric(depth_upsampled, gt_0, mask_0, 4),
-        "thres8mm_final_full": threshold_metric(depth_upsampled, gt_0, mask_0, 8),
-    }
-    for j in range(1, num_iters + 1):
-        out[f"thres1mm_gru_{j}"] = threshold_metric(depths_combine[j], gt_1, mask_1, 1)
-        out[f"abs_error_gru_{j}"] = abs_depth_error(depths_combine[j], gt_1, mask_1)
-    return out
+    """The reference's scalar set as a flat dict, in the JAX dict's order:
+    0-dim views of one tensor. In a process group the float64 [M, 2]
+    table of every metric's (n, total) is summed over the ranks in one
+    all-reduce (counted on `depth_metrics.all_reduces`), then divided
+    (clamp, div, the cast to the means' dtype)."""
+    if len(depths_combine) < num_iters + 1:
+        raise ValueError(f"depth_metrics: needs {num_iters + 1} predictions, got "
+                         f"{len(depths_combine)}")
+    means, table = metric_ops.depth_metrics(
+        depths_combine[:num_iters + 1], depth_upsampled, depth_gt["level_2"],
+        mask["level_2"], depth_gt["level_0"], mask["level_0"])
+    if is_initialized():
+        depth_metrics.all_reduces += 1
+        means = metric_ops.batch_means(all_reduce_sum(table), means.dtype)
+    return dict(zip(metric_ops.metric_names(num_iters), means.unbind()))
+
+
+# All-reduces the metrics made (one per call in a process group).
+depth_metrics.all_reduces = 0
 
 
 class DictAverageMeter:

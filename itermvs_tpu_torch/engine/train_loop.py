@@ -122,10 +122,11 @@ def _scalars(loss, outputs, batch, num_iters):
         loss = loss.detach()
         # The global loss: the ranks' shares summed (models/losses.py).
         scalars = {"loss": all_reduce_sum(loss) if is_initialized() else loss}
-        scalars.update(depth_metrics(
-            [d.detach() for d in outputs["depths"]["combine"]],
-            outputs["depths_upsampled"][0].detach(), batch["depth"], batch["mask"],
-            num_iters))
+        with record_function("depth_metrics"):     # K27 (engine/metrics.py)
+            scalars.update(depth_metrics(
+                [d.detach() for d in outputs["depths"]["combine"]],
+                outputs["depths_upsampled"][0].detach(), batch["depth"], batch["mask"],
+                num_iters))
     return scalars
 
 

@@ -35,7 +35,7 @@ SOURCES = ("corr_epilogue", "sweep_premul", "fusion_consistency", "sweep_grad_re
            "view_aggregate", "view_aggregate_grad", "gru_reset", "gru_update",
            "gru_update_grad", "gru_reset_grad", "bn_act", "bn_act_grad", "upsample2x_add",
            "upsample2x_grad", "bn_stats", "bn_stats_grad", "full_loss", "full_loss_grad",
-           "grad_norm", "clip_adam")
+           "grad_norm", "clip_adam", "depth_metrics")
 # No --use_fast_math: fusion_consistency needs IEEE divides and sqrt.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -126,6 +126,8 @@ SIGNATURES = {
                         _P, _P, _P, _P, _P, _P)),
     "grad_norm": ("itermvs_grad_norm", (_P, _I, _P, _I, _P, _P)),
     "clip_adam": ("itermvs_clip_adam", (_P, _I, _P, *(_F,) * 10, _P)),
+    "depth_metrics": ("itermvs_depth_metrics",
+                      (_P, _I, *(_P,) * 5, _I, _L, _L, _P, _L, _P, _P, _P)),
     # Not a kernel: 1 where K10's kernels are programmatic dependent launches.
     "convex_upsample_grad_programmatic": ("itermvs_convex_upsample_grad_programmatic", (),
                                           "convex_upsample_grad"),

@@ -13,6 +13,7 @@ from itermvs_tpu_torch.ops.bn_act import bn_act, bn_act_grad
 from itermvs_tpu_torch.ops.bn_stats import bn_stats_grad_, bn_sums
 from itermvs_tpu_torch.ops.clip_adam import clip_adam_, grad_norm
 from itermvs_tpu_torch.ops.consistency import consistency
+from itermvs_tpu_torch.ops.depth_metrics import depth_metrics
 from itermvs_tpu_torch.ops.conv_gru import gru_reset, gru_reset_grad, gru_update, gru_update_grad
 from itermvs_tpu_torch.ops.depth_readout import depth_readout, depth_readout_grad
 from itermvs_tpu_torch.ops.full_loss import full_loss_grad, full_loss_terms
@@ -37,7 +38,7 @@ COUNTERS = {"sweep_premul": sweep_premul, "corr_epilogue": corr_epilogue,
             "bn_stats": bn_sums, "bn_stats_grad": bn_stats_grad_}
 F32_COUNTERS = {"view_aggregate": view_aggregate, "view_aggregate_grad": view_aggregate_grad,
                 "full_loss": full_loss_terms, "full_loss_grad": full_loss_grad,
-                "grad_norm": grad_norm, "clip_adam": clip_adam_}
+                "grad_norm": grad_norm, "clip_adam": clip_adam_, "depth_metrics": depth_metrics}
 # Every kernel's report name, float32 forms first.
 KERNEL_NAMES = ("sweep_premul", "corr_epilogue", "fusion_consistency", "sweep_grad_ref",
                 "sweep_grad_src", "depth_readout", "depth_readout_grad", "sweep_taps",
@@ -45,7 +46,7 @@ KERNEL_NAMES = ("sweep_premul", "corr_epilogue", "fusion_consistency", "sweep_gr
                 "view_aggregate_grad", "gru_reset", "gru_update", "gru_update_grad",
                 "gru_reset_grad", "bn_act", "bn_act_grad", "upsample2x_add", "upsample2x_grad",
                 "bn_stats", "bn_stats_grad", "full_loss", "full_loss_grad", "grad_norm",
-                "clip_adam", "sweep_premul_bf16",
+                "clip_adam", "depth_metrics", "sweep_premul_bf16",
                 "corr_epilogue_bf16", "sweep_grad_ref_bf16", "sweep_grad_src_bf16",
                 "depth_readout_bf16", "depth_readout_grad_bf16", "sweep_taps_bf16",
                 "convex_upsample_bf16", "convex_upsample_grad_bf16", "gru_reset_bf16",
@@ -55,7 +56,7 @@ KERNEL_NAMES = ("sweep_premul", "corr_epilogue", "fusion_consistency", "sweep_gr
 
 
 def launch_counts() -> dict[str, int]:
-    """{report name: launches} of all forty-five kernels."""
+    """{report name: launches} of all forty-six kernels."""
     counts = {"fusion_consistency": consistency.launches}
     counts.update({name: fn.launches for name, fn in F32_COUNTERS.items()})
     for name, fn in COUNTERS.items():
@@ -66,9 +67,10 @@ def launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     """Every launch counter to 0, and the counts of K7's and K20's gradient
-    copies and of K23's input copies."""
+    copies and of K23's and K27's input copies."""
     consistency.launches = 0
     depth_readout_grad.copies = upsample2x_grad.copies = full_loss_terms.copies = 0
+    depth_metrics.copies = 0
     for fn in COUNTERS.values():
         fn.launches = fn.launches_bf16 = 0
     for fn in F32_COUNTERS.values():

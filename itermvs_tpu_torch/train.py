@@ -118,7 +118,7 @@ def pad_batch(sample, target: int):
     Zero-mask padding is metric-exact: full_loss normalizes every term by
     the total mask count (models/losses.py: _masked_mean) and
     depth_metrics averages per-image values only over images with any
-    valid pixels (engine/metrics.py: _batch_mean), so padded samples
+    valid pixels (ops/depth_metrics.py: batch_sums), so padded samples
     contribute exactly nothing. Returns (sample, real count)."""
     n = int(np.asarray(sample["depth_min"]).shape[0])
     if n >= target:

@@ -238,17 +238,17 @@ def test_bf16_plans_launch_as_many_kernels():
 
 
 def test_launch_counts_name_all_nine_kernels():
-    """All forty-five report names since K6-K26 joined the nine: the
+    """All forty-six report names since K6-K27 joined the nine: the
     sweep and fusion kernels, the depth readout forward and backward, the
     sweep taps, the convex upsample forward and backward, the ConvGRU's
     gates forward and backward, the BN epilogue forward and backward, the
     FPN add forward and backward and BN's training statistics forward and
     backward, each but fusion_consistency in both dtypes, and the view
-    aggregation and the training loss forward and backward and the
-    optimizer update's norm and step (float32 only)."""
+    aggregation and the training loss forward and backward, the
+    optimizer update's norm and step and the metrics (float32 only)."""
     chip_smoke.reset_launch_counts()
     counts = chip_smoke.launch_counts()
-    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 45
+    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 46
     assert {"depth_readout", "depth_readout_grad_bf16", "sweep_taps_bf16", "convex_upsample",
             "convex_upsample_grad_bf16", "view_aggregate", "view_aggregate_grad",
             "gru_reset", "gru_update", "gru_update_grad", "gru_reset_grad", "gru_reset_bf16",
@@ -256,9 +256,11 @@ def test_launch_counts_name_all_nine_kernels():
             "bn_act_grad", "bn_act_bf16", "bn_act_grad_bf16", "upsample2x_add",
             "upsample2x_grad", "upsample2x_add_bf16", "upsample2x_grad_bf16", "bn_stats",
             "bn_stats_grad", "bn_stats_bf16", "bn_stats_grad_bf16"} <= set(counts)
-    assert {"full_loss", "full_loss_grad", "grad_norm", "clip_adam"} <= set(counts)
+    assert {"full_loss", "full_loss_grad", "grad_norm", "clip_adam", "depth_metrics"} <= \
+        set(counts)
     assert not {"view_aggregate_bf16", "view_aggregate_grad_bf16", "full_loss_bf16",
-                "full_loss_grad_bf16", "grad_norm_bf16", "clip_adam_bf16"} & set(counts)
+                "full_loss_grad_bf16", "grad_norm_bf16", "clip_adam_bf16",
+                "depth_metrics_bf16"} & set(counts)
     assert counts == chip_smoke.planned_counts()
     assert chip_smoke.planned_counts(sweep_premul_bf16=3)["sweep_premul_bf16"] == 3
     for name in counts:
@@ -448,7 +450,7 @@ def test_ddp_plan_is_52_launches_per_rank_per_step():
     K11 and K12, float32 in both precisions, 4 (one per GRU call) of
     K13-K16, 13 (one per BN epilogue) of K17, K18 and K22, 16 (one per
     BN) of K21, 2 (one per FPN add) of K19 and K20 and one of K23, K24,
-    K25 and K26, float32 in both precisions, per rank per step."""
+    K25, K26 and K27, float32 in both precisions, per rank per step."""
     for dtype in (torch.float32, torch.bfloat16):
         shapes = chip_smoke.sweep_shapes(640, 512, 5, 4, 2, itemsize=dtype.itemsize)
         plan = chip_smoke.planned_step_counts(shapes, dtype)
@@ -473,14 +475,15 @@ def test_ddp_plan_is_52_launches_per_rank_per_step():
                                                                            dtype): 13},
                                                  view_aggregate=13, view_aggregate_grad=13,
                                                  full_loss=1, full_loss_grad=1, grad_norm=1,
-                                                 clip_adam=1)
+                                                 clip_adam=1, depth_metrics=1)
 
 
-def _record(loss, value, launches=None, copies=0, loss_copies=0):
-    """One step's record as `run_steps` writes it."""
+def _record(loss, value, launches=None, copies=0, loss_copies=0, metric_all_reduces=1):
+    """One step's record as `run_steps` writes it (in a process group)."""
     state = {"w": torch.full((3,), value), "bn.running_mean": torch.ones(2)}
     return {"loss": loss, "ms": 1.0, "launches": launches or chip_smoke.planned_counts(),
-            "copies": copies, "loss_copies": loss_copies, "state": state,
+            "copies": copies, "loss_copies": loss_copies,
+            "metric_all_reduces": metric_all_reduces, "state": state,
             "grads": {"w": torch.ones(3)}}
 
 
@@ -502,6 +505,9 @@ def test_hold_ddp_gates():
     copied = {"runs": [[_record(10.0, 1.0, copies=1)]]}
     with pytest.raises(SystemExit, match="copied the probability's gradient"):
         chip_smoke.hold_ddp("t", [copied, copied], single, chip_smoke.planned_counts())
+    per_metric = {"runs": [[_record(10.0, 1.0, metric_all_reduces=15)]]}
+    with pytest.raises(SystemExit, match="the metrics' all-reduces per rank per step != 1"):
+        chip_smoke.hold_ddp("t", [per_metric, per_metric], single, chip_smoke.planned_counts())
 
 
 def test_world_one_group_comes_and_goes(monkeypatch):
@@ -768,7 +774,8 @@ def test_chain_time_takes_the_kernels_inside_each_labelled_range():
                       "fpn_add": {"device_ms": 0.0, "launches": 0},
                       "bn_stats": {"device_ms": 0.0, "launches": 0},
                       "full_loss": {"device_ms": 0.0, "launches": 0},
-                      "clip_adam": {"device_ms": 0.0, "launches": 0}}
+                      "clip_adam": {"device_ms": 0.0, "launches": 0},
+                      "depth_metrics": {"device_ms": 0.0, "launches": 0}}
     by_name, by_cat, busy = chip_smoke.device_summary(events)
     assert "fused_sweep_taps" not in by_name and "depth_readout" not in by_name
     assert busy == pytest.approx((10 + 8 + 1 + 29 + 9 + 5) / 1e3)
@@ -1037,7 +1044,7 @@ def test_dryrun_plan_per_rank_per_step():
     1): 2 + 2·2·3 = 14 launches of each sweep kernel, forward and
     backward, 3 of K6, K7 and K8, one of K9 and K10, 1 + 3·2 = 7 of K11
     and K12, 2 of K13-K16, 13 of K17, K18 and K22, 16 of K21, 2 of K19 and
-    K20, one of K23, K24, K25 and K26."""
+    K20, one of K23, K24, K25, K26 and K27."""
     shapes = chip_smoke.sweep_shapes(port_entry.DRYRUN_WIDTH, port_entry.DRYRUN_HEIGHT,
                                      port_entry.DRYRUN_VIEWS, port_entry.DRYRUN_ITERATION)
     plan = chip_smoke.planned_step_counts(shapes, torch.float32,
@@ -1048,7 +1055,7 @@ def test_dryrun_plan_per_rank_per_step():
         convex_upsample_grad=1, view_aggregate=7, view_aggregate_grad=7, gru_reset=2,
         gru_update=2, gru_update_grad=2, gru_reset_grad=2, bn_act=13, bn_act_grad=13,
         upsample2x_add=2, upsample2x_grad=2, bn_stats=16, bn_stats_grad=13, full_loss=1,
-        full_loss_grad=1, grad_norm=1, clip_adam=1)
+        full_loss_grad=1, grad_norm=1, clip_adam=1, depth_metrics=1)
 
 
 def test_largest_patch_finds_the_biggest_connected_block():
@@ -1431,6 +1438,22 @@ def test_update_events_find_the_eager_update_only():
                      _Event(foreach, 95, 99)]
     assert chip_smoke.update_op_events(dirty) == {where[:90]: 1, foreach[:90]: 1}
     assert chip_smoke.chain_time(clean)["clip_adam"] == {"device_ms": 0.018, "launches": 3}
+
+
+def test_metric_events_find_the_eager_metrics_only():
+    """The profiled step's eager metrics: a kernel under the
+    `depth_metrics` label other than K27's two; K27's alone under the
+    label, and eager kernels outside it, are none."""
+    pixel = "(anonymous namespace)::depth_metrics_pixel_kernel(Planes, int)"
+    fold = "(anonymous namespace)::depth_metrics_fold_kernel(double const*, float*)"
+    where = "void at::native::elementwise_kernel<128, 2, where_kernel_impl>"
+    clean = [_Event("depth_metrics", 0, 100, "cpu", annotation=True),
+             _Event("depth_metrics", 10, 40), _Event(pixel, 10, 15), _Event(fold, 16, 20),
+             _Event(where, 50, 60)]
+    assert chip_smoke.metric_op_events(clean) == {}
+    dirty = clean + [_Event("depth_metrics", 70, 90), _Event(where, 71, 75)]
+    assert chip_smoke.metric_op_events(dirty) == {where[:90]: 1}
+    assert chip_smoke.chain_time(clean)["depth_metrics"] == {"device_ms": 0.009, "launches": 2}
 
 
 def test_update_work_and_bound_count_the_model_parameters():

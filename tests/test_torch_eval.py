@@ -94,7 +94,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "itermvs_tpu_torch.engine.train_loop", "itermvs_tpu_torch.data.loader",
             "itermvs_tpu_torch.data.dtu", "itermvs_tpu_torch.parallel",
             "itermvs_tpu_torch.parallel.mesh",
-            "itermvs_tpu_torch.engine.profiling", "itermvs_tpu_torch.entry"} <= set(modules)
+            "itermvs_tpu_torch.engine.profiling", "itermvs_tpu_torch.entry",
+            "itermvs_tpu_torch.ops.depth_metrics"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"

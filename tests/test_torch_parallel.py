@@ -134,8 +134,10 @@ def test_two_ranks_match_one_process(results, stage):
     _, _, _, single, ranks = results
     i = list(STAGES).index(stage)
     want = single["runs"][i][0]
+    assert want["metric_all_reduces"] == 0
     for rank in ranks:
         got = rank["runs"][i][0]
+        assert got["metric_all_reduces"] == 1       # the metrics' table, once per step
         assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
         grads = {k: g.numpy() for k, g in got["grads"].items()}
         assert _rel_l2(grads, {k: g.numpy().astype(np.float64)
@@ -171,10 +173,13 @@ def test_ranks_end_the_step_bit_equal(results):
 
 def test_val_step_over_two_ranks(results):
     """The val step's loss and metrics are the global batch's on every
-    rank: as one process's and as the JAX val step's."""
+    rank: as one process's and as the JAX val step's, from one all-reduce
+    of the metrics' table."""
     _, _, want, single, ranks = results
     assert set(single["val"]) == set(want["val"])
+    assert single["val_metric_all_reduces"] == 0
     for rank in ranks:
+        assert rank["val_metric_all_reduces"] == 1
         for key, w in want["val"].items():
             assert rank["val"][key] == pytest.approx(w, rel=1e-5, abs=1e-6), key
             assert rank["val"][key] == pytest.approx(single["val"][key], rel=1e-5,
