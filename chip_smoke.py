@@ -80,7 +80,21 @@
    unit in the last place of the float64 sum of the same terms, two
    launches bit-equal; bare ms, device ms, bound and share, the plain
    version's ms and the library's (F.interpolate + add; F.interpolate's
-   autograd backward). Then `check_full_loss`: the training loss K23
+   autograd backward). Then `check_resize`: the model's six other
+   bilinear resizes (`RESIZE_SITES`: the reference features of levels 1
+   and 3 to the 1/4 grid, ×½ and ×2, the init sweep's view weights and
+   depth ×2, the hidden state ×2 with its tanh, the confidence ×4), K28
+   resize_bilinear and, where a gradient flows, its backward K29
+   resize_bilinear_grad, in float32 and, at the sites of the compute
+   dtype, bfloat16, on a 1600x1152 map and on a training step's batch of
+   4 at 640x512 (the reference features as view slices), then at
+   RESIZE_EDGE_CASES (odd maps, one pixel, ×4, tanh, two ratios that are
+   not powers of two) and on a view slice: K28 bit for bit against
+   F.interpolate (then torch.tanh), K29 within one unit in the last
+   place of the float64 sum (×2) or bit for bit against F.interpolate's
+   backward (×½), two launches bit-equal; bare ms, device ms, bound and
+   share, the plain version's ms and the library's (F.interpolate +
+   tanh; their autograd backward). Then `check_full_loss`: the training loss K23
    full_loss (one read of each probability: every term's sum and count)
    and its backward K24 full_loss_grad (the dense ∂p K7 reads, the
    depths' and logits' gradients) at the training step's loss (batch 4,
@@ -125,8 +139,9 @@
    (as save_depth's loader delivers them on a card); reads the PFMs back
    and checks them against the scene's analytic depth; checks that each
    kernel launched as often as the chunk plan predicts (K6 and K8 5 times
-   per map, K9 once, K11 13 times, K13 and K14 4 times, K17 13 times and
-   K19 twice per image the feature cache extracts); prints per map
+   per map, K9 once, K11 13 times, K13 and K14 4 times, K28 5 times, K17
+   13 times and K19 twice per image the feature cache extracts); prints
+   per map
    the host ms of run_depth's `dispatch` (uploads and eager launches)
    and `finalize` (wait, dequantization, writer handoff).
 5. Fuses those 5 depth maps (`itermvs_tpu_torch.fusion.fuse_views`,
@@ -141,7 +156,8 @@
    plain-torch chains (`CHAINS`) beside their byte bounds; the capture
    must hold each hand-written kernel's device kernels as the launch plan
    says (`device_capture`: an empty or short capture is retaken, three
-   in all, then the phase fails). Then
+   in all, then the phase fails) and no bilinear resize or tanh of
+   PyTorch's (`resize_op_events`). Then
    `eval_pipeline`: the 5 maps through one run_depth call against one
    call per map, twice (differing pixels no more than between the two
    one-per-call runs), all with cuDNN's deterministic algorithms (two
@@ -179,8 +195,9 @@
    step, K6, K7 and K8 5 times each, K9 and K10 once, K11 and K12 13
    times each, K13-K16 4 times each, K17, K18 and K22 13 times each,
    K21 16 times, K19 and K20 twice each, K23, K24, K25, K26 and K27
-   once, no var_mean op or kernel, no gather or argmax of the eager loss,
-   no kernel of the eager update (a foreach kernel, or anything but K25
+   once, K28 6 times and K29 4 times, no var_mean op or kernel, no
+   bilinear resize or tanh of PyTorch's, no gather or argmax of the
+   eager loss, no kernel of the eager update (a foreach kernel, or anything but K25
    and K26 under the `clip_adam` label; "optimizer" 0 ms) and nothing but
    K27 under the `depth_metrics` label may run in the profiled step,
    which is held against the launch plan as in step 6, K23's wrapper
@@ -2437,6 +2454,258 @@ def check_upsample2x():
     return per_map, per_step
 
 
+# ---------------------------------------------------------- the resizes
+# The model's bilinear resizes outside FeatureNet (K28 launches, K29 where
+# a gradient flows; models/itermvs.py `bilinear`), in the order it runs
+# them: (site, channels (None: the sources, views − 1), the scale s of the
+# input's H/s x W/s plane, that of the output, whether it runs in the
+# compute dtype (else float32), tanh after it, whether it runs in training
+# only, whether a gradient flows back through it).
+RESIZE_SITES = (("ref_level1", FEATURE_CHANNELS["level1"], 2, 4, True, False, False, True),
+                ("ref_level3", FEATURE_CHANNELS["level3"], 8, 4, True, False, False, True),
+                ("view_weights", None, 8, 4, False, False, False, False),
+                ("hidden", HIDDEN_DIM, 8, 4, True, True, False, True),
+                ("init_depth", 1, 8, 4, False, False, True, True),
+                ("confidence", 1, 4, 1, False, False, False, False))
+# K28/K29 beside the main path's shapes, [n, c, ih, iw, oh, ow, tanh]:
+# ×2 and ×½ on odd maps (the scalar path), a one-pixel map, ×4 on the run
+# path, ×2 on its own run path (an odd row count with tanh, one row),
+# ×½ on the run path with its word loads, and two ratios that are not
+# powers of two (a float scale that is not exact).
+RESIZE_EDGE_CASES = ((2, 3, 5, 7, 10, 14, True), (2, 3, 10, 14, 5, 7, False),
+                     (1, 2, 1, 1, 2, 2, True), (1, 2, 3, 4, 12, 16, False),
+                     (1, 3, 5, 8, 10, 16, True), (2, 2, 1, 4, 2, 8, False),
+                     (2, 3, 8, 16, 4, 8, False), (1, 2, 7, 9, 5, 4, False),
+                     (1, 2, 3, 5, 7, 11, True))
+# Operations: K28 per output the formula's 6 products and 3 sums (tanhf
+# one more); K29 per ∂x element ×2's 16 multiply-adds in float64 (as K20),
+# ×½'s product and add, and tanh_backward's 3 per ∂out element.
+K28_OPS, K29_UP2_OPS, K29_DOWN2_OPS, TANH_GRAD_OPS = 9, 32, 2, 3
+
+
+def resize_sites(width, height, views, batch, dtype, train=False):
+    """The resizes of one map (or, `train`, one training step's forward)
+    at `width` x `height`: [(site, n, c, ih, iw, oh, ow, dtype, tanh,
+    gradient)] (`RESIZE_SITES`)."""
+    return [(site, batch, views - 1 if c is None else c, height // s_in, width // s_in,
+             height // s_out, width // s_out, dtype if compute else torch.float32, tanh,
+             grad and train)
+            for site, c, s_in, s_out, compute, tanh, train_only, grad in RESIZE_SITES
+            if train or not train_only]
+
+
+def resize_work(n, c, ih, iw, oh, ow, itemsize, tanh=False, grad=False):
+    """(bytes, operations, operations per second) of K28 (or K29, `grad`)
+    for x [n, c, ih, iw] resized to (oh, ow): K28 reads x and writes the
+    output, K29 reads ∂out (and the output, for tanh) and writes ∂x, each
+    once."""
+    small, big = n * c * ih * iw, n * c * oh * ow
+    if not grad:
+        return itemsize * (small + big), (K28_OPS + tanh) * big, PEAK_F32_PER_S
+    pre = TANH_GRAD_OPS * big if tanh else 0
+    nbytes = itemsize * (small + (2 if tanh else 1) * big)
+    if (oh, ow) == (2 * ih, 2 * iw):
+        return nbytes, K29_UP2_OPS * small + pre, PEAK_F64_PER_S
+    return nbytes, K29_DOWN2_OPS * small + pre, PEAK_F32_PER_S
+
+
+def resize_bytes(width, height, views, batch, dtype, train=False):
+    """K28's bytes over the resizes of one map (or training forward) in
+    the compute dtype `dtype` (`resize_sites`)."""
+    return sum(resize_work(n, c, ih, iw, oh, ow, torch.finfo(dt).bits // 8, tanh)[0]
+               for _, n, c, ih, iw, oh, ow, dt, tanh, _ in resize_sites(
+                   width, height, views, batch, dtype, train))
+
+
+def resize_inputs(n, c, ih, iw, oh, ow, dtype, gen, dev="cuda", views=1):
+    """Seeded K28/K29 inputs in `dtype`, exponents spread as `up2_inputs`
+    spreads them: x [n, c, ih, iw] (with `views` > 1 view 0 of [n, views,
+    c, ih, iw], batch-strided as the model's reference features are) and
+    ∂out [n, c, oh, ow]."""
+    def spread(*shape):
+        k = torch.randint(-8, 8, shape, device=dev, generator=gen).float()
+        return (torch.randn(*shape, device=dev, generator=gen) * torch.exp2(k)).to(dtype)
+
+    x = spread(n, views, c, ih, iw)[:, 0] if views > 1 else spread(n, c, ih, iw)
+    return dict(x=x, g=spread(n, c, oh, ow))
+
+
+def resize_library_grad(x, size, tanh, g):
+    """A callable giving ∂x of F.interpolate (then torch.tanh) at x for
+    ∂out g through autograd: PyTorch's upsample_bilinear2d_backward (a zero
+    fill and atomic adds), after tanh_backward for the tanh form."""
+    import torch.nn.functional as F
+
+    xr = x.detach().requires_grad_()
+    up = F.interpolate(xr, size=size, mode="bilinear", align_corners=False)
+    if tanh:
+        up = torch.tanh(up)
+    return lambda: torch.autograd.grad(up, xr, g, retain_graph=True)[0]
+
+
+def hold_resize(label, n, c, ih, iw, oh, ow, dtype, tanh, grad, gen, timed=True, views=1):
+    """K28 in `dtype` for x [n, c, ih, iw] resized to (oh, ow) (then
+    tanh) on `resize_inputs`, bit for bit against its plain version
+    (F.interpolate, then torch.tanh, on the card), and where `grad` K29
+    against the float64 sum of the same terms (∂pre = the card's
+    tanh_backward for tanh, then ×2's 4x4 gather): within one unit in
+    the last place for ×2, and for ×½ bit-equal to F.interpolate's
+    autograd backward; each launched twice bit-equal, the wrappers'
+    outputs equal to the bare launches'. Where `timed`: bare ms, device
+    ms, the wrapper's (`call_ms`), the plain version's and the library's
+    (`library_ms`: F.interpolate + tanh, K28's plain version; for K29
+    their autograd backward). `views` > 1 reads x as a view's slice
+    (`resize_inputs`). One JSON line per kernel; returns {report name:
+    record}."""
+    t = resize_inputs(n, c, ih, iw, oh, ow, dtype, gen, views=views)
+    x, g = t["x"], t["g"]
+    size = (oh, ow)
+    itemsize = torch.finfo(dtype).bits // 8
+    recs, lines = {}, []
+
+    k28 = kernel_name("resize_bilinear", dtype)
+    out = torch.empty(n, c, oh, ow, dtype=dtype, device="cuda")
+    fwd = bare_launch(k28, resize_ops.resize_args(x, out, tanh))
+    fwd()
+    want = resize_ops.resize_plain(x, size, tanh)
+    same = torch.equal(bits(out), bits(want))
+    differ = (bits(out) != bits(want)).sum().item()
+    err = (out.float() - want.float()).abs().max().item()
+    first = out.clone()
+    fwd()
+    torch.cuda.synchronize()
+    repeats = torch.equal(bits(first), bits(out))
+    wrapper_equal = torch.equal(bits(resize_ops.resize_forward(x, size, tanh)), bits(out))
+    nbytes, ops, rate = resize_work(n, c, ih, iw, oh, ow, itemsize, tanh)
+    rec = {"max_abs_err": err, "max_rel_err": 0.0, "bytes": nbytes, "ops": ops,
+           "library_ms": None}
+    if timed:
+        rec.update(ms=time_ms(fwd),
+                   device_ms=sum(device_us(fwd, phase=f"{k28} at {label}").values()) / 1e3,
+                   call_ms=time_ms(lambda: resize_ops.resize_forward(x, size, tanh)),
+                   plain_ms=time_ms(lambda: resize_ops.resize_plain(x, size, tanh)))
+        rec["library_ms"] = rec["plain_ms"]
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops, rate)
+    lines.append((k28, rec, {"bit_equal": same, "differ_from_plain": differ,
+                             "two_launches_bit_equal": repeats,
+                             "wrapper_equal": wrapper_equal, "tolerance": "bit-equal"}))
+    ok = same and repeats and wrapper_equal
+
+    if grad:
+        k29 = kernel_name("resize_bilinear_grad", dtype)
+        y = out if tanh else None
+        d_x = torch.empty_like(x)
+        bwd = bare_launch(k29, resize_ops.resize_grad_args(g, y, d_x))
+        bwd()
+        pre = torch.ops.aten.tanh_backward(g, y) if tanh else g
+        up = size == (2 * ih, 2 * iw)
+        library_grad = resize_library_grad(x, size, tanh, g)
+        if up:
+            exact = resize_ops.upsample2x_grad_plain(pre.double(), (ih, iw))
+            err_ulps = ulps(d_x, exact, dtype).max().item()
+            library_ulps = ulps(library_grad(), exact, dtype).max().item()
+        else:
+            exact = resize_ops.resize_grad_plain(pre.double(), (ih, iw))
+            library = library_grad()
+            err_ulps = 0.0 if torch.equal(bits(d_x), bits(library)) else math.inf
+            library_ulps = 0.0
+        err = (d_x.double() - exact).abs().max().item()
+        rel = err / max(exact.abs().max().item(), 1e-30)
+        del exact
+        first = d_x.clone()
+        bwd()
+        torch.cuda.synchronize()
+        repeats = torch.equal(bits(first), bits(d_x))
+        wrapper_equal = torch.equal(
+            bits(resize_ops.resize_grad(g, (ih, iw), y)), bits(d_x))
+        nbytes, ops, rate = resize_work(n, c, ih, iw, oh, ow, itemsize, tanh, grad=True)
+        rec = {"max_abs_err": err, "max_rel_err": rel, "bytes": nbytes, "ops": ops,
+               "library_ms": None}
+        if timed:
+            rec.update(ms=time_ms(bwd),
+                       device_ms=sum(device_us(bwd, phase=f"{k29} at {label}").values()) / 1e3,
+                       call_ms=time_ms(lambda: resize_ops.resize_grad(g, (ih, iw), y)),
+                       plain_ms=time_ms(lambda: resize_ops.resize_grad_plain(g, (ih, iw), y)),
+                       library_ms=time_ms(library_grad))
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, ops, rate)
+        lines.append((k29, rec, {"max_ulps": err_ulps, "library_max_ulps": library_ulps,
+                                 "two_launches_bit_equal": repeats,
+                                 "wrapper_equal": wrapper_equal,
+                                 "tolerance": "1 ulp of the float64 sum" if up else
+                                 "bit-equal to F.interpolate's backward"}))
+        ok = ok and repeats and wrapper_equal and err_ulps <= 1.0
+    for kname, rec, gates in lines:
+        extra = {"share": rec["bound_ms"] / rec["ms"]} if timed else {}
+        print(json.dumps({"kernel": kname, "shape": label, "x": [n, c, ih, iw],
+                          "x_strides": list(x.stride()), "out": [oh, ow], "tanh": tanh,
+                          **gates, **rec, **extra}))
+        recs[kname] = rec
+    if not ok:
+        raise SystemExit(f"resize_bilinear/resize_bilinear_grad {dtype} at {label}: {lines}")
+    return recs
+
+
+def check_resize():
+    """K28 and K29 against their plain versions on the card
+    (`hold_resize`) at every site of `RESIZE_SITES`, on a 1600x1152 map
+    and on a 640x512 training step's batch of 4 (K29 there; the reference
+    features as view 0 of the step's 5 views), the sites of the compute
+    dtype in float32 and bfloat16, then at RESIZE_EDGE_CASES, the odd ×½
+    one also on a view's slice.
+    Returns the per-map totals of K28 (the 5 resizes a map runs) and the
+    per-step totals of K29, in both dtypes, keyed by report name."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 12)
+    per_map, per_step = {}, {}
+    keys = ("ms", "device_ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bytes", "ops")
+    plans = (("map", 1, HEIGHT, WIDTH, per_map, "resize_bilinear"),
+             ("step", TRAIN_BATCH, TRAIN_HEIGHT, TRAIN_WIDTH, per_step, "resize_bilinear_grad"))
+    for per, batch, height, width, totals, name in plans:
+        in_eval = {s[0] for s in resize_sites(width, height, VIEWS, batch, torch.float32)}
+        for dtype in (torch.float32, BF16):
+            for site, n, c, ih, iw, oh, ow, dt, tanh, grad in resize_sites(
+                    width, height, VIEWS, batch, dtype, train=True):
+                if dt != dtype:             # a float32 site: held in the float32 round
+                    continue
+                views = TRAIN_VIEWS if per == "step" and site.startswith("ref_") else 1
+                recs = hold_resize(f"{per}_{site}_{n}x{c}x{ih}x{iw}", n, c, ih, iw, oh, ow,
+                                   dt, tanh, grad and per == "step", gen, views=views)
+                kname = kernel_name(name, dt)
+                if kname in recs and (per == "step" or site in in_eval):
+                    tot = totals.setdefault(kname, dict.fromkeys(keys, 0.0) | dict(
+                        max_abs_err=0.0, max_rel_err=0.0, launches=0))
+                    for key in keys:
+                        tot[key] += recs[kname][key]
+                    for key in ("max_abs_err", "max_rel_err"):
+                        tot[key] = max(tot[key], recs[kname][key])
+                    tot["launches"] += 1
+                torch.cuda.empty_cache()
+    for dtype in (torch.float32, BF16):
+        for n, c, ih, iw, oh, ow, tanh in RESIZE_EDGE_CASES:
+            grad = (oh, ow) == (2 * ih, 2 * iw) or (ih, iw) == (2 * oh, 2 * ow)
+            hold_resize(f"edge_{n}x{c}x{ih}x{iw}_to_{oh}x{ow}", n, c, ih, iw, oh, ow, dtype,
+                        tanh, grad, gen, timed=False)
+        hold_resize("edge_view_slice_2x3x10x14_to_5x7", 2, 3, 10, 14, 5, 7, dtype, False,
+                    True, gen, timed=False, views=3)
+    print(json.dumps({"resize_totals": {"per_map": per_map, "per_step": per_step}}))
+    return per_map, per_step
+
+
+def resize_op_events(events):
+    """{name: calls} of the host ops and device kernels among `events` that
+    belong to the eager resizes K28 and K29 replaced: PyTorch's bilinear
+    resize and its backward (`aten::upsample_bilinear2d*`, autograd's
+    `UpsampleBilinear2DBackward*`, their `upsample_bilinear2d*` kernels)
+    and tanh (`aten::tanh`, `TanhBackward0`, `aten::tanh_backward` and
+    their kernels); the model runs no other tanh on the card."""
+    found = {}
+    for e in events:
+        low = e.name.lower()
+        if "upsample_bilinear2d" in low or "upsamplebilinear2d" in low or "tanh" in low:
+            found[e.name[:90]] = found.get(e.name[:90], 0) + 1
+    return found
+
+
 # ------------------------------------------------------------- the loss
 # K23's sums against the plain forward evaluated in float64 (relative, per
 # term: each pixel's term is float32 in K23, its float64 value in the
@@ -3602,7 +3871,7 @@ SWEEP_KERNELS = (sweep_premul, corr_epilogue, sweep_grad_ref, sweep_grad_src)
 TEMPLATED = ("depth_readout_grad", "depth_readout", "sweep_taps", "convex_upsample_grad",
              "convex_upsample", "gru_update_grad", "gru_reset_grad", "gru_update", "gru_reset",
              "bn_act_grad", "bn_act", "upsample2x_grad", "upsample2x_add", "bn_stats_grad",
-             "bn_stats")
+             "bn_stats", "resize_bilinear_grad", "resize_bilinear")
 # The float32-only kernels, longest name first (K11's is a prefix of K12's,
 # K23's of K24's): a source's kernels are named `<name>_...kernel`. They
 # are named before the library's categories ("clip_adam" holds "adam").
@@ -3636,19 +3905,35 @@ def planned_map_counts(shapes, dtype, maps=1, iteration=ITERATION, features=None
     prediction (1 + iteration), K8 once per sweep (1 + iteration), K9
     once, K11 (float32 in both precisions) once per aggregation: the
     init sweep's and each iteration's 3 levels', 1 + 3·iteration, K13 and
-    K14 once per GRU call, iteration, and K17 13 times and K19 twice per
+    K14 once per GRU call, iteration, K28 once per resize (`RESIZE_SITES`:
+    2 in float32, 3 in `dtype`), and K17 13 times and K19 twice per
     FeatureNet call (`BN_CALLS`, `FPN_CALLS`): `features` calls, by
     default one per map (a forward's views in one call, or the feature
     cache's one new image per map)."""
     forward = sum(s[-1] for s in shapes) * maps
     features = maps if features is None else features
-    return planned_counts(view_aggregate=(1 + len(LEVELS) * iteration) * maps,
+    plan = planned_counts(view_aggregate=(1 + len(LEVELS) * iteration) * maps,
                           **{kernel_name(k, dtype): n for k, n in (
         ("sweep_premul", forward), ("corr_epilogue", forward),
         ("depth_readout", (1 + iteration) * maps), ("sweep_taps", (1 + iteration) * maps),
         ("convex_upsample", maps), ("gru_reset", iteration * maps),
         ("gru_update", iteration * maps), ("bn_act", len(BN_CALLS) * features),
         ("upsample2x_add", len(FPN_CALLS) * features))})
+    return add_resize_counts(plan, dtype, maps, train=False)
+
+
+def add_resize_counts(plan, dtype, times, train):
+    """`plan` with K28's launches (and, `train`, K29's) over `times` maps
+    or training steps added, in float32 or `dtype` as each site of
+    `RESIZE_SITES` runs."""
+    for _, _, _, _, compute, _, train_only, grad in RESIZE_SITES:
+        if train_only and not train:
+            continue
+        dt = dtype if compute else torch.float32
+        plan[kernel_name("resize_bilinear", dt)] += times
+        if train and grad:
+            plan[kernel_name("resize_bilinear_grad", dt)] += times
+    return plan
 
 
 def _category(name):
@@ -3749,10 +4034,12 @@ def device_time(fn):
 # optimizer update under `clip_adam` (engine/train_loop.py: K25's two
 # kernels and K26's one) and the metrics under `depth_metrics`
 # (engine/train_loop.py: K27's two kernels; in a process group also the
-# table's all-reduce and its clamp, div and cast).
+# table's all-reduce and its clamp, div and cast), and K28 under `resize`
+# (models/itermvs.py: one per bilinear resize, 5 per map, 6 per training
+# step).
 CHAINS = ("depth_readout", "fused_sweep_taps", "convex_upsample", "view_aggregate",
           "conv_gru", "bn_act", "fpn_add", "bn_stats", "full_loss", "clip_adam",
-          "depth_metrics")
+          "depth_metrics", "resize")
 
 
 def label_kernels(events):
@@ -3806,8 +4093,10 @@ def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=F
     read once); clip_adam, in training only, the update's g, p, m, v read
     and p, m, v written once over the model's parameters (`update_work`);
     depth_metrics, in training only, K27's (`metrics_work`: each
-    prediction, GT and mask read once). Their operations per byte are far
-    below the card's, so bytes bound all eleven."""
+    prediction, GT and mask read once); resize K28's (`resize_bytes`: each
+    site's input read and output written once, 5 per map, 6 per training
+    forward). Their operations per byte are far below the card's, so
+    bytes bound all twelve."""
     p4 = batch * (height // 4) * (width // 4)
     p8 = batch * (height // 8) * (width // 8)
     sources = views - 1
@@ -3834,7 +4123,9 @@ def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=F
               "clip_adam": update_work(sum(math.prod(s) for s in model_param_shapes()),
                                        "clip_adam")[0] if train else 0,
               "depth_metrics": metrics_work(1 + iteration, p4, batch * height * width)[0]
-              if train else 0}
+              if train else 0,
+              "resize": resize_bytes(width, height, views, batch,
+                                     BF16 if itemsize == 2 else torch.float32, train)}
     return {k: 1e3 * v / PEAK_BYTES_PER_S for k, v in nbytes.items()}
 
 
@@ -3844,8 +4135,9 @@ def profile_maps(model, samples, outdir, unprofiled_wall):
     per map, and the labelled chains' device time and launches per map
     beside their byte bounds. The capture is held against the maps'
     launch plan (`device_capture`: retaken where short, raising after
-    PLAN_CAPTURES). The idle share is taken against the timed run's own
-    wall time, since tracing slows the host."""
+    PLAN_CAPTURES) and must hold no op of the eager resizes K28 replaced
+    (`resize_op_events`). The idle share is taken against the timed
+    run's own wall time, since tracing slows the host."""
     maps = len(samples)
     itemsize = torch.finfo(model.compute_dtype).bits // 8
     planned = planned_map_counts(sweep_shapes(WIDTH, HEIGHT, VIEWS, ITERATION,
@@ -3870,7 +4162,11 @@ def profile_maps(model, samples, outdir, unprofiled_wall):
         "by_category_ms_per_map": {k: v / 1e3 / maps for k, v in
                                    sorted(by_cat.items(), key=lambda kv: -kv[1])},
         "top_ms_per_map": [{"name": k[:90], "calls_per_map": c / maps,
-                            "device_ms": t / 1e3 / maps} for k, (c, t) in top]}))
+                            "device_ms": t / 1e3 / maps} for k, (c, t) in top],
+        "eager_resize_events": resize_op_events(events)}))
+    if resize_op_events(events):
+        raise SystemExit(f"profile_maps {model.compute_dtype}: the eager resizes ran: "
+                         f"{resize_op_events(events)}")
 
 
 # -------------------------------------------------------------- training
@@ -3955,11 +4251,12 @@ def planned_step_counts(shapes, dtype, iteration=TRAIN_ITERATION):
     iteration; K17, K18 and K22 13 times, K21 once per BN (16) and K19
     and K20 twice, FeatureNet's one call over the batch's views; K23 and
     K24, float32 in both precisions, once; the update's K25 and K26 and
-    the metrics' K27, float32 in both precisions, once)."""
+    the metrics' K27, float32 in both precisions, once; K28 6 times, 3 in
+    float32, and K29 4 times, 1 in float32, `add_resize_counts`)."""
     forward = sum(s[-1] for s in shapes)
     sweeps = sum(sweeps_of(shapes, dtype).values())
     aggregations = 1 + len(LEVELS) * iteration
-    return planned_counts(view_aggregate=aggregations, view_aggregate_grad=aggregations,
+    plan = planned_counts(view_aggregate=aggregations, view_aggregate_grad=aggregations,
                           full_loss=1, full_loss_grad=1, grad_norm=1, clip_adam=1,
                           depth_metrics=1,
                           **{kernel_name(k, dtype): n for k, n in (
@@ -3972,6 +4269,7 @@ def planned_step_counts(shapes, dtype, iteration=TRAIN_ITERATION):
         ("bn_act_grad", len(BN_CALLS)), ("upsample2x_add", len(FPN_CALLS)),
         ("upsample2x_grad", len(FPN_CALLS)), ("bn_stats", len(BN_INPUTS)),
         ("bn_stats_grad", len(BN_CALLS)))})
+    return add_resize_counts(plan, dtype, 1, train=True)
 
 
 def capture_sweeps(model, batch, iteration):
@@ -4203,8 +4501,10 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
     be finite and fall and each sweep kernel of `dtype` launch 52 times
     per step. Then one profiled step, held against the step's launch
     plan (`device_capture`) and free of the eager update
-    (`update_op_events`, "optimizer" 0) and of the eager metrics
-    (`metric_op_events`), a validation step, a checkpoint
+    (`update_op_events`, "optimizer" 0), of the eager metrics
+    (`metric_op_events`) and of the eager resizes (`resize_op_events`;
+    K29's copies of a ∂out that is not contiguous are counted per step), a
+    validation step, a checkpoint
     round trip on the card (the model and the Adam state K25 and K26
     keep, bit for bit) and `check_real_sweeps` on one more step's sweeps
     (`synthetic_ms`: the `sweep_inputs` times printed beside). Returns
@@ -4229,6 +4529,7 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
     counts = launch_counts()
     copies = depth_readout_grad.copies
     up2_copies = resize_ops.upsample2x_grad.copies
+    resize_copies = resize_ops.resize_grad.copies
     loss_copies = full_loss_ops.full_loss_terms.copies
     peak = torch.cuda.max_memory_allocated()
     planned = {k: n * TRAIN_STEPS for k, n in planned_step_counts(shapes, dtype).items()}
@@ -4240,7 +4541,8 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
            "steps_per_s_last5": len(last) / sum(last), "peak_mem_gib": peak / 2 ** 30,
            "batch_setup_s": setup_s, "launches": counts, "planned_launches": planned,
            "depth_readout_grad_copies": copies, "upsample2x_grad_copies": up2_copies,
-           "full_loss_copies": loss_copies}
+           "full_loss_copies": loss_copies, "resize_grad_copies_per_step":
+           resize_copies / TRAIN_STEPS}
 
     by_name, by_cat, busy_ms, events = device_capture(
         lambda: train_step(model, optimizer, batch, TRAIN_LR, True, TRAIN_ITERATION),
@@ -4249,6 +4551,7 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
     rec["eager_loss_events"] = loss_op_events(events)
     rec["eager_update_events"] = update_op_events(events)
     rec["eager_metric_events"] = metric_op_events(events)
+    rec["eager_resize_events"] = resize_op_events(events)
     wall_ms = 1e3 * sorted(last)[len(last) // 2]
     bounds = chain_bound_ms(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_ITERATION,
                             TRAIN_BATCH, torch.finfo(dtype).bits // 8, train=True)
@@ -4295,6 +4598,9 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
     if rec["eager_metric_events"]:
         raise SystemExit(f"the eager metrics ran in the training step: "
                          f"{rec['eager_metric_events']}")
+    if rec["eager_resize_events"]:
+        raise SystemExit(f"the eager resizes ran in the training step: "
+                         f"{rec['eager_resize_events']}")
     if copies != 0:
         raise SystemExit(f"K7's wrapper copied the probability's gradient {copies} times")
     if up2_copies != 0:
@@ -5228,7 +5534,8 @@ REPORT_PER_MAP = ("corr_epilogue", "sweep_premul", "depth_readout", "sweep_taps"
                   "convex_upsample", "view_aggregate", "gru_reset", "gru_update", "bn_act",
                   "upsample2x_add", "corr_epilogue_bf16", "sweep_premul_bf16",
                   "depth_readout_bf16", "sweep_taps_bf16", "convex_upsample_bf16",
-                  "gru_reset_bf16", "gru_update_bf16", "bn_act_bf16", "upsample2x_add_bf16")
+                  "gru_reset_bf16", "gru_update_bf16", "bn_act_bf16", "upsample2x_add_bf16",
+                  "resize_bilinear", "resize_bilinear_bf16")
 REPORT_PER_STEP = ("sweep_grad_ref", "sweep_grad_src", "depth_readout_grad",
                    "convex_upsample_grad", "view_aggregate_grad", "gru_update_grad",
                    "gru_reset_grad", "bn_act_grad", "upsample2x_grad", "bn_stats",
@@ -5236,7 +5543,8 @@ REPORT_PER_STEP = ("sweep_grad_ref", "sweep_grad_src", "depth_readout_grad",
                    "depth_readout_grad_bf16", "convex_upsample_grad_bf16",
                    "gru_update_grad_bf16", "gru_reset_grad_bf16", "bn_act_grad_bf16",
                    "upsample2x_grad_bf16", "bn_stats_bf16", "bn_stats_grad_bf16", "full_loss",
-                   "full_loss_grad", "grad_norm", "clip_adam", "depth_metrics")
+                   "full_loss_grad", "grad_norm", "clip_adam", "depth_metrics",
+                   "resize_bilinear_grad", "resize_bilinear_grad_bf16")
 
 
 def kernel_sources():
@@ -5294,7 +5602,11 @@ def kernel_sources():
                "clip_adam": ("itermvs_tpu_torch/csrc/clip_adam.cu",
                              "itermvs_tpu/engine/train_loop.py:54"),
                "depth_metrics": ("itermvs_tpu_torch/csrc/depth_metrics.cu",
-                                 "itermvs_tpu/engine/metrics.py:47")}
+                                 "itermvs_tpu/engine/metrics.py:47"),
+               "resize_bilinear": ("itermvs_tpu_torch/csrc/resize_bilinear.cu",
+                                   "itermvs_tpu/ops/resize.py:41"),
+               "resize_bilinear_grad": ("itermvs_tpu_torch/csrc/resize_bilinear_grad.cu",
+                                        "itermvs_tpu/ops/resize.py:41")}
     for name in ("corr_epilogue", "sweep_premul", "sweep_grad_ref", "sweep_grad_src"):
         source, replaces = sources[name]
         sources[f"{name}_bf16"] = (source.replace(".cu", "_bf16.cu"), replaces)
@@ -5347,6 +5659,9 @@ def main():
     # K19 at FeatureNet's FPN adds on a map's image, K19/K20 on a step's.
     up2_map, up2_step = check_upsample2x()
     per_map.update(up2_map)
+    # K28 at the model's resizes on a map, K28/K29 on a step's.
+    resize_map, resize_step = check_resize()
+    per_map.update(resize_map)
     # K23 and K24 at the training step's loss, planted and real.
     loss_step = check_full_loss()
     # K25 and K26 at the training model's parameters, clipped and not.
@@ -5445,7 +5760,7 @@ def main():
                                             "depth_readout_bf16", "sweep_taps_bf16",
                                             "convex_upsample_bf16", "gru_reset_bf16",
                                             "gru_update_bf16", "bn_act_bf16",
-                                            "upsample2x_add_bf16")})
+                                            "upsample2x_add_bf16", "resize_bilinear_bf16")})
     # The same maps as a data-parallel eval: two gloo ranks on the card.
     eval_ddp_2rank(samples, smi)
 
@@ -5481,7 +5796,8 @@ def main():
                                                         "bn_act_grad_bf16",
                                                         "upsample2x_grad_bf16",
                                                         "bn_stats_bf16",
-                                                        "bn_stats_grad_bf16")})
+                                                        "bn_stats_grad_bf16",
+                                                        "resize_bilinear_grad_bf16")})
 
     # Data-parallel training (two gloo ranks on the card; one NCCL rank in
     # bf16), then --debug_nans on one depth map.
@@ -5528,6 +5844,7 @@ def main():
     per_step.update(loss_step)
     per_step.update(update_step)
     per_step.update(metrics_step)
+    per_step.update(resize_step)
     for name in REPORT_PER_STEP:
         tot = per_step[name]
         t_bytes, t_ops = tot["bytes"] / PEAK_BYTES_PER_S, tot["ops"] / PEAK_F32_PER_S

@@ -8,8 +8,12 @@ K1 `corr_epilogue`; backward K4 `sweep_grad_ref` and K5
 `chunked_warp_corr`. Each depth prediction reads the 256-bin head out
 through `depth_readout` (K6; backward K7 `depth_readout_grad`), and the
 last is ×4 upsampled through `upsample_depth` (K9 `convex_upsample`;
-backward K10 `convex_upsample_grad`). Each sweep's views are aggregated
-through `view_aggregate` (K11; backward K12 `view_aggregate_grad`). The
+backward K10 `convex_upsample_grad`). Every bilinear resize (the init
+sweep's view weights and depth, the hidden state with its tanh, the
+reference features of levels 1 and 3, the confidence) runs K28
+`resize_bilinear` (backward K29 `resize_bilinear_grad`; ops/resize.py).
+Each sweep's views are aggregated through `view_aggregate` (K11;
+backward K12 `view_aggregate_grad`). The
 GRU's gates run K13 `gru_reset` and K14 `gru_update` between its
 convolutions (backward K15 `gru_update_grad`, K16 `gru_reset_grad`;
 models/blocks.py `ConvGRU`).
@@ -39,8 +43,9 @@ logits, every softmax, the windowed expectation, the convex upsampling
 weights (K9 reads the bfloat16 mask logits and softmaxes them in
 float32) and every depth and confidence map stay float32.
 
-Five chains run under `torch.profiler.record_function` labels, so that
-a profile can sum their device time: `fused_sweep_taps` (K8),
+Six chains run under `torch.profiler.record_function` labels, so that
+a profile can sum their device time: `fused_sweep_taps` (K8), `resize`
+(K28: the six bilinear resizes),
 `depth_readout` (K6: the 256-bin softmax and the windowed expectation),
 `convex_upsample` (K9: the 9-tap mask softmax and the ×4 convex
 upsample), `view_aggregate` (K11: the view-weighted correlation
@@ -58,7 +63,7 @@ from itermvs_tpu_torch.models.blocks import ConvGRU, ConvReLU, conv, conv_transp
 from itermvs_tpu_torch.ops.depth_range import depth_unnormalization
 from itermvs_tpu_torch.ops.depth_readout import (  # noqa: F401 (windowed_expectation)
     NUM_BINS, RADIUS, depth_readout, windowed_expectation)
-from itermvs_tpu_torch.ops.resize import resize_bilinear, upsample_bilinear
+from itermvs_tpu_torch.ops.resize import resize
 from itermvs_tpu_torch.ops.sweep_grad import SweepCorr
 from itermvs_tpu_torch.ops.upsample import upsample_depth
 from itermvs_tpu_torch.ops.view_aggregate import view_aggregate
@@ -90,6 +95,13 @@ def initial_depth_samples(inverse_depth_min, inverse_depth_max, height, width,
         num_sample - 1)
     inv = idmax + frac * (idmin - idmax)
     return (1.0 / inv).expand(batch, num_sample, height, width)
+
+
+def bilinear(x, out_hw, tanh: bool = False):
+    """K28 (`ops.resize.resize`): x [B, C, H, W] resized to `out_hw`,
+    tanh'd where `tanh`, under the `resize` label."""
+    with record_function("resize"):
+        return resize(x, out_hw, tanh)
 
 
 def chunked_warp_corr(src, ref, flat_idx, taps, groups: int = GROUPS):
@@ -179,7 +191,7 @@ class Evaluation(nn.Module):
         with record_function("view_aggregate"):
             correlation = view_aggregate(corr.unbind(1), weight)    # [B,N,G,HW]
         score = self.corr_conv1[2](correlation.reshape(b, n, GROUPS, h, w))
-        return upsample_bilinear(weight.reshape(b, -1, h, w), 2), score
+        return bilinear(weight.reshape(b, -1, h, w), (2 * h, 2 * w)), score
 
     @staticmethod
     def init_depth(score, idmin_b, idmax_b):
@@ -190,8 +202,8 @@ class Evaluation(nn.Module):
         index = torch.arange(n, dtype=torch.float32,
                              device=score.device).reshape(1, n, 1, 1)
         normalized = (index * probability).sum(dim=1, keepdim=True) / (n - 1.0)
-        return upsample_bilinear(
-            depth_unnormalization(normalized, idmin_b, idmax_b), 2)
+        h, w = score.shape[-2:]
+        return bilinear(depth_unnormalization(normalized, idmin_b, idmax_b), (2 * h, 2 * w))
 
     def iter_sweep(self, ref_features, src_features, rel_projs, depth_samples,
                    view_weights):
@@ -254,7 +266,8 @@ class Update(nn.Module):
 
     def hidden_init(self, score_volume):
         """[B, 32, H8, W8] level-3 score volume → hidden [B, hidden, H4, W4]."""
-        return torch.tanh(upsample_bilinear(self.hidden_init_head(score_volume), 2))
+        h, w = score_volume.shape[-2:]
+        return bilinear(self.hidden_init_head(score_volume), (2 * h, 2 * w), tanh=True)
 
     def depth(self, hidden, probability: bool = True):
         """(normalized depth [B, 1, H, W], probability [B, 256, H, W]) from
@@ -329,9 +342,9 @@ class IterMVS(nn.Module):
 
         src_nhwc = {k: [nhwc(f) for f in src_features[k]] for k in LEVELS}
         ref_iter = {
-            "level1": nhwc_flat(resize_bilinear(ref_features["level1"], (h4, w4))),
+            "level1": nhwc_flat(bilinear(ref_features["level1"], (h4, w4))),
             "level2": nhwc_flat(ref_features["level2"]),
-            "level3": nhwc_flat(resize_bilinear(ref_features["level3"], (h4, w4))),
+            "level3": nhwc_flat(bilinear(ref_features["level3"], (h4, w4))),
         }
 
         depth_samples = initial_depth_samples(idmin, idmax, h4 // 2, w4 // 2)
@@ -381,7 +394,7 @@ class IterMVS(nn.Module):
             up = upsample_depth(normalized_depth, mask_logits)
         depth_upsampled = depth_unnormalization(up, idmin_b, idmax_b)
         confidence = torch.sigmoid(logits)
-        confidence_upsampled = upsample_bilinear(confidence, 4)
+        confidence_upsampled = bilinear(confidence, (4 * h4, 4 * w4))
         if self.test:
             return depth, depth_upsampled, confidence, confidence_upsampled
         return depths, [depth_upsampled], confidences, confidence_upsampled

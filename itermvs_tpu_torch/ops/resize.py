@@ -29,6 +29,24 @@ csrc/upsample2x.cuh) or raise; only a CPU tensor takes the plain PyTorch
 versions beside them. K19's inputs must be contiguous NCHW of one dtype;
 a ∂out that is not contiguous is copied once and counted on
 `upsample2x_grad.copies`.
+
+The model's other resizes (models/itermvs.py: the init sweep's view
+weights and depth ×2, the hidden state ×2 then tanh, the reference
+features of levels 1 and 3 to the 1/4 grid, ×½ and ×2, the confidence
+×4) run K28 `resize_bilinear` (`resize`; its plain version
+`resize_plain`: F.interpolate, then torch.tanh where asked) and, where a
+gradient flows, its backward K29 `resize_bilinear_grad` (`resize_grad`,
+through `ResizeBilinear`): ×2 with K20's 4×4 gather in float64, ×½ as
+¼·∂out spread onto the 2×2 pixels below it (exact), each after
+tanh_backward for the tanh form; any other ratio raises there. K28 is
+bit-equal to its plain version on the card; K29 lies within one unit in
+the last place of the float64 sum (×2) or equals PyTorch's backward (×½).
+K28 takes any output size but the input's own, in float32 or bfloat16;
+each batch entry of its input must be contiguous NCHW (the batch may be
+strided: the reference view's slice of FeatureNet's output is read where
+it lies), and a ∂out that is not contiguous is copied once and counted
+on `resize_grad.copies` (the reference features' ∂out arrives
+channels-last from the sweep's NHWC flatten: 2 copies per step).
 """
 from __future__ import annotations
 
@@ -199,3 +217,145 @@ def upsample2x_add(x: torch.Tensor, lateral: torch.Tensor) -> torch.Tensor:
 upsample2x_add.launches = upsample2x_add.launches_bf16 = 0
 upsample2x_grad.launches = upsample2x_grad.launches_bf16 = 0
 upsample2x_grad.copies = 0
+
+
+def resize_plain(x: torch.Tensor, out_hw: tuple[int, int], tanh: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K28: F.interpolate to `out_hw`, then
+    torch.tanh where `tanh`."""
+    y = resize_bilinear(x, out_hw)
+    return torch.tanh(y) if tanh else y
+
+
+def _ratio(in_hw, out_hw) -> str:
+    """"up2" where out_hw is twice in_hw, "down2" where it is half, else
+    raise: K29 takes no other ratio."""
+    (h, w), (oh, ow) = in_hw, out_hw
+    if (oh, ow) == (2 * h, 2 * w):
+        return "up2"
+    if (2 * oh, 2 * ow) == (h, w):
+        return "down2"
+    raise ValueError(f"resize_grad: no backward from {tuple(out_hw)} to {tuple(in_hw)}: "
+                     f"only ×2 and ×½ carry a gradient")
+
+
+def resize_grad_plain(g: torch.Tensor, in_hw: tuple[int, int],
+                      y: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of K29: ∂x [N, C, *in_hw] of resize_plain
+    for ∂out `g` (and, for the tanh form, its output `y`): tanh_backward
+    first, then ×2's float64 gather (`upsample2x_grad_plain`) or ×½'s
+    exact spread of ¼·∂out, in g's dtype."""
+    ratio = _ratio(in_hw, g.shape[-2:])
+    if y is not None:
+        g = torch.ops.aten.tanh_backward(g, y)
+    if ratio == "up2":
+        return upsample2x_grad_plain(g, in_hw)
+    # PyTorch's atomic backward adds ¼·∂out, rounded, onto zeros.
+    quarter = g * 0.25 + 0.0
+    return quarter.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1).contiguous()
+
+
+def resize_args(x, out, tanh) -> tuple:
+    """K28's C arguments for a checked x (`batch_stride`), writing `out`."""
+    n, c, h, w = x.shape
+    return (x.data_ptr(), out.data_ptr(), n, c, batch_stride(x), h, w, *out.shape[-2:],
+            int(tanh), _stream())
+
+
+def batch_stride(x) -> int:
+    """The elements between x's batch entries, where each entry [C, H, W]
+    is contiguous (as the reference view's slice of FeatureNet's [B, V,
+    C, H, W] output is); raise otherwise."""
+    if x.shape[0] == 0 or not x[0].is_contiguous():
+        raise ValueError(f"resize_bilinear: needs each batch entry of x {tuple(x.shape)} "
+                         f"contiguous NCHW, got strides {x.stride()}")
+    return x.stride(0) if x.shape[0] > 1 else x[0].numel()
+
+
+def resize_grad_args(g, y, d_x) -> tuple:
+    """K29's C arguments for a checked ∂out `g` (and output `y`, or None),
+    writing `d_x` [N, C, h, w]."""
+    n, c, h, w = d_x.shape
+    up = _ratio((h, w), g.shape[-2:]) == "up2"
+    return (g.data_ptr(), 0 if y is None else y.data_ptr(), d_x.data_ptr(), n * c, h, w,
+            int(up), int(y is not None), _stream())
+
+
+def _resize_shapes(x, out_hw) -> None:
+    if x.dim() != 4 or len(out_hw) != 2 or min(out_hw) < 1:
+        raise ValueError(f"resize: x {tuple(x.shape)} must be [N, C, H, W] and the size "
+                         f"{tuple(out_hw)} (H_out, W_out)")
+    if tuple(out_hw) == tuple(x.shape[-2:]):
+        raise ValueError(f"resize: the size {tuple(out_hw)} is x's own")
+
+
+def resize_forward(x: torch.Tensor, out_hw: tuple[int, int], tanh: bool = False) -> torch.Tensor:
+    """K28 (or its plain version on the CPU): x [N, C, H, W] resized to
+    `out_hw`, then tanh where `tanh`, in x's dtype. Not differentiable
+    (`resize` is)."""
+    _resize_shapes(x, out_hw)
+    if x.device.type == "cpu":
+        return resize_plain(x, out_hw, tanh)
+    batch_stride(x)
+    _check("resize_bilinear", (x[0],))
+    out = torch.empty(*x.shape[:2], *out_hw, dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        launch("resize_bilinear", x.dtype, resize_args(x, out, tanh))
+    _count(resize_forward, x.dtype)
+    return out
+
+
+def resize_grad(g: torch.Tensor, in_hw: tuple[int, int],
+                y: torch.Tensor | None = None) -> torch.Tensor:
+    """K29 (or its plain version on the CPU): ∂x [N, C, *in_hw] for ∂out
+    `g` of a ×2 or ×½ resize, after tanh_backward with the saved output
+    `y` where it is given. A g that is not contiguous is copied once
+    (`resize_grad.copies`)."""
+    if g.dim() != 4 or (y is not None and y.shape != g.shape):
+        raise ValueError(f"resize_grad: ∂out {tuple(g.shape)} must be [N, C, H, W]"
+                         + ("" if y is None else f" and the output {tuple(y.shape)} alike"))
+    _ratio(in_hw, g.shape[-2:])
+    if g.device.type == "cpu":
+        return resize_grad_plain(g, in_hw, y)
+    if not g.is_contiguous():
+        g = g.contiguous()
+        resize_grad.copies += 1
+    _check("resize_bilinear_grad", (g,) if y is None else (g, y))
+    d_x = torch.empty(*g.shape[:2], *in_hw, dtype=g.dtype, device=g.device)
+    with torch.cuda.device(g.device):
+        launch("resize_bilinear_grad", g.dtype, resize_grad_args(g, y, d_x))
+    _count(resize_grad, g.dtype)
+    return d_x
+
+
+class ResizeBilinear(torch.autograd.Function):
+    """K28 forward, K29 backward (their plain versions on the CPU). Saves
+    the output for the tanh form, else only x's size."""
+
+    @staticmethod
+    def forward(ctx, x, out_hw, tanh):
+        y = resize_forward(x, out_hw, tanh)
+        ctx.in_hw, ctx.tanh = tuple(x.shape[-2:]), tanh
+        if tanh:
+            ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        y = ctx.saved_tensors[0] if ctx.tanh else None
+        return resize_grad(grad, ctx.in_hw, y), None, None
+
+
+def resize(x: torch.Tensor, out_hw: tuple[int, int], tanh: bool = False) -> torch.Tensor:
+    """Bilinear resize of x [N, C, H, W] (float32 or bfloat16) to
+    `out_hw`, F.interpolate's (align_corners=False), then tanh where
+    `tanh`. Differentiable in x for ×2 and ×½ (ResizeBilinear)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return ResizeBilinear.apply(x, tuple(out_hw), tanh)
+    return resize_forward(x, out_hw, tanh)
+
+
+# Launches of K28's and K29's float32 and bfloat16 forms, and K29's copies
+# of a ∂out that was not contiguous.
+resize_forward.launches = resize_forward.launches_bf16 = 0
+resize_grad.launches = resize_grad.launches_bf16 = 0
+resize_grad.copies = 0

@@ -238,24 +238,27 @@ def test_bf16_plans_launch_as_many_kernels():
 
 
 def test_launch_counts_name_all_nine_kernels():
-    """All forty-six report names since K6-K27 joined the nine: the
+    """All fifty report names since K6-K29 joined the nine: the
     sweep and fusion kernels, the depth readout forward and backward, the
     sweep taps, the convex upsample forward and backward, the ConvGRU's
     gates forward and backward, the BN epilogue forward and backward, the
-    FPN add forward and backward and BN's training statistics forward and
-    backward, each but fusion_consistency in both dtypes, and the view
+    FPN add forward and backward, BN's training statistics forward and
+    backward and the model's resizes forward and backward, each but
+    fusion_consistency in both dtypes, and the view
     aggregation and the training loss forward and backward, the
     optimizer update's norm and step and the metrics (float32 only)."""
     chip_smoke.reset_launch_counts()
     counts = chip_smoke.launch_counts()
-    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 46
+    assert tuple(counts) == chip_smoke.KERNEL_NAMES and len(counts) == 50
     assert {"depth_readout", "depth_readout_grad_bf16", "sweep_taps_bf16", "convex_upsample",
             "convex_upsample_grad_bf16", "view_aggregate", "view_aggregate_grad",
             "gru_reset", "gru_update", "gru_update_grad", "gru_reset_grad", "gru_reset_bf16",
             "gru_update_bf16", "gru_update_grad_bf16", "gru_reset_grad_bf16", "bn_act",
             "bn_act_grad", "bn_act_bf16", "bn_act_grad_bf16", "upsample2x_add",
             "upsample2x_grad", "upsample2x_add_bf16", "upsample2x_grad_bf16", "bn_stats",
-            "bn_stats_grad", "bn_stats_bf16", "bn_stats_grad_bf16"} <= set(counts)
+            "bn_stats_grad", "bn_stats_bf16", "bn_stats_grad_bf16", "resize_bilinear",
+            "resize_bilinear_grad", "resize_bilinear_bf16",
+            "resize_bilinear_grad_bf16"} <= set(counts)
     assert {"full_loss", "full_loss_grad", "grad_norm", "clip_adam", "depth_metrics"} <= \
         set(counts)
     assert not {"view_aggregate_bf16", "view_aggregate_grad_bf16", "full_loss_bf16",
@@ -324,13 +327,14 @@ def test_map_plan_counts_k6_and_k8_per_prediction_and_sweep():
                                              depth_readout=25, sweep_taps=25,
                                              convex_upsample=5, view_aggregate=65,
                                              gru_reset=20, gru_update=20, bn_act=65,
-                                             upsample2x_add=10)
+                                             upsample2x_add=10, resize_bilinear=25)
     plan16 = chip_smoke.planned_map_counts(shapes, torch.bfloat16)
     assert plan16 == chip_smoke.planned_counts(sweep_premul_bf16=52, corr_epilogue_bf16=52,
                                                depth_readout_bf16=5, sweep_taps_bf16=5,
                                                convex_upsample_bf16=1, view_aggregate=13,
                                                gru_reset_bf16=4, gru_update_bf16=4,
-                                               bn_act_bf16=13, upsample2x_add_bf16=2)
+                                               bn_act_bf16=13, upsample2x_add_bf16=2,
+                                               resize_bilinear=2, resize_bilinear_bf16=3)
 
 
 def test_readout_logits_plant_their_cases():
@@ -449,8 +453,10 @@ def test_ddp_plan_is_52_launches_per_rank_per_step():
     of K6, K7 and K8, one of K9 and K10, 13 (one per aggregation) of
     K11 and K12, float32 in both precisions, 4 (one per GRU call) of
     K13-K16, 13 (one per BN epilogue) of K17, K18 and K22, 16 (one per
-    BN) of K21, 2 (one per FPN add) of K19 and K20 and one of K23, K24,
-    K25, K26 and K27, float32 in both precisions, per rank per step."""
+    BN) of K21, 2 (one per FPN add) of K19 and K20, one of K23, K24,
+    K25, K26 and K27, float32 in both precisions, and 6 of K28 and 4 of
+    K29 (one per resize, the gradient's where it flows; 3 and 1 of them
+    float32 in both precisions) per rank per step."""
     for dtype in (torch.float32, torch.bfloat16):
         shapes = chip_smoke.sweep_shapes(640, 512, 5, 4, 2, itemsize=dtype.itemsize)
         plan = chip_smoke.planned_step_counts(shapes, dtype)
@@ -464,6 +470,9 @@ def test_ddp_plan_is_52_launches_per_rank_per_step():
                ("gru_reset", "gru_update", "gru_update_grad", "gru_reset_grad")]
         bn = [chip_smoke.kernel_name(k, dtype) for k in ("bn_act", "bn_act_grad")]
         fpn = [chip_smoke.kernel_name(k, dtype) for k in ("upsample2x_add", "upsample2x_grad")]
+        resize = ({"resize_bilinear": 6, "resize_bilinear_grad": 4} if dtype == torch.float32
+                  else {"resize_bilinear": 3, "resize_bilinear_bf16": 3,
+                        "resize_bilinear_grad": 1, "resize_bilinear_grad_bf16": 3})
         assert plan == chip_smoke.planned_counts(**{k: 52 for k in names},
                                                  **{k: 5 for k in heads},
                                                  **{k: 1 for k in upsample},
@@ -475,7 +484,7 @@ def test_ddp_plan_is_52_launches_per_rank_per_step():
                                                                            dtype): 13},
                                                  view_aggregate=13, view_aggregate_grad=13,
                                                  full_loss=1, full_loss_grad=1, grad_norm=1,
-                                                 clip_adam=1, depth_metrics=1)
+                                                 clip_adam=1, depth_metrics=1, **resize)
 
 
 def _record(loss, value, launches=None, copies=0, loss_copies=0, metric_all_reduces=1):
@@ -775,7 +784,8 @@ def test_chain_time_takes_the_kernels_inside_each_labelled_range():
                       "bn_stats": {"device_ms": 0.0, "launches": 0},
                       "full_loss": {"device_ms": 0.0, "launches": 0},
                       "clip_adam": {"device_ms": 0.0, "launches": 0},
-                      "depth_metrics": {"device_ms": 0.0, "launches": 0}}
+                      "depth_metrics": {"device_ms": 0.0, "launches": 0},
+                      "resize": {"device_ms": 0.0, "launches": 0}}
     by_name, by_cat, busy = chip_smoke.device_summary(events)
     assert "fused_sweep_taps" not in by_name and "depth_readout" not in by_name
     assert busy == pytest.approx((10 + 8 + 1 + 29 + 9 + 5) / 1e3)
@@ -1026,7 +1036,8 @@ def test_eval_rank_on_two_cpu_ranks():
 def test_entry_plan_is_52_per_call_at_128x160():
     """entry()'s forward (128x160, 5 views, 4 iterations): 52 launches of
     K1 and K2, 5 of K6 and K8, one of K9, 13 of K11, 4 of K13 and K14, 13
-    of K17 and 2 of K19 (one FeatureNet call over the 5 views)."""
+    of K17, 2 of K19 (one FeatureNet call over the 5 views) and 5 of K28
+    (one per resize)."""
     shapes = chip_smoke.sweep_shapes(chip_smoke.ENTRY_WIDTH, chip_smoke.ENTRY_HEIGHT,
                                      chip_smoke.ENTRY_VIEWS, chip_smoke.ITERATION)
     assert [s[:8] for s in shapes] == [
@@ -1036,7 +1047,8 @@ def test_entry_plan_is_52_per_call_at_128x160():
         ("iter_level3", 1, 2, 32, 40, 16, 20, 48)]
     assert chip_smoke.planned_map_counts(shapes, torch.float32) == chip_smoke.planned_counts(
         sweep_premul=52, corr_epilogue=52, depth_readout=5, sweep_taps=5, convex_upsample=1,
-        view_aggregate=13, gru_reset=4, gru_update=4, bn_act=13, upsample2x_add=2)
+        view_aggregate=13, gru_reset=4, gru_update=4, bn_act=13, upsample2x_add=2,
+        resize_bilinear=5)
 
 
 def test_dryrun_plan_per_rank_per_step():
@@ -1044,7 +1056,7 @@ def test_dryrun_plan_per_rank_per_step():
     1): 2 + 2·2·3 = 14 launches of each sweep kernel, forward and
     backward, 3 of K6, K7 and K8, one of K9 and K10, 1 + 3·2 = 7 of K11
     and K12, 2 of K13-K16, 13 of K17, K18 and K22, 16 of K21, 2 of K19 and
-    K20, one of K23, K24, K25, K26 and K27."""
+    K20, one of K23, K24, K25, K26 and K27, 6 of K28 and 4 of K29."""
     shapes = chip_smoke.sweep_shapes(port_entry.DRYRUN_WIDTH, port_entry.DRYRUN_HEIGHT,
                                      port_entry.DRYRUN_VIEWS, port_entry.DRYRUN_ITERATION)
     plan = chip_smoke.planned_step_counts(shapes, torch.float32,
@@ -1055,7 +1067,8 @@ def test_dryrun_plan_per_rank_per_step():
         convex_upsample_grad=1, view_aggregate=7, view_aggregate_grad=7, gru_reset=2,
         gru_update=2, gru_update_grad=2, gru_reset_grad=2, bn_act=13, bn_act_grad=13,
         upsample2x_add=2, upsample2x_grad=2, bn_stats=16, bn_stats_grad=13, full_loss=1,
-        full_loss_grad=1, grad_norm=1, clip_adam=1, depth_metrics=1)
+        full_loss_grad=1, grad_norm=1, clip_adam=1, depth_metrics=1, resize_bilinear=6,
+        resize_bilinear_grad=4)
 
 
 def test_largest_patch_finds_the_biggest_connected_block():
