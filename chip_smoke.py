@@ -80,10 +80,10 @@
    unit in the last place of the float64 sum of the same terms, two
    launches bit-equal; bare ms, device ms, bound and share, the plain
    version's ms and the library's (F.interpolate + add; F.interpolate's
-   autograd backward). Then `check_resize`: the model's six other
+   autograd backward). Then `check_resize`: the model's four other
    bilinear resizes (`RESIZE_SITES`: the reference features of levels 1
-   and 3 to the 1/4 grid, ×½ and ×2, the init sweep's view weights and
-   depth ×2, the hidden state ×2 with its tanh, the confidence ×4), K28
+   and 3 to the 1/4 grid, ×½ and ×2, the hidden state ×2 with its tanh,
+   the confidence ×4), K28
    resize_bilinear and, where a gradient flows, its backward K29
    resize_bilinear_grad, in float32 and, at the sites of the compute
    dtype, bfloat16, on a 1600x1152 map and on a training step's batch of
@@ -94,7 +94,22 @@
    place of the float64 sum (×2) or bit for bit against F.interpolate's
    backward (×½), two launches bit-equal; bare ms, device ms, bound and
    share, the plain version's ms and the library's (F.interpolate +
-   tanh; their autograd backward). Then `check_full_loss`: the training loss K23
+   tanh; their autograd backward). Then `check_view_weight` and
+   `check_init_depth`: the init sweep's two softmax tails over its 32
+   samples, each with the ×2 resize after it, K30 view_weight
+   (PixelViewWeight's softmax, max and ×2) at a 1600x1152 map's [4, 32,
+   144, 200] logits and, with its backward K31 view_weight_grad, at a
+   training step's [16, 32, 64, 80], in float32 and bfloat16, and K32
+   init_depth (the training depth's softmax expectation, unnormalization
+   and ×2) with its backward K33 init_depth_grad at the step's [4, 32,
+   64, 80] score, then all at SOFTMAX_EDGE_SHAPES, on seeded inputs with
+   all 32 samples tied and two-way ties planted: K30 and K32 bit for bit
+   against the eager chain (or within 2 ulps, the maximum printed), K31
+   and K33 within 1e-6 of max|∂| of the float64 evaluation of their
+   backward (K31's bfloat16 form within half a bf16 ulp), two launches
+   bit-equal; bare ms, device ms, bound and share, the plain version's ms
+   and the library's (the eager chain; its autograd backward). Then
+   `check_full_loss`: the training loss K23
    full_loss (one read of each probability: every term's sum and count)
    and its backward K24 full_loss_grad (the dense ∂p K7 reads, the
    depths' and logits' gradients) at the training step's loss (batch 4,
@@ -139,8 +154,9 @@
    (as save_depth's loader delivers them on a card); reads the PFMs back
    and checks them against the scene's analytic depth; checks that each
    kernel launched as often as the chunk plan predicts (K6 and K8 5 times
-   per map, K9 once, K11 13 times, K13 and K14 4 times, K28 5 times, K17
-   13 times and K19 twice per image the feature cache extracts); prints
+   per map, K9 once, K11 13 times, K13 and K14 4 times, K28 4 times, K30
+   once, K17 13 times and K19 twice per image the feature cache
+   extracts); prints
    per map
    the host ms of run_depth's `dispatch` (uploads and eager launches)
    and `finalize` (wait, dequantization, writer handoff).
@@ -156,8 +172,8 @@
    plain-torch chains (`CHAINS`) beside their byte bounds; the capture
    must hold each hand-written kernel's device kernels as the launch plan
    says (`device_capture`: an empty or short capture is retaken, three
-   in all, then the phase fails) and no bilinear resize or tanh of
-   PyTorch's (`resize_op_events`). Then
+   in all, then the phase fails) and no bilinear resize, tanh or softmax
+   of PyTorch's (`resize_op_events`, `softmax_op_events`). Then
    `eval_pipeline`: the 5 maps through one run_depth call against one
    call per map, twice (differing pixels no more than between the two
    one-per-call runs), all with cuDNN's deterministic algorithms (two
@@ -195,8 +211,9 @@
    step, K6, K7 and K8 5 times each, K9 and K10 once, K11 and K12 13
    times each, K13-K16 4 times each, K17, K18 and K22 13 times each,
    K21 16 times, K19 and K20 twice each, K23, K24, K25, K26 and K27
-   once, K28 6 times and K29 4 times, no var_mean op or kernel, no
-   bilinear resize or tanh of PyTorch's, no gather or argmax of the
+   once, K28 4 times, K29 3 times and K30-K33 once, no var_mean op or
+   kernel, no bilinear resize, tanh or softmax of PyTorch's, no gather or
+   argmax of the
    eager loss, no kernel of the eager update (a foreach kernel, or anything but K25
    and K26 under the `clip_adam` label; "optimizer" 0 ms) and nothing but
    K27 under the `depth_metrics` label may run in the profiled step,
@@ -341,7 +358,9 @@ from itermvs_tpu_torch.ops import clip_adam as clip_ops
 from itermvs_tpu_torch.ops import conv_gru
 from itermvs_tpu_torch.ops import depth_metrics as metric_ops
 from itermvs_tpu_torch.ops import full_loss as full_loss_ops
+from itermvs_tpu_torch.ops import init_depth as init_depth_ops
 from itermvs_tpu_torch.ops import resize as resize_ops
+from itermvs_tpu_torch.ops import view_weight as view_weight_ops
 from itermvs_tpu_torch.ops.consistency import (
     MAX_SOURCES, consistency, consistency_plain, launch_consistency, record)
 from itermvs_tpu_torch.ops.counts import KERNEL_NAMES, launch_counts, reset_launch_counts
@@ -2460,12 +2479,12 @@ def check_upsample2x():
 # them: (site, channels (None: the sources, views − 1), the scale s of the
 # input's H/s x W/s plane, that of the output, whether it runs in the
 # compute dtype (else float32), tanh after it, whether it runs in training
-# only, whether a gradient flows back through it).
+# only, whether a gradient flows back through it). The init sweep's view
+# weights and depth ×2 are K30's and K32's (`check_view_weight`,
+# `check_init_depth`).
 RESIZE_SITES = (("ref_level1", FEATURE_CHANNELS["level1"], 2, 4, True, False, False, True),
                 ("ref_level3", FEATURE_CHANNELS["level3"], 8, 4, True, False, False, True),
-                ("view_weights", None, 8, 4, False, False, False, False),
                 ("hidden", HIDDEN_DIM, 8, 4, True, True, False, True),
-                ("init_depth", 1, 8, 4, False, False, True, True),
                 ("confidence", 1, 4, 1, False, False, False, False))
 # K28/K29 beside the main path's shapes, [n, c, ih, iw, oh, ow, tanh]:
 # ×2 and ×½ on odd maps (the scalar path), a one-pixel map, ×4 on the run
@@ -2652,7 +2671,7 @@ def check_resize():
     features as view 0 of the step's 5 views), the sites of the compute
     dtype in float32 and bfloat16, then at RESIZE_EDGE_CASES, the odd ×½
     one also on a view's slice.
-    Returns the per-map totals of K28 (the 5 resizes a map runs) and the
+    Returns the per-map totals of K28 (the 4 resizes a map runs) and the
     per-step totals of K29, in both dtypes, keyed by report name."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 12)
@@ -2702,6 +2721,322 @@ def resize_op_events(events):
     for e in events:
         low = e.name.lower()
         if "upsample_bilinear2d" in low or "upsamplebilinear2d" in low or "tanh" in low:
+            found[e.name[:90]] = found.get(e.name[:90], 0) + 1
+    return found
+
+
+# ------------------------------------------------- the init sweep's tails
+# K30 view_weight and its backward K31 view_weight_grad (PixelViewWeight's
+# softmax over the 32 samples, its max and the ×2 resize;
+# ops/view_weight.py), K32 init_depth and its backward K33 init_depth_grad
+# (the training depth's softmax expectation, unnormalization and ×2
+# resize; ops/init_depth.py), beside the main path's shapes: (n, h, w) of
+# the 1/8 plane, n the planes (K30/K31) or images (K32/K33): one pixel, a
+# row, a column, one whole tile, a tile and one more row and column, three
+# tiles each way, 2x3.
+SOFTMAX_EDGE_SHAPES = ((1, 1, 1), (2, 1, 7), (2, 9, 1), (1, 6, 30), (2, 7, 31), (3, 13, 65),
+                       (1, 2, 3))
+# K31 and K33 against the float64 evaluation of their backward (relative to
+# max|∂|; K31's bfloat16 form within one rounding of it, a half unit in the
+# last place, plus the same share of max|∂| for the float64 sums' order);
+# K30 and K32 against the eager chain, in float32 units in the last place
+# (0: bit-equal).
+SOFTMAX_GRAD_REL, SOFTMAX_FWD_ULPS = 1e-6, 2.0
+# Operations per pixel of the 1/8 plane, (float32, float64): the softmax's
+# 32 compares, subtractions, expf, sums and quotients; K30's max and the
+# ×2's 4 outputs of 9; K31's max, tie tests and float64 backward (3 per
+# sample); K32's expectation (64), depth (4) and ×2; K33's gather (20 in
+# float64), expectation and float64 backward (4 per sample).
+SOFTMAX_OPS = {"view_weight": (228, 0), "view_weight_grad": (224, 97),
+               "init_depth": (264, 0), "init_depth_grad": (228, 153)}
+
+
+def softmax_work(name, n, h, w, itemsize=4):
+    """(bytes, operations) of kernel `name` (K30-K33) over n planes (or
+    images) of h x w: each input read once and each output written once;
+    float64 operations weighed by the card's float32 rate over its float64
+    rate, so that both bound at PEAK_F32_PER_S."""
+    p = n * h * w
+    f32, f64 = SOFTMAX_OPS[name]
+    nbytes = {"view_weight": p * (NUM_INIT_SAMPLES * itemsize + 4 + 16),
+              "view_weight_grad": p * (4 + 2 * NUM_INIT_SAMPLES * itemsize),
+              "init_depth": p * (NUM_INIT_SAMPLES * 4 + 16) + 8 * n,
+              "init_depth_grad": p * (16 + 2 * NUM_INIT_SAMPLES * 4) + 8 * n}[name]
+    return nbytes, p * (f32 + f64 * PEAK_F32_PER_S / PEAK_F64_PER_S)
+
+
+def softmax_inputs(n, h, w, dtype, gen, dev="cuda"):
+    """Seeded K30-K33 inputs: logits (or a score) x [n, 32, h, w], N(0, 3)
+    rounded to `dtype`, with ties planted: all 32 samples equal at every
+    5th pixel of every 3rd row (a source view that does not see the
+    pixel), two equal maxima (samples 3 and 17) at the pixels one row and
+    two columns on; ∂w [n, h, w] and ∂out [n, 1, 2h, 2w] N(0, 1); bounds
+    idmin in [1, 2), idmax in [0.1, 0.3)."""
+    x = torch.randn(n, NUM_INIT_SAMPLES, h, w, device=dev, generator=gen) * 3.0
+    x[:, :, ::3, ::5] = x[:, :1, ::3, ::5].clone()
+    top = x[:, :, 1::3, 2::5].amax(1) + 1.0
+    x[:, 3, 1::3, 2::5] = top
+    x[:, 17, 1::3, 2::5] = top
+    return dict(x=x.to(dtype), d_w=torch.randn(n, h, w, device=dev, generator=gen),
+                g=torch.randn(n, 1, 2 * h, 2 * w, device=dev, generator=gen),
+                idmin=torch.rand(n, device=dev, generator=gen) + 1.0,
+                idmax=torch.rand(n, device=dev, generator=gen) * 0.2 + 0.1)
+
+
+def hold_forward(outs, wants):
+    """Gates of a forward kernel against its plain version: bit-equal, or
+    within SOFTMAX_FWD_ULPS float32 units in the last place."""
+    max_ulps = max(ulps(o, want.double(), torch.float32).max().item()
+                   for o, want in zip(outs, wants))
+    differ = sum((bits(o) != bits(want)).sum().item() for o, want in zip(outs, wants))
+    err = max((o - want).abs().max().item() for o, want in zip(outs, wants))
+    return err, {"bit_equal": differ == 0, "differ_from_plain": differ, "max_ulps": max_ulps,
+                 "tolerance": f"bit-equal or within {SOFTMAX_FWD_ULPS} ulps"}
+
+
+def hold_backward(got, exact, dtype):
+    """(max |got − exact|, its share of max|exact|, gates) of a backward
+    kernel's output against the float64 evaluation: within
+    SOFTMAX_GRAD_REL of max|∂| in float32, within half a bfloat16 unit in
+    the last place of each value (plus SOFTMAX_GRAD_REL of max|∂|) in
+    bfloat16."""
+    scale = max(exact.abs().max().item(), 1e-30)
+    err = (got.double() - exact).abs()
+    rel = err.max().item() / scale
+    if dtype == BF16:
+        ulp = ulps(got, exact, BF16)
+        ok = bool((ulp <= 0.5 + SOFTMAX_GRAD_REL).logical_or(
+            err <= SOFTMAX_GRAD_REL * scale).all())
+        gates = {"max_ulps": ulp.max().item(), "within": ok,
+                 "tolerance": "half a bf16 ulp of float64, or 1e-6 of max|∂|"}
+    else:
+        ok = rel <= SOFTMAX_GRAD_REL
+        gates = {"within": ok, "tolerance": "1e-6 of max|∂| of float64"}
+    return err.max().item(), rel, gates
+
+
+def timings(rec, fn, wrapper, plain, library, phase):
+    """rec with the bare launch's ms and device ms, the wrapper's, the
+    plain version's and the library's, and the host's ms per call of the
+    wrapper and of the plain version (the eager chain the wrapper
+    replaced: one eager launch per op)."""
+    rec.update(ms=time_ms(fn), device_ms=sum(device_us(fn, phase=phase).values()) / 1e3,
+               call_ms=time_ms(wrapper), plain_ms=time_ms(plain), library_ms=time_ms(library),
+               host_ms=host_ms(wrapper), plain_host_ms=host_ms(plain))
+    rec["share"] = rec["bound_ms"] / rec["ms"]
+    return rec
+
+
+def print_lines(lines, label, n, h, w):
+    """One JSON line per (kernel, record, gates); {report name: record}."""
+    for kname, rec, gates in lines:
+        print(json.dumps({"kernel": kname, "shape": label, "planes_h_w": [n, h, w], **gates,
+                          **rec}))
+    return {kname: rec for kname, rec, _ in lines}
+
+
+def hold_view_weight(label, n, h, w, dtype, gen, grad, timed=True):
+    """K30 in `dtype` on n planes of [32, h, w] logits (`softmax_inputs`)
+    against its plain version on the card (w and its ×2 bit-equal, or
+    within SOFTMAX_FWD_ULPS), and where `grad` K31 against the float64
+    evaluation of its backward (`hold_backward`), ties split as PyTorch
+    splits them; each launched twice bit-equal, the wrappers equal to the
+    bare launches. Where `timed`: bare ms, device ms, the wrapper's, the
+    plain version's and the library's (the eager softmax, amax and
+    F.interpolate, which is K30's plain version; for K31 their autograd
+    backward). Returns {report name: record}."""
+    t = softmax_inputs(n, h, w, dtype, gen)
+    x, d_w = t["x"], t["d_w"]
+    itemsize = torch.finfo(dtype).bits // 8
+    lines = []
+
+    k30 = kernel_name("view_weight", dtype)
+    out = (torch.empty(n, h, w, device="cuda"), torch.empty(n, 2 * h, 2 * w, device="cuda"))
+    fwd = bare_launch(k30, view_weight_ops.view_weight_args(x, *out))
+    fwd()
+    err, gates = hold_forward(out, view_weight_ops.view_weight_plain(x))
+    first = [o.clone() for o in out]
+    fwd()
+    torch.cuda.synchronize()
+    repeats = all(torch.equal(bits(a), bits(b)) for a, b in zip(first, out))
+    wrapper_equal = all(torch.equal(bits(a), bits(b)) for a, b in
+                        zip(view_weight_ops.view_weight_forward(x), out))
+    nbytes, ops = softmax_work("view_weight", n, h, w, itemsize)
+    bound, bound_by = bound_ms(nbytes, ops)
+    rec = {"max_abs_err": err, "max_rel_err": 0.0, "bytes": nbytes, "ops": ops,
+           "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    if timed:
+        plain = lambda: view_weight_ops.view_weight_plain(x)
+        timings(rec, fwd, lambda: view_weight_ops.view_weight_forward(x), plain, plain,
+                f"{k30} at {label}")
+    lines.append((k30, rec, dict(gates, two_launches_bit_equal=repeats,
+                                 wrapper_equal=wrapper_equal)))
+    ok = gates["max_ulps"] <= SOFTMAX_FWD_ULPS and repeats and wrapper_equal
+
+    if grad:
+        k31 = kernel_name("view_weight_grad", dtype)
+        d_x = torch.empty_like(x)
+        bwd = bare_launch(k31, view_weight_ops.view_weight_grad_args(d_w, x, d_x))
+        bwd()
+        exact = view_weight_ops.view_weight_grad_plain(d_w, x, torch.float64)
+        err, rel, gates = hold_backward(d_x, exact, dtype)
+        p = x.float().softmax(1)
+        ties = (p == p.amax(1, keepdim=True)).sum(1)
+        differ = (bits(d_x) != bits(view_weight_ops.view_weight_grad_plain(d_w, x))).sum().item()
+        xr = x.detach().requires_grad_()
+        eager = xr.float().softmax(1).amax(1)
+        library = lambda: torch.autograd.grad(eager, xr, d_w, retain_graph=True)[0]
+        library_rel = (library().double() - exact).abs().max().item() / max(
+            exact.abs().max().item(), 1e-30)
+        first = d_x.clone()
+        bwd()
+        torch.cuda.synchronize()
+        repeats = torch.equal(bits(first), bits(d_x))
+        wrapper_equal = torch.equal(bits(view_weight_ops.view_weight_grad(d_w, x)), bits(d_x))
+        del exact
+        nbytes, ops = softmax_work("view_weight_grad", n, h, w, itemsize)
+        bound, bound_by = bound_ms(nbytes, ops)
+        rec = {"max_abs_err": err, "max_rel_err": rel, "bytes": nbytes, "ops": ops,
+               "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+        if timed:
+            timings(rec, bwd, lambda: view_weight_ops.view_weight_grad(d_w, x),
+                    lambda: view_weight_ops.view_weight_grad_plain(d_w, x), library,
+                    f"{k31} at {label}")
+        lines.append((k31, rec, dict(gates, two_launches_bit_equal=repeats,
+                                     wrapper_equal=wrapper_equal, differ_from_plain=differ,
+                                     library_rel_err=library_rel,
+                                     pixels_by_ties={int(k): int(v) for k, v in zip(
+                                         *torch.unique(ties, return_counts=True))})))
+        ok = ok and gates["within"] and repeats and wrapper_equal
+    recs = print_lines(lines, label, n, h, w)
+    if not ok:
+        raise SystemExit(f"view_weight/view_weight_grad {dtype} at {label}: {lines}")
+    return recs
+
+
+def hold_init_depth(label, n, h, w, gen, grad, timed=True):
+    """K32 on n images' [32, h, w] score (`softmax_inputs`, float32)
+    against its plain version on the card (bit-equal, or within
+    SOFTMAX_FWD_ULPS), and where `grad` K33 against the float64 evaluation
+    of its backward (`hold_backward`); each launched twice bit-equal, the
+    wrappers equal to the bare launches. Where `timed`: bare ms, device ms,
+    the wrapper's, the plain version's and the library's (the eager chain,
+    which is K32's plain version; for K33 its autograd backward). Returns
+    {report name: record}."""
+    t = softmax_inputs(n, h, w, torch.float32, gen)
+    s, g, lo, hi = t["x"], t["g"], t["idmin"], t["idmax"]
+    lines = []
+
+    out = torch.empty(n, 1, 2 * h, 2 * w, device="cuda")
+    fwd = bare_launch("init_depth", init_depth_ops.init_depth_args(s, lo, hi, out))
+    fwd()
+    err, gates = hold_forward((out,), (init_depth_ops.init_depth_plain(s, lo, hi),))
+    first = out.clone()
+    fwd()
+    torch.cuda.synchronize()
+    repeats = torch.equal(bits(first), bits(out))
+    wrapper_equal = torch.equal(bits(init_depth_ops.init_depth_forward(s, lo, hi)), bits(out))
+    nbytes, ops = softmax_work("init_depth", n, h, w)
+    bound, bound_by = bound_ms(nbytes, ops)
+    rec = {"max_abs_err": err, "max_rel_err": err / out.abs().max().item(), "bytes": nbytes,
+           "ops": ops, "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    if timed:
+        plain = lambda: init_depth_ops.init_depth_plain(s, lo, hi)
+        timings(rec, fwd, lambda: init_depth_ops.init_depth_forward(s, lo, hi), plain, plain,
+                f"init_depth at {label}")
+    lines.append(("init_depth", rec, dict(gates, two_launches_bit_equal=repeats,
+                                          wrapper_equal=wrapper_equal)))
+    ok = gates["max_ulps"] <= SOFTMAX_FWD_ULPS and repeats and wrapper_equal
+
+    if grad:
+        d_s = torch.empty_like(s)
+        bwd = bare_launch("init_depth_grad",
+                          init_depth_ops.init_depth_grad_args(g, s, lo, hi, d_s))
+        bwd()
+        exact = init_depth_ops.init_depth_grad_plain(g, s, lo, hi, torch.float64)
+        err, rel, gates = hold_backward(d_s, exact, torch.float32)
+        differ = (bits(d_s) != bits(init_depth_ops.init_depth_grad_plain(g, s, lo, hi))).sum()
+        sr = s.detach().requires_grad_()
+        eager = init_depth_ops.init_depth_plain(sr, lo, hi)
+        library = lambda: torch.autograd.grad(eager, sr, g, retain_graph=True)[0]
+        library_rel = (library().double() - exact).abs().max().item() / max(
+            exact.abs().max().item(), 1e-30)
+        first = d_s.clone()
+        bwd()
+        torch.cuda.synchronize()
+        repeats = torch.equal(bits(first), bits(d_s))
+        wrapper_equal = torch.equal(
+            bits(init_depth_ops.init_depth_grad(g, s, lo, hi)), bits(d_s))
+        del exact
+        nbytes, ops = softmax_work("init_depth_grad", n, h, w)
+        bound, bound_by = bound_ms(nbytes, ops)
+        rec = {"max_abs_err": err, "max_rel_err": rel, "bytes": nbytes, "ops": ops,
+               "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+        if timed:
+            timings(rec, bwd, lambda: init_depth_ops.init_depth_grad(g, s, lo, hi),
+                    lambda: init_depth_ops.init_depth_grad_plain(g, s, lo, hi), library,
+                    f"init_depth_grad at {label}")
+        lines.append(("init_depth_grad", rec, dict(
+            gates, two_launches_bit_equal=repeats, wrapper_equal=wrapper_equal,
+            differ_from_plain=int(differ), library_rel_err=library_rel)))
+        ok = ok and gates["within"] and repeats and wrapper_equal
+    recs = print_lines(lines, label, n, h, w)
+    if not ok:
+        raise SystemExit(f"init_depth/init_depth_grad at {label}: {lines}")
+    return recs
+
+
+def check_view_weight():
+    """K30 and K31 against their plain versions on the card
+    (`hold_view_weight`) at the init sweep of a 1600x1152 map (K30: VIEWS −
+    1 planes of 144x200) and of a 640x512 training step (K30 and K31:
+    batch 4 x 4 sources of 64x80), in float32 and bfloat16, then at
+    SOFTMAX_EDGE_SHAPES. Returns K30's per-map records and K31's per-step
+    ones (one launch each), in both dtypes, by report name."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 13)
+    per_map, per_step = {}, {}
+    steps = TRAIN_BATCH * (TRAIN_VIEWS - 1)
+    for dtype in (torch.float32, BF16):
+        recs = hold_view_weight(f"map_{VIEWS - 1}x{HEIGHT // 8}x{WIDTH // 8}", VIEWS - 1,
+                                HEIGHT // 8, WIDTH // 8, dtype, gen, grad=False)
+        per_map.update({k: dict(r, launches=1) for k, r in recs.items()})
+        recs = hold_view_weight(f"step_{steps}x{TRAIN_HEIGHT // 8}x{TRAIN_WIDTH // 8}", steps,
+                                TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8, dtype, gen, grad=True)
+        k31 = kernel_name("view_weight_grad", dtype)
+        per_step[k31] = dict(recs[k31], launches=1)
+        for n, h, w in SOFTMAX_EDGE_SHAPES:
+            hold_view_weight(f"edge_{n}x{h}x{w}", n, h, w, dtype, gen, grad=True, timed=False)
+        torch.cuda.empty_cache()
+    print(json.dumps({"view_weight_totals": {"per_map": per_map, "per_step": per_step}}))
+    return per_map, per_step
+
+
+def check_init_depth():
+    """K32 and K33 against their plain versions on the card
+    (`hold_init_depth`) at a 640x512 training step's init sweep (batch 4,
+    64x80), then at SOFTMAX_EDGE_SHAPES. Returns their per-step records
+    (one launch each) by report name."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 14)
+    recs = hold_init_depth(f"step_{TRAIN_BATCH}x{TRAIN_HEIGHT // 8}x{TRAIN_WIDTH // 8}",
+                           TRAIN_BATCH, TRAIN_HEIGHT // 8, TRAIN_WIDTH // 8, gen, grad=True)
+    for n, h, w in SOFTMAX_EDGE_SHAPES:
+        hold_init_depth(f"edge_{n}x{h}x{w}", n, h, w, gen, grad=True, timed=False)
+    per_step = {k: dict(r, launches=1) for k, r in recs.items()}
+    print(json.dumps({"init_depth_totals": {"per_step": per_step}}))
+    return per_step
+
+
+def softmax_op_events(events):
+    """{name: calls} of the host ops and device kernels among `events` of an
+    eager softmax (`aten::softmax`, `aten::_softmax`, autograd's
+    `SoftmaxBackward0`, `aten::_softmax_backward_data`, and PyTorch's
+    `cunn_SpatialSoftMax*` and `cunn_SoftMax*` kernels): after K30 and K32
+    the model runs none on the card."""
+    found = {}
+    for e in events:
+        if "softmax" in e.name.lower():
             found[e.name[:90]] = found.get(e.name[:90], 0) + 1
     return found
 
@@ -3871,12 +4206,14 @@ SWEEP_KERNELS = (sweep_premul, corr_epilogue, sweep_grad_ref, sweep_grad_src)
 TEMPLATED = ("depth_readout_grad", "depth_readout", "sweep_taps", "convex_upsample_grad",
              "convex_upsample", "gru_update_grad", "gru_reset_grad", "gru_update", "gru_reset",
              "bn_act_grad", "bn_act", "upsample2x_grad", "upsample2x_add", "bn_stats_grad",
-             "bn_stats", "resize_bilinear_grad", "resize_bilinear")
+             "bn_stats", "resize_bilinear_grad", "resize_bilinear", "view_weight_grad",
+             "view_weight")
 # The float32-only kernels, longest name first (K11's is a prefix of K12's,
-# K23's of K24's): a source's kernels are named `<name>_...kernel`. They
-# are named before the library's categories ("clip_adam" holds "adam").
+# K23's of K24's, K32's of K33's): a source's kernels are named
+# `<name>_...kernel`. They are named before the library's categories
+# ("clip_adam" holds "adam").
 F32_ONLY = ("view_aggregate_grad", "view_aggregate", "full_loss_grad", "full_loss",
-            "grad_norm", "clip_adam", "depth_metrics")
+            "grad_norm", "clip_adam", "depth_metrics", "init_depth_grad", "init_depth")
 # Device kernels per counted launch of each kernel (1 where not named): the
 # launchers that run a second kernel (a fold, K5 bf16's rounding pass);
 # K25's first kernel and K26 run once per table of MAX_TENSORS tensors,
@@ -3906,7 +4243,7 @@ def planned_map_counts(shapes, dtype, maps=1, iteration=ITERATION, features=None
     once, K11 (float32 in both precisions) once per aggregation: the
     init sweep's and each iteration's 3 levels', 1 + 3·iteration, K13 and
     K14 once per GRU call, iteration, K28 once per resize (`RESIZE_SITES`:
-    2 in float32, 3 in `dtype`), and K17 13 times and K19 twice per
+    1 in float32, 3 in `dtype`), K30 once, and K17 13 times and K19 twice per
     FeatureNet call (`BN_CALLS`, `FPN_CALLS`): `features` calls, by
     default one per map (a forward's views in one call, or the feature
     cache's one new image per map)."""
@@ -3918,7 +4255,7 @@ def planned_map_counts(shapes, dtype, maps=1, iteration=ITERATION, features=None
         ("depth_readout", (1 + iteration) * maps), ("sweep_taps", (1 + iteration) * maps),
         ("convex_upsample", maps), ("gru_reset", iteration * maps),
         ("gru_update", iteration * maps), ("bn_act", len(BN_CALLS) * features),
-        ("upsample2x_add", len(FPN_CALLS) * features))})
+        ("upsample2x_add", len(FPN_CALLS) * features), ("view_weight", maps))})
     return add_resize_counts(plan, dtype, maps, train=False)
 
 
@@ -4034,12 +4371,13 @@ def device_time(fn):
 # optimizer update under `clip_adam` (engine/train_loop.py: K25's two
 # kernels and K26's one) and the metrics under `depth_metrics`
 # (engine/train_loop.py: K27's two kernels; in a process group also the
-# table's all-reduce and its clamp, div and cast), and K28 under `resize`
-# (models/itermvs.py: one per bilinear resize, 5 per map, 6 per training
-# step).
+# table's all-reduce and its clamp, div and cast), K28 under `resize`
+# (models/itermvs.py: one per bilinear resize, 4 per map and per training
+# step), K30 under `view_weight` (one per map or step) and, in training
+# only, K32 under `init_depth` (one per step).
 CHAINS = ("depth_readout", "fused_sweep_taps", "convex_upsample", "view_aggregate",
           "conv_gru", "bn_act", "fpn_add", "bn_stats", "full_loss", "clip_adam",
-          "depth_metrics", "resize")
+          "depth_metrics", "resize", "view_weight", "init_depth")
 
 
 def label_kernels(events):
@@ -4094,9 +4432,12 @@ def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=F
     and p, m, v written once over the model's parameters (`update_work`);
     depth_metrics, in training only, K27's (`metrics_work`: each
     prediction, GT and mask read once); resize K28's (`resize_bytes`: each
-    site's input read and output written once, 5 per map, 6 per training
-    forward). Their operations per byte are far below the card's, so
-    bytes bound all twelve."""
+    site's input read and output written once, 4 per map and per training
+    forward); view_weight K30's (`softmax_work`: the init sweep's logits
+    read, the weights and their ×2 written once); init_depth, in training
+    only, K32's (the score read, the ×2 depth written once). Their
+    operations per byte are far below the card's, so bytes bound all
+    fourteen."""
     p4 = batch * (height // 4) * (width // 4)
     p8 = batch * (height // 8) * (width // 8)
     sources = views - 1
@@ -4125,7 +4466,11 @@ def chain_bound_ms(width, height, views, iteration, batch=1, itemsize=4, train=F
               "depth_metrics": metrics_work(1 + iteration, p4, batch * height * width)[0]
               if train else 0,
               "resize": resize_bytes(width, height, views, batch,
-                                     BF16 if itemsize == 2 else torch.float32, train)}
+                                     BF16 if itemsize == 2 else torch.float32, train),
+              "view_weight": softmax_work("view_weight", batch * sources, height // 8,
+                                          width // 8, itemsize)[0],
+              "init_depth": softmax_work("init_depth", batch, height // 8, width // 8)[0]
+              if train else 0}
     return {k: 1e3 * v / PEAK_BYTES_PER_S for k, v in nbytes.items()}
 
 
@@ -4136,8 +4481,9 @@ def profile_maps(model, samples, outdir, unprofiled_wall):
     beside their byte bounds. The capture is held against the maps'
     launch plan (`device_capture`: retaken where short, raising after
     PLAN_CAPTURES) and must hold no op of the eager resizes K28 replaced
-    (`resize_op_events`). The idle share is taken against the timed
-    run's own wall time, since tracing slows the host."""
+    (`resize_op_events`) and no eager softmax (`softmax_op_events`). The
+    idle share is taken against the timed run's own wall time, since
+    tracing slows the host."""
     maps = len(samples)
     itemsize = torch.finfo(model.compute_dtype).bits // 8
     planned = planned_map_counts(sweep_shapes(WIDTH, HEIGHT, VIEWS, ITERATION,
@@ -4163,10 +4509,12 @@ def profile_maps(model, samples, outdir, unprofiled_wall):
                                    sorted(by_cat.items(), key=lambda kv: -kv[1])},
         "top_ms_per_map": [{"name": k[:90], "calls_per_map": c / maps,
                             "device_ms": t / 1e3 / maps} for k, (c, t) in top],
-        "eager_resize_events": resize_op_events(events)}))
-    if resize_op_events(events):
-        raise SystemExit(f"profile_maps {model.compute_dtype}: the eager resizes ran: "
-                         f"{resize_op_events(events)}")
+        "eager_resize_events": resize_op_events(events),
+        "eager_softmax_events": softmax_op_events(events)}))
+    if resize_op_events(events) or softmax_op_events(events):
+        raise SystemExit(f"profile_maps {model.compute_dtype}: the eager resizes or "
+                         f"softmaxes ran: {resize_op_events(events)}, "
+                         f"{softmax_op_events(events)}")
 
 
 # -------------------------------------------------------------- training
@@ -4251,14 +4599,15 @@ def planned_step_counts(shapes, dtype, iteration=TRAIN_ITERATION):
     iteration; K17, K18 and K22 13 times, K21 once per BN (16) and K19
     and K20 twice, FeatureNet's one call over the batch's views; K23 and
     K24, float32 in both precisions, once; the update's K25 and K26 and
-    the metrics' K27, float32 in both precisions, once; K28 6 times, 3 in
-    float32, and K29 4 times, 1 in float32, `add_resize_counts`)."""
+    the metrics' K27, float32 in both precisions, once; K28 4 times, 1 in
+    float32, and K29 3 times, all in `dtype`, `add_resize_counts`; K30 and
+    K31 once, and K32 and K33, float32 in both precisions, once)."""
     forward = sum(s[-1] for s in shapes)
     sweeps = sum(sweeps_of(shapes, dtype).values())
     aggregations = 1 + len(LEVELS) * iteration
     plan = planned_counts(view_aggregate=aggregations, view_aggregate_grad=aggregations,
                           full_loss=1, full_loss_grad=1, grad_norm=1, clip_adam=1,
-                          depth_metrics=1,
+                          depth_metrics=1, init_depth=1, init_depth_grad=1,
                           **{kernel_name(k, dtype): n for k, n in (
         ("sweep_premul", forward), ("corr_epilogue", forward), ("sweep_grad_ref", sweeps),
         ("sweep_grad_src", sweeps), ("depth_readout", 1 + iteration),
@@ -4268,7 +4617,7 @@ def planned_step_counts(shapes, dtype, iteration=TRAIN_ITERATION):
         ("gru_reset_grad", iteration), ("bn_act", len(BN_CALLS)),
         ("bn_act_grad", len(BN_CALLS)), ("upsample2x_add", len(FPN_CALLS)),
         ("upsample2x_grad", len(FPN_CALLS)), ("bn_stats", len(BN_INPUTS)),
-        ("bn_stats_grad", len(BN_CALLS)))})
+        ("bn_stats_grad", len(BN_CALLS)), ("view_weight", 1), ("view_weight_grad", 1))})
     return add_resize_counts(plan, dtype, 1, train=True)
 
 
@@ -4502,8 +4851,9 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
     per step. Then one profiled step, held against the step's launch
     plan (`device_capture`) and free of the eager update
     (`update_op_events`, "optimizer" 0), of the eager metrics
-    (`metric_op_events`) and of the eager resizes (`resize_op_events`;
-    K29's copies of a ∂out that is not contiguous are counted per step), a
+    (`metric_op_events`), of the eager resizes (`resize_op_events`;
+    K29's copies of a ∂out that is not contiguous are counted per step,
+    and K31's and K33's) and of any eager softmax (`softmax_op_events`), a
     validation step, a checkpoint
     round trip on the card (the model and the Adam state K25 and K26
     keep, bit for bit) and `check_real_sweeps` on one more step's sweeps
@@ -4530,6 +4880,8 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
     copies = depth_readout_grad.copies
     up2_copies = resize_ops.upsample2x_grad.copies
     resize_copies = resize_ops.resize_grad.copies
+    tail_copies = {"view_weight_grad": view_weight_ops.view_weight_grad.copies / TRAIN_STEPS,
+                   "init_depth_grad": init_depth_ops.init_depth_grad.copies / TRAIN_STEPS}
     loss_copies = full_loss_ops.full_loss_terms.copies
     peak = torch.cuda.max_memory_allocated()
     planned = {k: n * TRAIN_STEPS for k, n in planned_step_counts(shapes, dtype).items()}
@@ -4542,7 +4894,7 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
            "batch_setup_s": setup_s, "launches": counts, "planned_launches": planned,
            "depth_readout_grad_copies": copies, "upsample2x_grad_copies": up2_copies,
            "full_loss_copies": loss_copies, "resize_grad_copies_per_step":
-           resize_copies / TRAIN_STEPS}
+           resize_copies / TRAIN_STEPS, "init_sweep_grad_copies_per_step": tail_copies}
 
     by_name, by_cat, busy_ms, events = device_capture(
         lambda: train_step(model, optimizer, batch, TRAIN_LR, True, TRAIN_ITERATION),
@@ -4552,6 +4904,7 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
     rec["eager_update_events"] = update_op_events(events)
     rec["eager_metric_events"] = metric_op_events(events)
     rec["eager_resize_events"] = resize_op_events(events)
+    rec["eager_softmax_events"] = softmax_op_events(events)
     wall_ms = 1e3 * sorted(last)[len(last) // 2]
     bounds = chain_bound_ms(TRAIN_WIDTH, TRAIN_HEIGHT, TRAIN_VIEWS, TRAIN_ITERATION,
                             TRAIN_BATCH, torch.finfo(dtype).bits // 8, train=True)
@@ -4598,9 +4951,9 @@ def train_full_width(shapes, dtype=torch.float32, synthetic_ms=None):
     if rec["eager_metric_events"]:
         raise SystemExit(f"the eager metrics ran in the training step: "
                          f"{rec['eager_metric_events']}")
-    if rec["eager_resize_events"]:
-        raise SystemExit(f"the eager resizes ran in the training step: "
-                         f"{rec['eager_resize_events']}")
+    if rec["eager_resize_events"] or rec["eager_softmax_events"]:
+        raise SystemExit(f"the eager resizes or softmaxes ran in the training step: "
+                         f"{rec['eager_resize_events']}, {rec['eager_softmax_events']}")
     if copies != 0:
         raise SystemExit(f"K7's wrapper copied the probability's gradient {copies} times")
     if up2_copies != 0:
@@ -5535,7 +5888,7 @@ REPORT_PER_MAP = ("corr_epilogue", "sweep_premul", "depth_readout", "sweep_taps"
                   "upsample2x_add", "corr_epilogue_bf16", "sweep_premul_bf16",
                   "depth_readout_bf16", "sweep_taps_bf16", "convex_upsample_bf16",
                   "gru_reset_bf16", "gru_update_bf16", "bn_act_bf16", "upsample2x_add_bf16",
-                  "resize_bilinear", "resize_bilinear_bf16")
+                  "resize_bilinear", "resize_bilinear_bf16", "view_weight", "view_weight_bf16")
 REPORT_PER_STEP = ("sweep_grad_ref", "sweep_grad_src", "depth_readout_grad",
                    "convex_upsample_grad", "view_aggregate_grad", "gru_update_grad",
                    "gru_reset_grad", "bn_act_grad", "upsample2x_grad", "bn_stats",
@@ -5544,7 +5897,8 @@ REPORT_PER_STEP = ("sweep_grad_ref", "sweep_grad_src", "depth_readout_grad",
                    "gru_update_grad_bf16", "gru_reset_grad_bf16", "bn_act_grad_bf16",
                    "upsample2x_grad_bf16", "bn_stats_bf16", "bn_stats_grad_bf16", "full_loss",
                    "full_loss_grad", "grad_norm", "clip_adam", "depth_metrics",
-                   "resize_bilinear_grad", "resize_bilinear_grad_bf16")
+                   "resize_bilinear_grad", "resize_bilinear_grad_bf16", "view_weight_grad",
+                   "view_weight_grad_bf16", "init_depth", "init_depth_grad")
 
 
 def kernel_sources():
@@ -5606,7 +5960,15 @@ def kernel_sources():
                "resize_bilinear": ("itermvs_tpu_torch/csrc/resize_bilinear.cu",
                                    "itermvs_tpu/ops/resize.py:41"),
                "resize_bilinear_grad": ("itermvs_tpu_torch/csrc/resize_bilinear_grad.cu",
-                                        "itermvs_tpu/ops/resize.py:41")}
+                                        "itermvs_tpu/ops/resize.py:41"),
+               "view_weight": ("itermvs_tpu_torch/csrc/view_weight.cu",
+                               "itermvs_tpu/models/itermvs.py:154"),
+               "view_weight_grad": ("itermvs_tpu_torch/csrc/view_weight_grad.cu",
+                                    "itermvs_tpu/models/itermvs.py:154"),
+               "init_depth": ("itermvs_tpu_torch/csrc/init_depth.cu",
+                              "itermvs_tpu/models/itermvs.py:257"),
+               "init_depth_grad": ("itermvs_tpu_torch/csrc/init_depth_grad.cu",
+                                   "itermvs_tpu/models/itermvs.py:257")}
     for name in ("corr_epilogue", "sweep_premul", "sweep_grad_ref", "sweep_grad_src"):
         source, replaces = sources[name]
         sources[f"{name}_bf16"] = (source.replace(".cu", "_bf16.cu"), replaces)
@@ -5662,6 +6024,10 @@ def main():
     # K28 at the model's resizes on a map, K28/K29 on a step's.
     resize_map, resize_step = check_resize()
     per_map.update(resize_map)
+    # K30 at a map's init sweep, K30/K31 at a step's, both dtypes; K32/K33.
+    view_weight_map, view_weight_step = check_view_weight()
+    per_map.update(view_weight_map)
+    init_depth_step = check_init_depth()
     # K23 and K24 at the training step's loss, planted and real.
     loss_step = check_full_loss()
     # K25 and K26 at the training model's parameters, clipped and not.
@@ -5760,7 +6126,8 @@ def main():
                                             "depth_readout_bf16", "sweep_taps_bf16",
                                             "convex_upsample_bf16", "gru_reset_bf16",
                                             "gru_update_bf16", "bn_act_bf16",
-                                            "upsample2x_add_bf16", "resize_bilinear_bf16")})
+                                            "upsample2x_add_bf16", "resize_bilinear_bf16",
+                                            "view_weight_bf16")})
     # The same maps as a data-parallel eval: two gloo ranks on the card.
     eval_ddp_2rank(samples, smi)
 
@@ -5797,7 +6164,8 @@ def main():
                                                         "upsample2x_grad_bf16",
                                                         "bn_stats_bf16",
                                                         "bn_stats_grad_bf16",
-                                                        "resize_bilinear_grad_bf16")})
+                                                        "resize_bilinear_grad_bf16",
+                                                        "view_weight_grad_bf16")})
 
     # Data-parallel training (two gloo ranks on the card; one NCCL rank in
     # bf16), then --debug_nans on one depth map.
@@ -5845,6 +6213,8 @@ def main():
     per_step.update(update_step)
     per_step.update(metrics_step)
     per_step.update(resize_step)
+    per_step.update(view_weight_step)
+    per_step.update(init_depth_step)
     for name in REPORT_PER_STEP:
         tot = per_step[name]
         t_bytes, t_ops = tot["bytes"] / PEAK_BYTES_PER_S, tot["ops"] / PEAK_F32_PER_S

@@ -49,15 +49,6 @@
 
 namespace {
 
-// PyTorch's upsample_bilinear2d_out_frame formula, as its build contracts
-// it: a * x + b * y as fma(a, x, b * y), inside and out (K19's).
-__device__ __forceinline__ float bilinear(float h0, float h1, float w0, float w1, float x00,
-                                          float x01, float x10, float x11) {
-  const float top = __fmaf_rn(w0, x00, __fmul_rn(w1, x01));
-  const float bottom = __fmaf_rn(w0, x10, __fmul_rn(w1, x11));
-  return __fmaf_rn(h0, top, __fmul_rn(h1, bottom));
-}
-
 // One output index's two source indices and weights along an axis of
 // `in` samples (PyTorch's area_pixel_compute_source_index, its
 // `scale * (dst + 0.5) - 0.5` contracted into one FMA).

@@ -63,27 +63,6 @@ __device__ __forceinline__ float load_pre_one(const T* g, const T* y, long long 
   return pre<T, kAct>(tap_float(__ldg(g + o)), kAct ? tap_float(__ldg(y + o)) : 0.0f);
 }
 
-// The weights of taps 2k - 1, 2k, 2k + 1, 2k + 2 for pixel k of n.
-__device__ __forceinline__ void fold_weights(int k, int n, double wt[4]) {
-  wt[0] = k > 0 ? 0.25 : 0.0;
-  wt[1] = k > 0 ? 0.75 : 1.0;
-  wt[2] = k < n - 1 ? 0.75 : 1.0;
-  wt[3] = k < n - 1 ? 0.25 : 0.0;
-}
-
-__host__ __device__ __forceinline__ int pairs_of(int h) { return (h + 1) / 2; }
-
-template <typename T>
-__device__ __forceinline__ float round_to(double v);
-template <>
-__device__ __forceinline__ float round_to<float>(double v) {
-  return __double2float_rn(v);
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(double v) {
-  return __bfloat162float(__double2bfloat16(v));
-}
-
 // ×2: ∂x rows i0, i0 + 1 at columns j .. j + kCols - 1 from ∂pre rows
 // 2 i0 - 1 .. 2 i0 + 4, columns 2j - 1 .. 2j + 2 kCols, each converted
 // to float64 once.

@@ -1,5 +1,7 @@
-// What FeatureNet's FPN kernels K19 upsample2x_add (upsample2x_add.cu) and
-// its backward K20 upsample2x_grad (upsample2x_grad.cu) share.
+// What the ×2 bilinear kernels share: FeatureNet's FPN kernels K19
+// upsample2x_add (upsample2x_add.cu) and its backward K20 upsample2x_grad
+// (upsample2x_grad.cu), the model's resizes K28 resize_bilinear and K29
+// resize_bilinear_grad, and the init sweep's K30-K33 (sample_softmax.cuh).
 //
 // Both work on NCHW maps of T (float32 or bfloat16) and the ×2 bilinear
 // resize of F.interpolate(align_corners=False): x [planes, h, w] up to
@@ -97,6 +99,41 @@ struct Cell {
 inline long long grid_of(long long planes, int h, int w, int cols) {
   const long long blocks = (planes * h * (w / cols) + kThreads - 1) / kThreads;
   return blocks > 0x7fffffffLL ? 0 : blocks;
+}
+
+// PyTorch's upsample_bilinear2d_out_frame formula, as its build contracts
+// it: a * x + b * y as fma(a, x, b * y), inside and out.
+__device__ __forceinline__ float bilinear(float h0, float h1, float w0, float w1, float x00,
+                                          float x01, float x10, float x11) {
+  const float top = __fmaf_rn(w0, x00, __fmul_rn(w1, x01));
+  const float bottom = __fmaf_rn(w0, x10, __fmul_rn(w1, x11));
+  return __fmaf_rn(h0, top, __fmul_rn(h1, bottom));
+}
+
+// The ×2 backward's weights of taps 2k - 1, 2k, 2k + 1, 2k + 2 for pixel k
+// of n: (1/4, 3/4, 3/4, 1/4), the first dropped and the second 1 at the
+// first pixel, the last dropped and the third 1 at the last.
+__device__ __forceinline__ void fold_weights(int k, int n, double wt[4]) {
+  wt[0] = k > 0 ? 0.25 : 0.0;
+  wt[1] = k > 0 ? 0.75 : 1.0;
+  wt[2] = k < n - 1 ? 0.75 : 1.0;
+  wt[3] = k < n - 1 ? 0.25 : 0.0;
+}
+
+// Rows of ∂x in pairs: a thread owns rows 2p and 2p + 1 (the last pair of
+// an odd h only its first).
+__host__ __device__ __forceinline__ int pairs_of(int h) { return (h + 1) / 2; }
+
+// A float64 sum rounded once to T, as a float.
+template <typename T>
+__device__ __forceinline__ float round_to(double v);
+template <>
+__device__ __forceinline__ float round_to<float>(double v) {
+  return __double2float_rn(v);
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(double v) {
+  return __bfloat162float(__double2bfloat16(v));
 }
 
 }  // namespace

@@ -23,24 +23,15 @@
 //     h0 * (w0 * x00 + w1 * x01) + h1 * (w0 * x10 + w1 * x11)
 // contracted into FMAs as PyTorch's build contracts it (a card probe
 // compared every contraction of the formula with F.interpolate: `bilinear`
-// below is the one that matched bit for bit in both dtypes), rounded to
-// T, then the add in float32, rounded to T. So the output is bit-equal to
-// upsample2x_add_plain on the card.
+// in upsample2x.cuh is the one that matched bit for bit in both dtypes),
+// rounded to T, then the add in float32, rounded to T. So the output is
+// bit-equal to upsample2x_add_plain on the card.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "upsample2x.cuh"
 
 namespace {
-
-// PyTorch's upsample_bilinear2d_out_frame formula, as its build contracts
-// it: a * x + b * y as fma(a, x, b * y), inside and out.
-__device__ __forceinline__ float bilinear(float h0, float h1, float w0, float w1, float x00,
-                                          float x01, float x10, float x11) {
-  const float top = __fmaf_rn(w0, x00, __fmul_rn(w1, x01));
-  const float bottom = __fmaf_rn(w0, x10, __fmul_rn(w1, x11));
-  return __fmaf_rn(h0, top, __fmul_rn(h1, bottom));
-}
 
 template <typename T, int kCols>
 __global__ void __launch_bounds__(kThreads)

@@ -35,29 +35,6 @@
 
 namespace {
 
-// The weights of taps 2k - 1, 2k, 2k + 1, 2k + 2 for pixel k of n.
-__device__ __forceinline__ void fold_weights(int k, int n, double wt[4]) {
-  wt[0] = k > 0 ? 0.25 : 0.0;
-  wt[1] = k > 0 ? 0.75 : 1.0;
-  wt[2] = k < n - 1 ? 0.75 : 1.0;
-  wt[3] = k < n - 1 ? 0.25 : 0.0;
-}
-
-// Rows of ∂x in pairs: a thread owns rows 2p and 2p + 1 (the last pair of
-// an odd h only its first).
-__host__ __device__ __forceinline__ int pairs_of(int h) { return (h + 1) / 2; }
-
-template <typename T>
-__device__ __forceinline__ float round_to(double v);
-template <>
-__device__ __forceinline__ float round_to<float>(double v) {
-  return __double2float_rn(v);
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(double v) {
-  return __bfloat162float(__double2bfloat16(v));
-}
-
 template <typename T, int kCols>
 __global__ void __launch_bounds__(kThreads)
 upsample2x_grad_kernel(const T* __restrict__ g, T* __restrict__ dx, long long planes, int h,

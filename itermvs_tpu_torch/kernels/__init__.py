@@ -36,7 +36,8 @@ SOURCES = ("corr_epilogue", "sweep_premul", "fusion_consistency", "sweep_grad_re
            "gru_update_grad", "gru_reset_grad", "bn_act", "bn_act_grad", "upsample2x_add",
            "upsample2x_grad", "bn_stats", "bn_stats_grad", "full_loss", "full_loss_grad",
            "grad_norm", "clip_adam", "depth_metrics", "resize_bilinear",
-           "resize_bilinear_grad")
+           "resize_bilinear_grad", "view_weight", "view_weight_grad", "init_depth",
+           "init_depth_grad")
 # No --use_fast_math: fusion_consistency needs IEEE divides and sqrt.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -138,6 +139,14 @@ SIGNATURES = {
     "resize_bilinear_grad_bf16": ("itermvs_resize_bilinear_grad_bf16",
                                   (_P, _P, _P, _L, _I, _I, _I, _I, _P),
                                   "resize_bilinear_grad"),
+    "view_weight": ("itermvs_view_weight", (_P, _P, _P, _L, _I, _I, _P)),
+    "view_weight_bf16": ("itermvs_view_weight_bf16", (_P, _P, _P, _L, _I, _I, _P),
+                         "view_weight"),
+    "view_weight_grad": ("itermvs_view_weight_grad", (_P, _P, _P, _L, _I, _I, _P)),
+    "view_weight_grad_bf16": ("itermvs_view_weight_grad_bf16", (_P, _P, _P, _L, _I, _I, _P),
+                              "view_weight_grad"),
+    "init_depth": ("itermvs_init_depth", (_P, _P, _P, _P, _L, _I, _I, _P)),
+    "init_depth_grad": ("itermvs_init_depth_grad", (_P, _P, _P, _P, _P, _L, _I, _I, _P)),
     # Not a kernel: 1 where K10's kernels are programmatic dependent launches.
     "convex_upsample_grad_programmatic": ("itermvs_convex_upsample_grad_programmatic", (),
                                           "convex_upsample_grad"),

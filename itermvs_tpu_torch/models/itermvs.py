@@ -8,12 +8,16 @@ K1 `corr_epilogue`; backward K4 `sweep_grad_ref` and K5
 `chunked_warp_corr`. Each depth prediction reads the 256-bin head out
 through `depth_readout` (K6; backward K7 `depth_readout_grad`), and the
 last is ×4 upsampled through `upsample_depth` (K9 `convex_upsample`;
-backward K10 `convex_upsample_grad`). Every bilinear resize (the init
-sweep's view weights and depth, the hidden state with its tanh, the
-reference features of levels 1 and 3, the confidence) runs K28
-`resize_bilinear` (backward K29 `resize_bilinear_grad`; ops/resize.py).
-Each sweep's views are aggregated through `view_aggregate` (K11;
-backward K12 `view_aggregate_grad`). The
+backward K10 `convex_upsample_grad`). The init sweep's view weights
+(PixelViewWeight's softmax over the samples, its max and the ×2 resize)
+run K30 `view_weight` (backward K31 `view_weight_grad`;
+ops/view_weight.py), its depth in training (the softmax expectation, the
+unnormalization and the ×2 resize) K32 `init_depth` (backward K33
+`init_depth_grad`; ops/init_depth.py). Every other bilinear resize (the
+hidden state with its tanh, the reference features of levels 1 and 3,
+the confidence) runs K28 `resize_bilinear` (backward K29
+`resize_bilinear_grad`; ops/resize.py). Each sweep's views are aggregated
+through `view_aggregate` (K11; backward K12 `view_aggregate_grad`). The
 GRU's gates run K13 `gru_reset` and K14 `gru_update` between its
 convolutions (backward K15 `gru_update_grad`, K16 `gru_reset_grad`;
 models/blocks.py `ConvGRU`).
@@ -43,9 +47,10 @@ logits, every softmax, the windowed expectation, the convex upsampling
 weights (K9 reads the bfloat16 mask logits and softmaxes them in
 float32) and every depth and confidence map stay float32.
 
-Six chains run under `torch.profiler.record_function` labels, so that
+Eight chains run under `torch.profiler.record_function` labels, so that
 a profile can sum their device time: `fused_sweep_taps` (K8), `resize`
-(K28: the six bilinear resizes),
+(K28: the four bilinear resizes), `view_weight` (K30), `init_depth`
+(K32),
 `depth_readout` (K6: the 256-bin softmax and the windowed expectation),
 `convex_upsample` (K9: the 9-tap mask softmax and the ×4 convex
 upsample), `view_aggregate` (K11: the view-weighted correlation
@@ -63,10 +68,12 @@ from itermvs_tpu_torch.models.blocks import ConvGRU, ConvReLU, conv, conv_transp
 from itermvs_tpu_torch.ops.depth_range import depth_unnormalization
 from itermvs_tpu_torch.ops.depth_readout import (  # noqa: F401 (windowed_expectation)
     NUM_BINS, RADIUS, depth_readout, windowed_expectation)
+from itermvs_tpu_torch.ops.init_depth import init_depth
 from itermvs_tpu_torch.ops.resize import resize
 from itermvs_tpu_torch.ops.sweep_grad import SweepCorr
 from itermvs_tpu_torch.ops.upsample import upsample_depth
 from itermvs_tpu_torch.ops.view_aggregate import view_aggregate
+from itermvs_tpu_torch.ops.view_weight import view_weight
 from itermvs_tpu_torch.ops.warping import device_constant, fused_sweep_taps
 
 NUM_INIT_SAMPLES = 32   # initialization sweep samples
@@ -127,10 +134,13 @@ class PixelViewWeight(nn.Module):
                                   conv(16, 1, 1, pad=0, dtype=dtype))
 
     def forward(self, corr):
-        """corr: [B, N, G, H, W] → weight [B, H, W] float32."""
+        """corr: [B, N, G, H, W] → (weight [B, H, W], its ×2 resize [B, 2H,
+        2W]), float32: K30 on the logits, under the `view_weight` label;
+        the second carries no gradient."""
         b, n, g, h, w = corr.shape
-        x = self.conv(corr.reshape(b * n, g, h, w)).reshape(b, n, h, w).float()
-        return torch.softmax(x, dim=1).amax(dim=1)
+        x = self.conv(corr.reshape(b * n, g, h, w)).reshape(b, n, h, w)
+        with record_function("view_weight"):
+            return view_weight(x)
 
 
 class CorrNet(nn.Module):
@@ -186,24 +196,19 @@ class Evaluation(nn.Module):
         corr = torch.stack([
             chunked_warp_corr(src, ref_feature, flat_idx[:, v], taps[:, :, v])
             for v, src in enumerate(src_features)], dim=1)         # [B,V−1,N,G,HW]
-        weight = self.pixel_view_weight(
-            corr.reshape(-1, n, GROUPS, h, w)).reshape(b, -1, h * w)
+        weight, weight_up = self.pixel_view_weight(corr.reshape(-1, n, GROUPS, h, w))
         with record_function("view_aggregate"):
-            correlation = view_aggregate(corr.unbind(1), weight)    # [B,N,G,HW]
+            correlation = view_aggregate(corr.unbind(1), weight.reshape(b, -1, h * w))
         score = self.corr_conv1[2](correlation.reshape(b, n, GROUPS, h, w))
-        return bilinear(weight.reshape(b, -1, h, w), (2 * h, 2 * w)), score
+        return weight_up.reshape(b, -1, 2 * h, 2 * w), score
 
     @staticmethod
     def init_depth(score, idmin_b, idmax_b):
         """Init-sweep depth [B, 1, H4, W4]: the expectation of the sample
-        index under the softmax of the score, unnormalized, ×2 upsampled."""
-        n = score.shape[1]
-        probability = torch.softmax(score, dim=1)
-        index = torch.arange(n, dtype=torch.float32,
-                             device=score.device).reshape(1, n, 1, 1)
-        normalized = (index * probability).sum(dim=1, keepdim=True) / (n - 1.0)
-        h, w = score.shape[-2:]
-        return bilinear(depth_unnormalization(normalized, idmin_b, idmax_b), (2 * h, 2 * w))
+        index under the softmax of the score, unnormalized, ×2 upsampled
+        (K32, under the `init_depth` label)."""
+        with record_function("init_depth"):
+            return init_depth(score, idmin_b, idmax_b)
 
     def iter_sweep(self, ref_features, src_features, rel_projs, depth_samples,
                    view_weights):

@@ -12,10 +12,11 @@ busy ms, idle share, kernels and device ms by kind per map, the labelled
 chains), then `chip_smoke.train_full_width` in both dtypes (ms per step,
 one profiled step by kind), then one more profiled training step per
 dtype with the host ops' shapes, listing PyTorch's bilinear resizes,
-var_mean calls and the eager loss's gathers and argmaxes left in it
-(host ops and autograd nodes holding `upsample_bilinear2d`, `var_mean`,
-`VarMean`, `gather` or `argmax` by input shapes, and their device
-kernels, Welford reductions included). Each run's whole output goes to
+softmaxes, var_mean calls and the eager loss's gathers and argmaxes left
+in it (host ops and autograd nodes holding `upsample_bilinear2d`,
+`softmax`, `var_mean`, `VarMean`, `gather` or `argmax` by input shapes,
+and their device kernels, Welford reductions and `cunn_SoftMax*`
+included). Each run's whole output goes to
 `DIR/ab_profile_<run>_<tree>.log` (by default `_export/ab_profile/`);
 the summary lines print here. Each profile's whole kernel table is logged
 too, and its device time by kind is restated with this tree's
@@ -98,7 +99,7 @@ for dt in (torch.float32, torch.bfloat16):
     for e in prof.events():
         if not any(k in e.name for k in ("upsample_bilinear2d", "var_mean", "VarMean",
                                          "Welford", "gather", "Gather", "argmax",
-                                         "ArgMax")):
+                                         "ArgMax", "softmax", "Softmax", "SoftMax")):
             continue
         if e.device_type == torch.autograd.DeviceType.CUDA:
             calls, us = device.get(e.name[:90], (0, 0.0))

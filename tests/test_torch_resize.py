@@ -7,7 +7,8 @@ the DTU weights, the backward against float64 autograd through
 F.interpolate, against F.interpolate's own backward (×½) and against
 `jax.vjp`; `ResizeBilinear`'s gradcheck; the wrappers' refusals; the six
 call sites of a training forward (five in test mode) under the `resize`
-label; chip_smoke's helpers for the card's check.
+label; chip_smoke's helpers for the card's check. (The init sweep's
+view weights and depth ×2 are K30's and K32's: tests/test_torch_init_sweep.py.)
 
 Tolerances: the forward in float32 within 1e-6 of JAX (absolute, on
 N(0, 1) inputs), in bfloat16 within one bfloat16 unit in the last place
@@ -245,11 +246,11 @@ def test_k28_reads_a_batch_strided_input(monkeypatch):
 
 
 def test_the_model_resizes_through_k28_under_its_label(monkeypatch):
-    """A training forward calls K28's wrapper at the six sites of
+    """A training forward calls K28's wrapper at the four sites of
     chip_smoke's RESIZE_SITES (in float32 or the compute dtype as listed,
     tanh at the hidden state), each under the `resize` label, and its
-    backward calls K29 at the four that carry a gradient; a test-mode
-    forward calls the five that are not training-only."""
+    backward calls K29 at the three that carry a gradient; a test-mode
+    forward calls the same four."""
     from torch.profiler import ProfilerActivity, profile
 
     from itermvs_tpu_torch.engine.train_loop import forward_loss, init_weights, to_device_batch
@@ -281,7 +282,7 @@ def test_the_model_resizes_through_k28_under_its_label(monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         loss, _ = forward_loss(model, batch, True)
     assert sorted(calls, key=str) == sorted(want(True), key=str)
-    assert sum(e.name == "resize" for e in prof.events()) == 6
+    assert sum(e.name == "resize" for e in prof.events()) == 4
     loss.backward()
     sites = chip_smoke.resize_sites(width, height, views, 1, torch.float32, train=True)
     assert sorted(backwards, key=str) == sorted(
@@ -298,9 +299,9 @@ def test_the_model_resizes_through_k28_under_its_label(monkeypatch):
 
 def test_resize_work_counts_each_input_and_output_once():
     """K28 reads x and writes the output; K29 reads ∂out (and the output,
-    for tanh) and writes ∂x. A map's 5 resizes at 1600x1152: ≈ 93 MB in
-    float32, 0.028 ms at 3.35 TB/s, ≈ 52 MB in bfloat16; a training
-    forward's 6 at 640x512, batch 4: ≈ 67 MB."""
+    for tanh) and writes ∂x. A map's 4 resizes at 1600x1152: ≈ 91 MB in
+    float32, 0.027 ms at 3.35 TB/s, ≈ 49 MB in bfloat16; a training
+    forward's 4 at 640x512, batch 4: ≈ 65 MB."""
     assert chip_smoke.resize_work(2, 3, 4, 5, 8, 10, 4) == (
         4 * 2 * 3 * (20 + 80), 9 * 2 * 3 * 80, chip_smoke.PEAK_F32_PER_S)
     assert chip_smoke.resize_work(2, 3, 4, 5, 8, 10, 2, tanh=True, grad=True) == (
@@ -308,28 +309,28 @@ def test_resize_work_counts_each_input_and_output_once():
     assert chip_smoke.resize_work(1, 1, 8, 10, 4, 5, 4, grad=True)[1:] == (
         2 * 80, chip_smoke.PEAK_F32_PER_S)
     f32 = chip_smoke.resize_bytes(1600, 1152, 5, 1, torch.float32)
-    assert f32 == pytest.approx(93e6, rel=0.01)
-    assert chip_smoke.resize_bytes(1600, 1152, 5, 1, BF16) == pytest.approx(52e6, rel=0.01)
+    assert f32 == pytest.approx(91e6, rel=0.01)
+    assert chip_smoke.resize_bytes(1600, 1152, 5, 1, BF16) == pytest.approx(49e6, rel=0.01)
     assert chip_smoke.resize_bytes(640, 512, 5, 4, torch.float32, train=True) == \
-        pytest.approx(67e6, rel=0.01)
+        pytest.approx(65e6, rel=0.01)
     bounds = chip_smoke.chain_bound_ms(1600, 1152, 5, 4)
     assert bounds["resize"] == pytest.approx(1e3 * f32 / chip_smoke.PEAK_BYTES_PER_S)
-    assert bounds["resize"] == pytest.approx(0.028, abs=1e-3)
+    assert bounds["resize"] == pytest.approx(0.027, abs=1e-3)
     assert "resize" in chip_smoke.CHAINS
 
 
 def test_resize_sites_and_edge_cases():
-    """Five resizes per map (2 in float32, 3 in the compute dtype), six per
-    training forward, four with a gradient (1 in float32); the edge cases
-    hold ×2, ×½, ×4, tanh, odd maps and ratios that are not powers of
-    two."""
+    """Four resizes per map and per training forward (1 in float32, 3 in
+    the compute dtype), three with a gradient, all in the compute dtype
+    (the init sweep's view weights and depth ×2 are K30's and K32's); the
+    edge cases hold ×2, ×½, ×4, tanh, odd maps and ratios that are not
+    powers of two."""
     sites = chip_smoke.resize_sites(1600, 1152, 5, 1, BF16)
-    assert [s[0] for s in sites] == ["ref_level1", "ref_level3", "view_weights", "hidden",
-                                     "confidence"]
+    assert [s[0] for s in sites] == ["ref_level1", "ref_level3", "hidden", "confidence"]
     assert [s[7] for s in sites].count(BF16) == 3
     step = chip_smoke.resize_sites(640, 512, 5, 4, BF16, train=True)
-    assert len(step) == 6 and [s[0] for s in step if s[9]] == [
-        "ref_level1", "ref_level3", "hidden", "init_depth"]
+    assert len(step) == 4 and [s[0] for s in step if s[9]] == [
+        "ref_level1", "ref_level3", "hidden"]
     assert ("ref_level1", 4, 16, 256, 320, 128, 160, BF16, False, True) in step
     assert ("confidence", 4, 1, 128, 160, 512, 640, torch.float32, False, False) in step
     edges = chip_smoke.RESIZE_EDGE_CASES
